@@ -1,0 +1,35 @@
+"""hamiltorch_tpu_torch — the PyTorch/CUDA port of ``hamiltorch_tpu``.
+
+A second package beside the JAX one, which stays the reference.  Module
+paths and public names mirror ``hamiltorch_tpu``'s, so each counterpart is
+found under the same name.  This package imports ``torch`` and never
+``jax``.
+
+Ported so far: the HMC chain sampler (``sample`` for ``Sampler.HMC`` /
+``HMC_NUTS``, ``run_hmc``, ``run_hmc_chains``) with its potential, mass,
+leapfrog, dual-averaging and driver layers, the flagship BNN models, and
+the fused flagship sampler ``kernels.bnn_hmc`` as a CUDA kernel for Hopper.
+ROADMAP.md lists what is still to port.
+"""
+
+__version__ = "0.6.0"
+
+from .api import sample
+from .enums import Integrator, Metric, Sampler
+from .samplers.driver import MCMCConfig, MCMCResult, MCMCStats
+from .samplers.hmc import run_hmc, run_hmc_chains
+from .utils.rng import next_key, set_random_seed
+
+__all__ = [
+    "sample",
+    "Sampler",
+    "Integrator",
+    "Metric",
+    "set_random_seed",
+    "next_key",
+    "run_hmc",
+    "run_hmc_chains",
+    "MCMCConfig",
+    "MCMCResult",
+    "MCMCStats",
+]

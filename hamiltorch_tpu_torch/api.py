@@ -1,0 +1,145 @@
+"""hamiltorch-compatible façade.
+
+Counterpart of ``hamiltorch_tpu/api.py::sample``, with the same signature
+and the same return convention: the initial params followed by the chain
+state after each draw ``n > burn``, as one (num_kept, D) tensor;
+``debug=2`` returns ``(samples, final_step_size)`` under HMC_NUTS and
+``(samples, acc_rate)`` otherwise.  ``key`` is an integer seed; without it
+the module-level generator set by ``set_random_seed`` supplies one.
+
+This slice ports the ``Sampler.HMC`` / ``Sampler.HMC_NUTS`` branch with the
+leapfrog integrator.  The other samplers, the splitting integrators,
+``store_on_GPU=False``, windowed mass warmup and progress lines raise
+``NotImplementedError`` until they are ported (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .enums import Integrator, Metric, Sampler
+from .samplers.driver import MCMCConfig, MCMCResult
+from .samplers.hmc import run_hmc
+from .utils.rng import next_key
+
+_SPLITTING = (Integrator.SPLITTING, Integrator.SPLITTING_RAND, Integrator.SPLITTING_KMID)
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to hamiltorch_tpu_torch yet; see ROADMAP.md, queue 1"
+    )
+
+
+def _kept_samples(params_init: torch.Tensor, result: MCMCResult, burn: int,
+                  thin: int = 1) -> torch.Tensor:
+    """[init] + states for draws n > burn (reference: samplers.py:1007).
+
+    With ``thin > 1`` kept row ``b`` holds the state after transition
+    ``(b+1)*thin - 1``; keep the rows whose transition index exceeds
+    ``burn``.
+    """
+    thin = max(thin, 1)
+    keep_from = max(0, -(-(burn + 2) // thin) - 1)  # burn=-1: keep all
+    return torch.cat([params_init[None, :], result.samples[keep_from:]], dim=0)
+
+
+def sample(
+    log_prob_func,
+    params_init,
+    num_samples: int = 10,
+    num_steps_per_sample: int = 10,
+    step_size: float = 0.1,
+    burn: int = 0,
+    jitter: Optional[float] = None,
+    inv_mass=None,
+    normalizing_const: float = 1.0,  # dead in the reference too
+    softabs_const: Optional[float] = None,
+    explicit_binding_const: float = 100.0,
+    fixed_point_threshold: float = 1e-5,
+    fixed_point_max_iterations: int = 1000,
+    jitter_max_tries: int = 10,  # accepted for signature parity, unused
+    sampler: Sampler = Sampler.HMC,
+    integrator: Integrator = Integrator.IMPLICIT,
+    metric: Metric = Metric.HESSIAN,
+    debug: int = 0,
+    desired_accept_rate: float = 0.8,
+    store_on_GPU: bool = True,
+    pass_grad=None,
+    verbose: bool = True,
+    key: Optional[int] = None,
+    adapt_mass: bool = False,
+    thin: int = 1,
+    progress_every: int = 0,
+):
+    """Drop-in equivalent of the reference ``hamiltorch.sample``.
+
+    ``params_init`` is a 1-d tensor; the chain runs on its device.  As in
+    the reference, the integrator argument is ignored by plain HMC unless
+    it names a splitting scheme.
+    """
+    params_init = torch.as_tensor(params_init)
+    if params_init.ndim != 1:
+        raise RuntimeError("params_init must be a 1d array.")
+    if not bool(torch.all(torch.isfinite(params_init))):
+        raise RuntimeError("params_init contains non-finite values.")
+    if burn >= num_samples:
+        raise RuntimeError("burn must be less than num_samples.")
+    if thin > 1 and burn > 0 and burn % thin:
+        raise RuntimeError("burn must be divisible by thin.")
+    if sampler == Sampler.HMC_NUTS and burn == 0:
+        raise RuntimeError("burn must be greater than 0 for NUTS.")
+    if sampler not in (Sampler.HMC, Sampler.HMC_NUTS):
+        raise _not_ported(f"sampler={sampler}")
+    if integrator in _SPLITTING or isinstance(log_prob_func, (list, tuple)):
+        raise _not_ported("split HMC (the splitting integrators)")
+    if not store_on_GPU:
+        raise _not_ported("store_on_GPU=False (host offload of the trace)")
+    if adapt_mass:
+        raise _not_ported("adapt_mass (windowed mass warmup)")
+    if progress_every:
+        raise _not_ported("progress_every (progress lines)")
+    if key is None:
+        key = next_key()
+    if isinstance(log_prob_func(params_init), (tuple, list)):
+        # the reference differentiates element [0] of a tuple return
+        # (collect_gradients, samplers.py:54-58)
+        orig = log_prob_func
+
+        def log_prob_func(t):
+            return orig(t)[0]
+
+    adapt = sampler == Sampler.HMC_NUTS
+    config = MCMCConfig(
+        num_samples=num_samples,
+        num_steps_per_sample=num_steps_per_sample,
+        step_size=step_size,
+        burn=burn,
+        adapt_step_size=adapt,
+        desired_accept_rate=desired_accept_rate,
+        thin=thin,
+    )
+    result = run_hmc(key, log_prob_func, params_init, config,
+                     inv_mass=inv_mass, pass_grad=pass_grad)
+
+    samples = _kept_samples(params_init, result, burn, thin=thin)
+    if debug == 1:
+        h0s = result.stats.energy_old.tolist()
+        h1s = result.stats.energy_new.tolist()
+        accs = result.stats.accepted.tolist()
+        for i, (h0, h1, acc) in enumerate(zip(h0s, h1s, accs)):
+            print(
+                f"Step: {i}, Current Hamiltonian: {h0:.4f}, "
+                f"Proposed Hamiltonian: {h1:.4f}, "
+                f"{'accepted' if acc else 'rejected'}"
+            )
+    if verbose:
+        print(f"Acceptance Rate {float(result.acc_rate):.2f}")
+
+    if adapt and debug == 2:
+        return samples, float(result.final_step_size)
+    if debug == 2:
+        return samples, float(result.acc_rate)
+    return samples

@@ -1,0 +1,224 @@
+"""The MCMC driver: a loop over draws for a batch of chains.
+
+Counterpart of ``hamiltorch_tpu/samplers/driver.py``.  Per draw: momentum
+noise, one transition, the Metropolis test against log U(0, 1), and the
+burn/adapt bookkeeping.  As in the JAX package:
+
+* divergences are branchless: a non-finite energy difference is masked out
+  of the accept test and counts as alpha = 0 in adaptation;
+* the potential evaluation at the current state is carried, so a draw
+  costs exactly L gradient evaluations;
+* dual averaging adapts while ``n < burn``, freezes to the averaged step
+  size at ``n == burn`` and holds afterwards;
+* on a rejection the chain stays where it is.
+
+Where the JAX driver is one chain ``vmap``-ed over many, this one runs every
+chain at once: the state carries a leading chain axis, and the transition
+it is given is already batched (``samplers/hmc.py`` builds it with
+``torch.func.vmap``).  The trace goes into a tensor allocated once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+from ..utils.pytree import tree_leaves, tree_map
+from ..utils.rng import draw_noise
+from .adaptation import DualAveragingState, da_init, da_update
+
+
+class ChainState(NamedTuple):
+    """Current chain position with its cached potential evaluation."""
+
+    theta: torch.Tensor
+    logp: torch.Tensor
+    grad: torch.Tensor
+
+
+class MCMCStats(NamedTuple):
+    """Per-draw diagnostics, (chains, kept draws) each."""
+
+    accept_prob: torch.Tensor  # alpha = min(1, exp(H0 - H1)), 0 on divergence
+    accepted: torch.Tensor  # bool MH outcome
+    divergent: torch.Tensor  # bool, non-finite energy
+    energy_old: torch.Tensor
+    energy_new: torch.Tensor
+    step_size: torch.Tensor  # step size used for this draw
+
+
+class MCMCResult(NamedTuple):
+    samples: torch.Tensor  # chain state after each kept draw
+    stats: MCMCStats
+    final_step_size: torch.Tensor
+    acc_rate: torch.Tensor
+    final_state: ChainState  # carry for chunked sampling
+    final_da: DualAveragingState
+
+
+def validate_common_config(config) -> None:
+    """Reject a non-positive draw count or step size at construction."""
+    if config.num_samples < 1:
+        raise ValueError(f"num_samples={config.num_samples}; must be >= 1")
+    if not config.step_size > 0:
+        raise ValueError(
+            f"step_size={config.step_size}; must be positive (a zero step "
+            "size leaves every draw at the initial point)"
+        )
+    # negative burn is allowed: the reference's notebooks use burn=-1 as
+    # "no burn" and the façade keeps that
+
+
+@dataclasses.dataclass(frozen=True)
+class MCMCConfig:
+    """Sampling configuration (the JAX package's fields)."""
+
+    num_samples: int
+    num_steps_per_sample: int = 10
+    step_size: float = 0.1
+    burn: int = 0
+    adapt_step_size: bool = False  # the reference's "HMC_NUTS" mode
+    desired_accept_rate: float = 0.8
+    # thin > 1: keep every thin-th draw; num_samples counts ALL transitions
+    # and must divide by thin.  Kept stats: bools are any-within-window,
+    # accept_prob the window mean, energies and step size the kept draw's.
+    thin: int = 1
+    # Stan-style windowed mass warmup; the samplers raise NotImplementedError
+    # for it with burn > 0 until it is ported (ROADMAP.md, queue 1)
+    adapt_mass: bool | str = False
+
+    def __post_init__(self):
+        validate_common_config(self)
+        if self.adapt_mass not in (False, True, "diag", "dense"):
+            raise ValueError(
+                f"adapt_mass={self.adapt_mass!r}; expected False, True, "
+                "'diag' or 'dense'"
+            )
+        if self.thin < 1 or self.num_samples % self.thin:
+            raise ValueError("num_samples must be divisible by thin >= 1")
+
+
+# A transition proposes new states for every chain and returns the two
+# Hamiltonians the Metropolis test needs:
+# (z (C, D), state, step_size (C,)) -> (proposal, H0 (C,), H1 (C,)).
+TransitionFn = Callable[
+    [torch.Tensor, ChainState, torch.Tensor],
+    Tuple[ChainState, torch.Tensor, torch.Tensor],
+]
+
+
+def _tree_where(pred, a, b):
+    def where(x, y):
+        return torch.where(pred.reshape(pred.shape + (1,) * (x.ndim - 1)), x, y)
+
+    return tree_map(where, a, b)
+
+
+def run_mcmc(
+    key: int,
+    init_state: ChainState,
+    transition: TransitionFn,
+    config: MCMCConfig,
+    init_da: DualAveragingState | None = None,
+    start_iter: int = 0,
+    _noise=None,
+) -> MCMCResult:
+    """Run ``config.num_samples`` draws of ``transition`` from ``init_state``.
+
+    Every tensor of ``init_state`` has a leading chain axis.  ``key`` is the
+    integer seed of the per-draw streams (``utils/rng.py``).
+    ``init_da``/``start_iter`` continue a previous chunk's adaptation and
+    random stream exactly.  ``_noise = (z, log_u)``, of shapes
+    ``(num_samples, C, D)`` and ``(num_samples, C)``, replaces the drawn
+    noise (a test hook).
+    """
+    leaves = tree_leaves(init_state.theta)
+    dtype, device = leaves[0].dtype, leaves[0].device
+    num_chains = leaves[0].shape[0]
+    dim = sum(leaf[0].numel() for leaf in leaves)
+    if init_da is None:
+        init_da = da_init(
+            torch.full((num_chains,), config.step_size, dtype=dtype, device=device)
+        )
+    da = init_da
+    thin = config.thin
+    kept = config.num_samples // thin
+
+    samples = tree_map(
+        lambda leaf: torch.empty(
+            (num_chains, kept) + tuple(leaf.shape[1:]), dtype=leaf.dtype, device=device
+        ),
+        init_state.theta,
+    )
+    stat_buf = {
+        name: torch.empty(
+            (num_chains, kept),
+            dtype=torch.bool if name in ("accepted", "divergent") else dtype,
+            device=device,
+        )
+        for name in MCMCStats._fields
+    }
+    acc_frac_sum = torch.zeros(num_chains, dtype=dtype, device=device)
+    adapt = config.adapt_step_size and config.burn > 0
+
+    state = init_state
+    for k in range(kept):
+        div_any = torch.zeros(num_chains, dtype=torch.bool, device=device)
+        alpha_sum = torch.zeros(num_chains, dtype=dtype, device=device)
+        acc_cnt = torch.zeros(num_chains, dtype=dtype, device=device)
+        for j in range(thin):
+            n = start_iter + k * thin + j
+            if _noise is None:
+                z, log_u = draw_noise(key, n, num_chains, dim, dtype, device)
+            else:
+                z, log_u = _noise[0][n - start_iter], _noise[1][n - start_iter]
+            step_size = da.step_size
+            proposal, h0, h1 = transition(z, state, step_size)
+            log_ratio = h0 - h1
+            finite = torch.isfinite(log_ratio)
+            rho = torch.clamp(
+                torch.where(finite, log_ratio, torch.full_like(log_ratio, -torch.inf)),
+                max=0.0,
+            )
+            accept = finite & (rho >= log_u)
+            state = ChainState(
+                *(_tree_where(accept, a, b) for a, b in zip(proposal, state))
+            )
+            alpha = torch.where(finite, torch.exp(rho), torch.zeros_like(rho))
+
+            div_any |= ~finite
+            alpha_sum += alpha
+            acc_cnt += accept.to(dtype)
+
+            if adapt:
+                # adapt while n < burn; at n == burn freeze to the averaged
+                # step size; afterwards hold
+                if n < config.burn:
+                    da = da_update(
+                        da,
+                        torch.where(finite, log_ratio, torch.full_like(log_ratio, torch.nan)),
+                        n,
+                        desired_accept_rate=config.desired_accept_rate,
+                    )
+                elif n == config.burn:
+                    da = dataclasses.replace(da, step_size=torch.exp(da.log_eps_bar))
+
+        tree_map(lambda buf, t: buf[:, k].copy_(t), samples, state.theta)
+        stat_buf["accept_prob"][:, k] = alpha_sum / thin
+        stat_buf["accepted"][:, k] = accept
+        stat_buf["divergent"][:, k] = div_any
+        stat_buf["energy_old"][:, k] = h0
+        stat_buf["energy_new"][:, k] = h1
+        stat_buf["step_size"][:, k] = step_size
+        acc_frac_sum += acc_cnt / thin
+
+    return MCMCResult(
+        samples=samples,
+        stats=MCMCStats(**stat_buf),
+        final_step_size=da.step_size,
+        acc_rate=acc_frac_sum / kept,
+        final_state=state,
+        final_da=da,
+    )

@@ -1,0 +1,143 @@
+"""Euclidean HMC (and the step-size-adapting "HMC_NUTS" mode).
+
+Counterpart of ``hamiltorch_tpu/samplers/hmc.py``: the driver loop with the
+leapfrog integrator and a mass operator.  One chain's transition is written
+as in the JAX package and ``torch.func.vmap``-ed over the chain axis; the
+noise is drawn outside the ``vmap``, one generator per chain and draw.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..integrators.leapfrog import PhasePoint, leapfrog
+from ..ops.mass import MassOperator, make_mass, make_mass_tree
+from ..ops.potential import resolve_potential, value_and_grad
+from ..utils.pytree import is_param_tree, stack_param_tree, tree_leaves, tree_map
+from .driver import ChainState, MCMCConfig, MCMCResult, TransitionFn, run_mcmc
+
+
+def hmc_transition(value_and_grad_fn, mass: MassOperator, num_steps: int) -> TransitionFn:
+    """One chain's HMC proposal: momentum from ``z`` -> leapfrog -> energies."""
+
+    def transition(z, state: ChainState, step_size):
+        p = mass.sample(z)
+        h0 = -state.logp + mass.kinetic(p)
+        end = leapfrog(
+            value_and_grad_fn,
+            mass,
+            PhasePoint(state.theta, p, state.logp, state.grad),
+            step_size,
+            num_steps,
+        )
+        h1 = -end.logp + mass.kinetic(end.momentum)
+        return ChainState(end.theta, end.logp, end.grad), h0, h1
+
+    return transition
+
+
+def init_chain_state(log_prob_fn, theta0) -> ChainState:
+    """One chain's state with its potential evaluation at ``theta0``."""
+    logp, grad = value_and_grad(log_prob_fn)(theta0)
+    return ChainState(theta=theta0, logp=logp, grad=grad)
+
+
+def _as_like(value, like: torch.Tensor):
+    """``value`` (array, tensor or tree of them) on ``like``'s device/dtype."""
+    if value is None:
+        return None
+    if isinstance(value, dict):
+        return tree_map(lambda v: _as_like(v, like), value)
+    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _run_hmc_batched(key, theta0, log_prob_fn, config, mass, _noise=None) -> MCMCResult:
+    """HMC over chains on the leading axis of every leaf of ``theta0``."""
+    if config.adapt_mass and config.burn > 0:
+        raise NotImplementedError(
+            "windowed mass warmup (adapt_mass with burn > 0) is not ported "
+            "yet; see ROADMAP.md, queue 1"
+        )
+    vg = value_and_grad(log_prob_fn)
+    state = torch.func.vmap(lambda t: init_chain_state(log_prob_fn, t))(theta0)
+    transition = torch.func.vmap(hmc_transition(vg, mass, config.num_steps_per_sample))
+    return run_mcmc(key, state, transition, config, _noise=_noise)
+
+
+def run_hmc(
+    key: int,
+    log_prob_fn: Callable[[torch.Tensor], torch.Tensor],
+    theta0,
+    config: MCMCConfig,
+    inv_mass=None,
+    pass_grad=None,
+    _noise=None,
+) -> MCMCResult:
+    """Sample a single HMC chain.
+
+    ``theta0`` is a flat (D,) tensor or a parameter tree (dict of tensors);
+    with a tree the state and the ``samples`` keep its structure, with a
+    leading draws axis on each leaf.  ``inv_mass`` may then be a matching
+    tree of per-leaf diagonals.  ``key`` is an integer seed.  ``_noise =
+    (z (S, D), log_u (S,))`` replaces the drawn noise (a test hook).
+    """
+    lp = resolve_potential(log_prob_fn, pass_grad)
+    if is_param_tree(theta0):
+        template, stacked = stack_param_tree(theta0, 1, stacked=False)
+        mass = make_mass_tree(_as_like(inv_mass, tree_leaves(template)[0]), template)
+    else:
+        theta0 = torch.as_tensor(theta0)
+        stacked = theta0[None]
+        mass = make_mass(_as_like(inv_mass, theta0), theta0.shape[0])
+    if _noise is not None:
+        _noise = (_noise[0][:, None], _noise[1][:, None])
+    res = _run_hmc_batched(key, stacked, lp, config, mass, _noise=_noise)
+
+    def first(t):  # drop the chain axis
+        return t[0]
+
+    return MCMCResult(
+        samples=tree_map(first, res.samples),
+        stats=type(res.stats)(*(s[0] for s in res.stats)),
+        final_step_size=res.final_step_size[0],
+        acc_rate=res.acc_rate[0],
+        final_state=ChainState(*(tree_map(first, f) for f in res.final_state)),
+        final_da=type(res.final_da)(
+            **{k: v[0] for k, v in vars(res.final_da).items()}
+        ),
+    )
+
+
+def run_hmc_chains(
+    key: int,
+    log_prob_fn: Callable[[torch.Tensor], torch.Tensor],
+    theta0,
+    config: MCMCConfig,
+    num_chains: int,
+    inv_mass=None,
+    pass_grad=None,
+    theta0_is_stacked: bool | None = None,
+    _noise=None,
+) -> MCMCResult:
+    """Independent chains batched on a leading axis.
+
+    ``theta0`` may be (D,) (copied to every chain) or (num_chains, D), or a
+    parameter tree, single-chain (copied) or with a leading ``num_chains``
+    axis on every leaf; ``theta0_is_stacked`` overrides the detection.
+    Results carry the chain axis first: ``samples`` is (C, N, D) or a tree
+    of (C, N, ...) leaves, stats and ``acc_rate`` are per chain.  ``key`` is
+    an integer seed; chain ``c`` draws from its own stream.  ``_noise = (z
+    (S, C, D), log_u (S, C))`` replaces the drawn noise (a test hook).
+    """
+    lp = resolve_potential(log_prob_fn, pass_grad)
+    if is_param_tree(theta0):
+        template, theta0 = stack_param_tree(theta0, num_chains, stacked=theta0_is_stacked)
+        mass = make_mass_tree(_as_like(inv_mass, tree_leaves(template)[0]), template)
+    else:
+        theta0 = torch.as_tensor(theta0)
+        if theta0.ndim == 1:
+            theta0 = theta0.expand((num_chains,) + tuple(theta0.shape)).clone()
+        mass = make_mass(_as_like(inv_mass, theta0), theta0.shape[-1])
+    return _run_hmc_batched(key, theta0, lp, config, mass, _noise=_noise)

@@ -1,0 +1,78 @@
+"""Seeds and per-draw random streams.
+
+Counterpart of ``hamiltorch_tpu/utils/rng.py``.  The JAX package keys every
+sampler with a ``jax.random`` key and derives each draw's noise with
+``fold_in(key, n)`` (``samplers/driver.py``), so a run split into chunks
+draws the same numbers as the unsplit run.  Here a sampler's key is an
+integer seed, and the noise of chain ``c`` at global draw ``n`` comes from a
+``torch.Generator`` seeded with a hash of ``(seed, c, n)``: the stream of a
+draw depends on nothing else, so chunked runs reproduce the unchunked one.
+
+The numbers are PyTorch's, not ``jax.random``'s: tests that compare the two
+packages draw with numpy (or with ``jax.random`` on the test side) and hand
+the noise to both.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+_MASK64 = (1 << 64) - 1
+
+_global_gen: torch.Generator | None = None
+
+
+def set_random_seed(seed: int | None = None) -> int:
+    """Seed the module-level generator used when callers pass no key.
+
+    As in the JAX package this does not run at import time; call it (or pass
+    explicit keys) before sampling.  Returns the seed used.
+    """
+    global _global_gen
+    seed = int((time.time() * 1e6) % 1e8) if seed is None else int(seed)
+    _global_gen = torch.Generator().manual_seed(seed)
+    return seed
+
+
+def next_key() -> int:
+    """A fresh integer key drawn from the module-level generator."""
+    if _global_gen is None:
+        set_random_seed()
+    return int(torch.randint(0, 2**62, (), generator=_global_gen))
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def draw_seed(key: int, chain: int, n: int) -> int:
+    """The generator seed of chain ``chain`` at global draw ``n``."""
+    h = _splitmix64(int(key) & _MASK64)
+    h = _splitmix64(h ^ (int(chain) & _MASK64))
+    h = _splitmix64(h ^ (int(n) & _MASK64))
+    return h >> 1  # manual_seed takes a non-negative 63-bit value
+
+
+def draw_noise(key: int, n: int, num_chains: int, dim: int,
+               dtype=torch.float32, device=None):
+    """Per-draw noise of every chain: ``(z, log_u)``.
+
+    ``z`` is ``(num_chains, dim)`` standard normal (the momentum draw before
+    the mass operator shapes it) and ``log_u`` is ``(num_chains,)``, the log
+    of one uniform per chain for the Metropolis test.  Chain ``c`` draws
+    from its own generator seeded by ``draw_seed(key, c, n)``.
+    """
+    device = torch.device("cpu") if device is None else torch.device(device)
+    gen = torch.Generator(device=device)
+    z = torch.empty((num_chains, dim), dtype=dtype, device=device)
+    u = torch.empty((num_chains,), dtype=dtype, device=device)
+    for c in range(num_chains):
+        gen.manual_seed(draw_seed(key, c, n))
+        z[c].normal_(generator=gen)
+        u[c : c + 1].uniform_(generator=gen)
+    return z, torch.log(u)
