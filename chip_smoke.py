@@ -10,18 +10,36 @@ the kernels are built for sm_90a).  It
 2. builds every CUDA kernel of the port from the sources in the checkout
    (one ``nvcc`` per source, all started together) and prints the time;
 3. holds each kernel against its plain PyTorch version on the same inputs
-   and the same injected noise, at the flagship shape and at a small
-   ragged one, and fails above the stated tolerance, on any differing
-   accept decision, or where the gradient's part of the move is too small
-   beside the tolerance for the comparison to see a wrong gradient;
-4. times each kernel and its plain version at the flagship shape (CUDA
-   events, median of 3, in turns);
-5. drives the main path with every launch count set to 0 first: the fused
-   flagship sampler ``kernels.bnn_hmc`` and ``run_hmc_chains`` on the
-   flagship BNN (64 chains, 10 draws x 50 steps, step 2e-4), plus
-   ``sample()`` on the 3-D Gaussian, then reads the counts and fails if a
-   kernel was not launched;
-6. prints one JSON line per kernel summary and, last, the device line.
+   and the same injected noise, and fails above the stated tolerance, on
+   any differing accept decision, or where the gradient's part of the move
+   is too small beside the tolerance for the comparison to see a wrong
+   gradient: ``bnn_hmc`` and ``bnn_mclmc`` at the flagship and at a small
+   ragged shape, ``gaussian_hmc`` with diagonal P at D=3 and dense P at
+   D=128;
+4. times each kernel and its plain version (CUDA events, median of 3, in
+   turns) and the cuBLAS GEMMs (``torch.matmul``) of the products each
+   kernel computes in its body, and computes each kernel's bound: the
+   larger of its FLOPs at the float32 FMA peak and its bytes at the memory
+   rate;
+5. drives the main paths, each with the launch counts set to 0 just before
+   it and read just after, and fails if its kernel was not launched:
+   - HMC: the fused flagship sampler ``kernels.bnn_hmc`` and
+     ``run_hmc_chains`` on the flagship BNN (64 chains, 10 draws x 50
+     steps, step 2e-4), plus ``sample()`` on the 3-D Gaussian;
+   - MCLMC: ``run_mclmc_chains`` tunes 64 flagship chains (1000 steps, as
+     ``bench.py`` does), frozen chunks resume with ``resume_from`` (timed),
+     and ``kernels.bnn_mclmc`` runs from the tuned state and velocity at the
+     median tuned (eps, L); its mean var_e must lie within 2x of the
+     mean(dE^2)/d of a frozen chunk resumed at that same (eps, L) on the
+     potential in float64 (at that step dE is below the float32 rounding
+     of the flagship's logp);
+   - Gaussian: ``kernels.gaussian_hmc`` recovers the moments of the 3-D
+     diagonal, 2-D dense and shifted-mean Gaussians of
+     ``tests/test_kernels.py`` (256 chains x 600 draws, L=6, eps=0.2), the
+     same seed gives the same trace, and chains differ;
+6. checks the tiny flagship on the card against the CPU;
+7. prints one JSON line with every kernel's summary and, last, the device
+   line.
 
 There is no CPU path: without a CUDA device it exits non-zero and prints
 no result.  TF32 is off for every float32 matmul (cuBLAS and cuDNN).
@@ -42,19 +60,29 @@ REPO = Path(__file__).resolve().parent
 KERNELS = [
     ("bnn_hmc", "cuda", "hamiltorch_tpu_torch/kernels/csrc/bnn_hmc.cu",
      "hamiltorch_tpu/kernels/bnn_hmc.py:143"),
+    ("bnn_mclmc", "cuda", "hamiltorch_tpu_torch/kernels/csrc/bnn_mclmc.cu",
+     "hamiltorch_tpu/kernels/bnn_mclmc.py:168"),
+    ("gaussian_hmc", "cuda", "hamiltorch_tpu_torch/kernels/csrc/gaussian_hmc.cu",
+     "hamiltorch_tpu/kernels/gaussian_hmc.py:114"),
 ]
 # Kernel vs plain: parameters after a few draws differ only by float32
 # rounding of differently ordered sums (expected ~1e-7); 1e-5 leaves 100x.
 ATOL = 1e-5
-# The comparison must see the gradient: on chains that accepted every draw,
-# the part of the move that the gradient makes (final theta less the
-# drift-only theta0 + eps * L * sum(momenta)) must reach SIGNAL in every
-# parameter block and in every 64-row tile of W1 (the backward kernel's
-# I-tiles, the ragged last one included), so that a gradient wrong by more
-# than ATOL / SIGNAL = 1% fails.
+# MCLMC's var_e is a float64 sum of dE^2 on both sides; dE is a difference
+# of float64 logp sums at states that differ by float32 rounding.
+VAR_E_RTOL = 1e-3
+# The comparison must see the gradient: the part of the move that the
+# gradient makes must reach SIGNAL in every parameter block and in every
+# 64-row tile of W1 (the backward kernel's I-tiles, the ragged last one
+# included), so that a gradient wrong by more than ATOL / SIGNAL = 1% fails.
 SIGNAL = 100 * ATOL
 W1_ROW_TILE = 64
 FLAGSHIP = dict(n=1024, i=784, h=128, c=64)
+# the card's float32 FMA peak and memory rate (H100 SXM data sheet, 700 W)
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+MCLMC_TUNE_STEPS = 1000  # bench.py:446
+MCLMC_CHUNK = 200  # frozen steps per chunk (every 10th kept)
 
 
 class SmokeError(RuntimeError):
@@ -80,25 +108,41 @@ def bnn_inputs(torch, n, i, h, c, seed, device):
     return [t.to(device).contiguous() for t in (x, y, w1, b1, w2, b2)]
 
 
-def gradient_signal(torch, args, want, momenta, steps, eps):
-    """Smallest gradient part of the move over W1's row tiles and b1, w2, b2.
+def flat(torch, parts):
+    """(C, D) from per-chain (w1, b1, w2, b2)."""
+    return torch.cat([t.reshape(t.shape[0], -1) for t in parts], dim=1)
 
-    Only chains that accepted every draw count: their drift-only position
-    is theta0 + eps * L * (sum of the draws' momenta).
-    """
-    w1, b1, w2, b2 = args[2:]
-    c, i_dim, h = w1.shape
+
+def block_min(move, i_dim, h):
+    """Smallest max |move| over W1's 64-row tiles and b1, w2, b2 ((K, D) flat)."""
+    s0, s1 = i_dim * h, i_dim * h + h
+    w1_part = move[:, :s0].reshape(-1, i_dim, h)
+    blocks = [w1_part[:, r:r + W1_ROW_TILE] for r in range(0, i_dim, W1_ROW_TILE)]
+    blocks += [move[:, s0:s1], move[:, s1:s1 + h], move[:, s1 + h:]]
+    return min(float(b.abs().max()) for b in blocks)
+
+
+def hmc_gradient_signal(torch, args, want, momenta, steps, eps):
+    """The gradient's part of bnn_hmc's move, on chains that accepted every
+    draw: their drift-only position is theta0 + eps * L * sum(momenta)."""
+    _, i_dim, h = args[2].shape
     full = want[4] == 1.0
     if not bool(full.any()):
         raise SmokeError("no chain accepted every draw: the gradient check sees nothing")
-    theta0 = torch.cat([t.reshape(c, -1) for t in (w1, b1, w2, b2)], dim=1)
-    theta1 = torch.cat([t.reshape(c, -1) for t in want[:4]], dim=1)
-    grad_part = (theta1 - theta0 - eps * steps * momenta.sum(dim=0))[full].abs()
-    s0, s1 = i_dim * h, i_dim * h + h
-    w1_part = grad_part[:, :s0].reshape(-1, i_dim, h)
-    blocks = [w1_part[:, r:r + W1_ROW_TILE] for r in range(0, i_dim, W1_ROW_TILE)]
-    blocks += [grad_part[:, s0:s1], grad_part[:, s1:s1 + h], grad_part[:, s1 + h:]]
-    return min(float(b.max()) for b in blocks)
+    move = flat(torch, want[:4]) - flat(torch, args[2:]) - eps * steps * momenta.sum(dim=0)
+    return block_min(move[full], i_dim, h)
+
+
+def check_close(name, err, signal):
+    if not err <= ATOL:
+        raise SmokeError(f"{name} disagrees with its plain version: {err:.3e} > {ATOL}")
+    if not signal >= SIGNAL:
+        raise SmokeError(f"{name}: the gradient moves the result by {signal:.3e} < {SIGNAL}; "
+                         "the comparison could not see a wrong gradient")
+
+
+def max_err(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
 def compare_bnn_hmc(torch, shape, draws, steps, eps, seed, device):
@@ -120,18 +164,81 @@ def compare_bnn_hmc(torch, shape, draws, steps, eps, seed, device):
             raise SmokeError("bnn_hmc returned non-finite values")
     if not torch.equal(got[4], want[4]):
         raise SmokeError(f"accept rates differ: kernel {got[4].tolist()} plain {want[4].tolist()}")
-    err = max(float((a - b).abs().max()) for a, b in zip(got[:4], want[:4]))
+    err = max_err(got[:4], want[:4])
     scale = max(float(b.abs().max()) for b in want[:4])
-    signal = gradient_signal(torch, args, want, noise[0], steps, eps)
+    signal = hmc_gradient_signal(torch, args, want, noise[0], steps, eps)
     print(f"bnn_hmc vs plain {shape} {draws}x{steps} eps={eps}: max_abs_err={err:.3e} "
           f"max_rel_err={err / scale:.3e} acc_mean={float(want[4].mean()):.4f} "
           f"min_gradient_move={signal:.3e}")
-    if not err <= ATOL:
-        raise SmokeError(f"bnn_hmc disagrees with its plain version: {err:.3e} > {ATOL}")
-    if not signal >= SIGNAL:
-        raise SmokeError(f"the gradient moves the parameters by {signal:.3e} < {SIGNAL}: "
-                         "the comparison could not see a wrong gradient")
+    check_close("bnn_hmc", err, signal)
     return err, float(want[4].mean())
+
+
+def compare_bnn_mclmc(torch, shape, draws, eps, length, seed, device):
+    """Kernel vs plain on injected refresh normals: parameters within ATOL,
+    var_e within VAR_E_RTOL; the gradient's part of the move (the result
+    less the plain run at tau = 0) must be large beside ATOL."""
+    from hamiltorch_tpu_torch.kernels.bnn_mclmc import bnn_mclmc, bnn_mclmc_reference
+
+    args = bnn_inputs(torch, shape["n"], shape["i"], shape["h"], shape["c"], seed, device)
+    dim = shape["i"] * shape["h"] + 2 * shape["h"] + 1
+    gen = torch.Generator().manual_seed(seed + 1)
+    u = torch.randn(shape["c"], dim, generator=gen).to(device)
+    noise = torch.randn(draws, shape["c"], dim, generator=gen).to(device)
+    kw = dict(num_samples=draws, step_size=eps, length=length, _noise=noise)
+    got = bnn_mclmc(seed, *args, u, tau=10.0, **kw)
+    want = bnn_mclmc_reference(seed, *args, u, tau=10.0, **kw)
+    drift_only = bnn_mclmc_reference(seed, *args, u, tau=0.0, **kw)
+    torch.cuda.synchronize()
+    if not all(bool(torch.all(torch.isfinite(t))) for t in got):
+        raise SmokeError("bnn_mclmc returned non-finite values")
+    err = max_err(got[:4], want[:4])
+    var_rel = float(((got[4] - want[4]) / want[4]).abs().max())
+    signal = block_min(flat(torch, want[:4]) - flat(torch, drift_only[:4]), shape["i"], shape["h"])
+    print(f"bnn_mclmc vs plain {shape} {draws} draws eps={eps} L={length}: max_abs_err={err:.3e} "
+          f"var_e max_rel_err={var_rel:.3e} var_e median={float(want[4].median()):.4e} "
+          f"min_gradient_move={signal:.3e}")
+    check_close("bnn_mclmc", err, signal)
+    if not var_rel <= VAR_E_RTOL:
+        raise SmokeError(f"bnn_mclmc var_e disagrees with its plain version: {var_rel:.3e}")
+    return err
+
+
+def dense_precision(torch, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(d, d, generator=gen)
+    return a @ a.T / d + torch.eye(d)
+
+
+def compare_gaussian_hmc(torch, d, dense, chains, draws, steps, eps, seed, device):
+    """Kernel vs plain on injected noise, draw for draw: identical accept
+    counts, draws within ATOL, and a 1%-wrong precision must move the draws
+    by at least SIGNAL."""
+    from hamiltorch_tpu_torch.kernels.gaussian_hmc import gaussian_hmc, gaussian_hmc_reference
+
+    gen = torch.Generator().manual_seed(seed)
+    prec = dense_precision(torch, d, seed) if dense else 0.25 + 3.75 * torch.rand(d, generator=gen)
+    theta0 = torch.randn(chains, d, generator=gen)
+    mean = torch.randn(d, generator=gen)
+    noise = (torch.randn(draws, chains, d, generator=gen).to(device),
+             torch.rand(draws, chains, generator=gen).to(device))
+    prec, theta0, mean = prec.to(device), theta0.to(device), mean.to(device)
+    kw = dict(mean=mean, _noise=noise)
+    got, got_acc = gaussian_hmc(seed, theta0, prec, draws, steps, eps, **kw)
+    want, want_acc = gaussian_hmc_reference(seed, theta0, prec, draws, steps, eps, **kw)
+    wrong, _ = gaussian_hmc_reference(seed, theta0, 1.01 * prec, draws, steps, eps, **kw)
+    torch.cuda.synchronize()
+    # accept counts must be identical (the rates may differ in the last bit:
+    # PyTorch divides by a scalar on the card through its reciprocal)
+    if not torch.equal(torch.round(got_acc * draws), torch.round(want_acc * draws)):
+        raise SmokeError("gaussian_hmc accept counts differ from its plain version")
+    err = float((got - want).abs().max())
+    signal = float((wrong - want).abs().max())
+    print(f"gaussian_hmc vs plain D={d} {'dense' if dense else 'diagonal'} {chains} chains "
+          f"{draws}x{steps} eps={eps}: max_abs_err={err:.3e} acc_mean={float(want_acc.mean()):.4f} "
+          f"move of a 1%-wrong precision={signal:.3e}")
+    check_close("gaussian_hmc", err, signal)
+    return err
 
 
 def cuda_ms(torch, fn) -> float:
@@ -143,22 +250,315 @@ def cuda_ms(torch, fn) -> float:
     return start.elapsed_time(end)
 
 
-def time_bnn_hmc(torch, device, draws, steps, eps):
+def time_in_turns(torch, fns: dict) -> dict:
+    """{name: (median ms, [3 runs])}: one warm-up each, then 3 runs each in
+    turns (a b, b a, a b); each fn takes the run's seed."""
+    for fn in fns.values():
+        fn(0)
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for rep in range(3):
+        order = list(fns) if rep % 2 == 0 else list(fns)[::-1]
+        for name in order:
+            times[name].append(cuda_ms(torch, lambda: fns[name](rep + 1)))
+    return {name: (statistics.median(t), t) for name, t in times.items()}
+
+
+def bound(flops, nbytes):
+    """(bound ms, what bounds it) at the card's peaks."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bnn_gemm_ms(torch, device):
+    """cuBLAS time (ms) of one flagship forward GEMM x W1 and one backward
+    GEMM x^T da over 64 chains: the products of one gradient evaluation of
+    the BNN kernels.  Median of 3 runs of 20 pairs."""
+    x, _, w1, *_ = bnn_inputs(torch, **FLAGSHIP, seed=7, device=device)
+    da = torch.randn(FLAGSHIP["c"], FLAGSHIP["n"], FLAGSHIP["h"], device=device)
+    xt = x.T
+
+    def pairs(_seed):
+        for _ in range(20):
+            torch.matmul(x, w1)
+            torch.matmul(xt, da)
+
+    ms, _ = time_in_turns(torch, {"gemm": pairs})["gemm"]
+    return ms / 20
+
+
+def bnn_bytes(shape, extra_per_chain=0):
+    """Bytes a BNN sampler must move: x and y read, each chain's parameters
+    (plus extra_per_chain floats) read and written once."""
+    d = shape["i"] * shape["h"] + 2 * shape["h"] + 1
+    return 4 * (shape["n"] * shape["i"] + shape["n"] + shape["c"] * (2 * d + extra_per_chain))
+
+
+def gradient_flops(shape):
+    """FLOPs of one BNN gradient over all chains: two GEMMs of 2 N I H each."""
+    return 2 * 2 * shape["n"] * shape["i"] * shape["h"] * shape["c"]
+
+
+def time_bnn_hmc(torch, device, gemm_ms, draws, steps, eps, card):
     """Kernel and plain times (ms) on Philox / torch noise, in turns."""
     from hamiltorch_tpu_torch.kernels.bnn_hmc import bnn_hmc, bnn_hmc_reference
 
     args = bnn_inputs(torch, **FLAGSHIP, seed=7, device=device)
     kw = dict(num_samples=draws, num_steps=steps, step_size=eps, tau=10.0)
-    times = {bnn_hmc: [], bnn_hmc_reference: []}
-    for fn in times:  # warm up
-        fn(0, *args, **kw)
+    t = time_in_turns(torch, {"kernel": lambda s: bnn_hmc(s, *args, **kw),
+                              "plain": lambda s: bnn_hmc_reference(s, *args, **kw)})
+    (k_ms, k_all), (p_ms, p_all) = t["kernel"], t["plain"]
+    grad_steps = FLAGSHIP["c"] * draws * steps
+    gradients = draws * steps + 1  # one per leapfrog step, one at the start
+    b_ms, b_by = bound(gradient_flops(FLAGSHIP) * gradients, bnn_bytes(FLAGSHIP))
+    lib_ms = gemm_ms * gradients
+    print(f"bnn_hmc {FLAGSHIP} {draws}x{steps}: kernel {k_ms:.3f} ms "
+          f"({grad_steps / k_ms * 1e3:.1f} grad-steps/s), plain {p_ms:.3f} ms "
+          f"({grad_steps / p_ms * 1e3:.1f} grad-steps/s); runs kernel {k_all} plain {p_all}; "
+          f"bound {b_ms:.3f} ms ({b_by}); cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
+    from hamiltorch_tpu_torch.kernels.bnn_mclmc import bnn_mclmc, bnn_mclmc_reference
+
+    args = bnn_inputs(torch, **FLAGSHIP, seed=7, device=device)
+    dim = FLAGSHIP["i"] * FLAGSHIP["h"] + 2 * FLAGSHIP["h"] + 1
+    u = torch.randn(FLAGSHIP["c"], dim, generator=torch.Generator().manual_seed(8)).to(device)
+    kw = dict(num_samples=draws, step_size=eps, length=length, tau=10.0)
+    t = time_in_turns(torch, {"kernel": lambda s: bnn_mclmc(s, *args, u, **kw),
+                              "plain": lambda s: bnn_mclmc_reference(s, *args, u, **kw)})
+    (k_ms, k_all), (p_ms, p_all) = t["kernel"], t["plain"]
+    grad_steps = FLAGSHIP["c"] * draws * 2
+    gradients = 2 * draws + 1  # two per draw, one at the start
+    b_ms, b_by = bound(gradient_flops(FLAGSHIP) * gradients, bnn_bytes(FLAGSHIP, dim))
+    lib_ms = gemm_ms * gradients
+    print(f"bnn_mclmc {FLAGSHIP} {draws} draws eps={eps} L={length}: kernel {k_ms:.3f} ms "
+          f"({grad_steps / k_ms * 1e3:.1f} grad-steps/s), plain {p_ms:.3f} ms "
+          f"({grad_steps / p_ms * 1e3:.1f} grad-steps/s); runs kernel {k_all} plain {p_all}; "
+          f"bound {b_ms:.3f} ms ({b_by}); cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card):
+    from hamiltorch_tpu_torch.kernels.gaussian_hmc import gaussian_hmc, gaussian_hmc_reference
+
+    prec = (dense_precision(torch, d, 1) if dense else torch.linspace(0.25, 4.0, d)).to(device)
+    theta0 = torch.zeros(chains, d, device=device)
+    t = time_in_turns(torch, {
+        "kernel": lambda s: gaussian_hmc(s, theta0, prec, draws, steps, eps),
+        "plain": lambda s: gaussian_hmc_reference(s, theta0, prec, draws, steps, eps),
+    })
+    (k_ms, k_all), (p_ms, p_all) = t["kernel"], t["plain"]
+    # per chain and leapfrog step: the gradient (2 D^2 dense, 2 D diagonal)
+    # and the drift and kick (4 D); bytes: theta0 and P read, draws written
+    flops = chains * draws * steps * ((2 * d * d if dense else 2 * d) + 4 * d)
+    nbytes = 4 * (chains * d + prec.numel() + chains * draws * d + chains)
+    b_ms, b_by = bound(flops, nbytes)
+    lib_ms = None
+    if dense:  # cuBLAS: the (C, D) x (D, D) gradient product of every step
+        x = torch.randn(chains, d, device=device)
+        ms, _ = time_in_turns(torch, {"mm": lambda s: [torch.matmul(x, prec) for _ in range(100)]})["mm"]
+        lib_ms = ms / 100 * draws * steps
+    kind = "dense" if dense else "diagonal"
+    lib = "n/a" if lib_ms is None else f"{lib_ms:.3f} ms"
+    print(f"gaussian_hmc D={d} {kind} {chains} chains {draws}x{steps}: kernel {k_ms:.3f} ms "
+          f"({chains * draws / k_ms * 1e3:.4g} chain-draws/s), plain {p_ms:.3f} ms "
+          f"({chains * draws / p_ms * 1e3:.4g} chain-draws/s); runs kernel {k_all} plain {p_all}; "
+          f"bound {b_ms:.4g} ms ({b_by}); cuBLAS matmuls {lib} [{card}]")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def hmc_main_path(torch, device, draws, steps, eps, card):
+    """The HMC path, counted: the fused sampler, run_hmc_chains, sample()."""
+    from hamiltorch_tpu_torch import MCMCConfig, Sampler, run_hmc_chains, sample
+    from hamiltorch_tpu_torch.kernels.bnn_hmc import bnn_hmc
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
+
+    bnn_hmc.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    fused = bnn_hmc(11, *bnn_inputs(torch, **FLAGSHIP, seed=11, device=device),
+                    num_samples=draws, num_steps=steps, step_size=eps, tau=10.0)
     torch.cuda.synchronize()
-    for rep in range(3):
-        order = list(times) if rep % 2 == 0 else list(times)[::-1]
-        for fn in order:
-            times[fn].append(cuda_ms(torch, lambda: fn(rep + 1, *args, **kw)))
-    k_ms, p_ms = times[bnn_hmc], times[bnn_hmc_reference]
-    return statistics.median(k_ms), statistics.median(p_ms), k_ms, p_ms
+    if not all(bool(torch.all(torch.isfinite(t))) for t in fused):
+        raise SmokeError("fused sampler returned non-finite values")
+    print(f"fused sampler: acc mean {float(fused[4].mean()):.4f}")
+
+    log_prob_fn, params0 = make_flagship_potential_tree(device=device)
+    config = MCMCConfig(num_samples=draws, num_steps_per_sample=steps, step_size=eps)
+    run_hmc_chains(0, log_prob_fn, params0, config, num_chains=FLAGSHIP["c"])  # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_hmc_chains(1, log_prob_fn, params0, config, num_chains=FLAGSHIP["c"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for name, leaf in res.samples.items():
+        want = (FLAGSHIP["c"], draws) + tuple(params0[name].shape)
+        if tuple(leaf.shape) != want or not bool(torch.all(torch.isfinite(leaf))):
+            raise SmokeError(f"run_hmc_chains sample {name}: shape {tuple(leaf.shape)}, want {want}")
+    print(f"run_hmc_chains flagship tree 64 chains {draws}x{steps}: {dt:.3f} s, "
+          f"{FLAGSHIP['c'] * draws * steps / dt:.1f} grad-steps/s, acceptance "
+          f"{float(res.acc_rate.mean()):.4f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB [{card}]")
+
+    stds = torch.tensor([0.5, 1.0, 2.0], device=device)
+    draws_g = sample(lambda t: -0.5 * torch.sum((t / stds) ** 2), torch.zeros(3, device=device),
+                     num_samples=400, num_steps_per_sample=5, step_size=0.3,
+                     sampler=Sampler.HMC, key=0, verbose=False)
+    emp = draws_g[1:].std(dim=0)
+    print(f"sample() 3-D Gaussian 400 draws: std {emp.tolist()} (target [0.5, 1, 2])")
+    # the std-0.5 dim is not checked: a trajectory of 5 x 0.3 sits on its
+    # t ~ pi * sigma resonance, where each draw nearly negates it and its
+    # spread grows slowly from the start at 0 (the JAX package reads
+    # 0.15-0.45 there too); the other two dims mix
+    if draws_g.shape != (400, 3) or not bool(torch.all((emp / stds - 1)[1:].abs() < 0.35)):
+        raise SmokeError(f"sample(): shape {tuple(draws_g.shape)}, std {emp.tolist()}")
+    return bnn_hmc.launches
+
+
+def mclmc_main_path(torch, device, card):
+    """The MCLMC path, counted: tune 64 flagship chains with run_mclmc_chains,
+    resume frozen chunks (timed), then bnn_mclmc from the tuned state and
+    velocity at the median tuned (eps, L), checked against the chunk."""
+    from hamiltorch_tpu_torch import MCLMCConfig, run_mclmc_chains
+    from hamiltorch_tpu_torch.kernels.bnn_mclmc import bnn_mclmc
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential
+
+    n, i_dim, h, c = FLAGSHIP["n"], FLAGSHIP["i"], FLAGSHIP["h"], FLAGSHIP["c"]
+    x, y, *_ = bnn_inputs(torch, n, i_dim, h, 1, seed=13, device=device)
+    log_prob_fn, theta0 = make_flagship_potential(i_dim, h, n, x=x, y=y, device=device)
+    dims = theta0.numel()
+
+    bnn_mclmc.launches = 0
+    t0 = time.perf_counter()
+    tuned = run_mclmc_chains(20260819, log_prob_fn, theta0,
+                             MCLMCConfig(num_samples=10, tune_steps=MCLMC_TUNE_STEPS, thin=10),
+                             num_chains=c)
+    torch.cuda.synchronize()
+    t_tune = time.perf_counter() - t0
+    eps = float(tuned.step_size.median())
+    length = float(tuned.trajectory_length.median())
+    print(f"run_mclmc_chains flagship 64 chains, {MCLMC_TUNE_STEPS} tuning steps: {t_tune:.3f} s; "
+          f"tuned eps median {eps:.5g} (range {float(tuned.step_size.min()):.5g}-"
+          f"{float(tuned.step_size.max()):.5g}), L median {length:.5g}, divergent "
+          f"{int(tuned.stats.divergent.sum())} [{card}]")
+
+    frozen = MCLMCConfig(num_samples=MCLMC_CHUNK, tune_steps=0, thin=10)
+    chunk_ms = []
+    for rep in range(3):  # each chain at its own tuned (eps, L), as bench.py times it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk = run_mclmc_chains(20260819 + rep, log_prob_fn, None, frozen, c, resume_from=tuned)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        if chunk.samples.shape != (c, MCLMC_CHUNK // 10, dims) or not bool(
+                torch.all(torch.isfinite(chunk.samples))):
+            raise SmokeError(f"frozen chunk: shape {tuple(chunk.samples.shape)} or non-finite")
+    ms = statistics.median(chunk_ms)
+    print(f"run_mclmc_chains frozen chunk 64 chains x {MCLMC_CHUNK} steps at the tuned (eps, L): "
+          f"{ms:.3f} ms ({c * MCLMC_CHUNK * 2 / ms * 1e3:.1f} grad-steps/s; runs {chunk_ms}), "
+          f"mean(dE^2)/d {float(torch.mean(chunk.stats.energy_change.double() ** 2)) / dims:.4e}, "
+          f"divergent {int(chunk.stats.divergent.sum())} [{card}]")
+
+    # the check of tests/test_mclmc_kernel.py:165-198: from the tuned state,
+    # every chain of a frozen chunk and of the kernel at one (eps, L), the
+    # tuned chains' median (the tuner leaves the chains' eps far apart).
+    # At that step the true dE is ~1e-3 or less, below the float32 rounding
+    # of the flagship's logp (a sum near -5e4 once the chains spread over
+    # the prior), so the chunk runs on the same potential in float64, as the
+    # kernel reduces logp in float64
+    log_prob_64, _ = make_flagship_potential(i_dim, h, n, x=x.double(), y=y.double(),
+                                             theta0=theta0.double(), dtype=torch.float64,
+                                             device=device)
+    at_median = tuned._replace(
+        final_theta=tuned.final_theta.double(), final_u=tuned.final_u.double(),
+        step_size=torch.full_like(tuned.step_size, eps),
+        trajectory_length=torch.full_like(tuned.trajectory_length, length))
+    check = run_mclmc_chains(20260819, log_prob_64, None, frozen, c, resume_from=at_median)
+    chunk_var = float(torch.mean(check.stats.energy_change.double() ** 2)) / dims
+    th = tuned.final_theta
+    s0, s1 = i_dim * h, i_dim * h + h
+    out = bnn_mclmc(7, x, y, th[:, :s0].reshape(c, i_dim, h).contiguous(),
+                    th[:, s0:s1].contiguous(), th[:, s1:s1 + h].contiguous(),
+                    th[:, -1].contiguous(), tuned.final_u.contiguous(),
+                    num_samples=MCLMC_CHUNK, step_size=eps, length=length, tau=10.0)
+    torch.cuda.synchronize()
+    launches = bnn_mclmc.launches
+    if not all(bool(torch.all(torch.isfinite(t))) for t in out):
+        raise SmokeError("bnn_mclmc from the tuned state returned non-finite values")
+    kern_var = float(out[4].mean())
+    ratio = kern_var / chunk_var
+    print(f"at the median (eps, L) = ({eps:.5g}, {length:.5g}) from the tuned state, "
+          f"{MCLMC_CHUNK} steps: bnn_mclmc var_e median {float(out[4].median()):.4e} mean "
+          f"{kern_var:.4e} vs run_mclmc_chains (float64 potential) mean(dE^2)/d {chunk_var:.4e}: "
+          f"ratio of means "
+          f"{ratio:.3f}")
+    if not 0.5 < ratio < 2.0:
+        raise SmokeError(f"bnn_mclmc var_e / run_mclmc_chains var_e = {ratio:.3f}, not in 0.5-2")
+    return launches
+
+
+def gaussian_main_path(torch, device):
+    """gaussian_hmc's statistics on Philox, counted (tests/test_kernels.py:46-101,
+    at 256 chains x 600 draws, L=6, eps=0.2)."""
+    from hamiltorch_tpu_torch.kernels.gaussian_hmc import gaussian_hmc
+
+    gaussian_hmc.launches = 0
+    kw = dict(num_samples=600, num_steps=6, step_size=0.2)
+
+    def zeros(d):
+        return torch.zeros(256, d, device=device)
+
+    samples, acc = gaussian_hmc(0, zeros(3), torch.tensor([4.0, 1.0, 0.25], device=device), **kw)
+    s = samples[:, 150:].reshape(-1, 3)
+    mean, std = s.mean(0).cpu(), s.std(0).cpu()
+    print(f"gaussian_hmc diagonal: mean {mean.tolist()} std {std.tolist()} (target [0.5, 1, 2]) "
+          f"acceptance {float(acc.mean()):.4f}")
+    if not (bool((mean.abs() < 0.1).all())
+            and bool(((std / torch.tensor([0.5, 1.0, 2.0]) - 1).abs() < 0.1).all())
+            and float(acc.mean()) > 0.8):
+        raise SmokeError("gaussian_hmc: diagonal moments or acceptance off")
+
+    cov = torch.tensor([[1.0, 0.6], [0.6, 1.0]])
+    samples, _ = gaussian_hmc(3, zeros(2), torch.linalg.inv(cov).contiguous().to(device), **kw)
+    emp = torch.cov(samples[:, 100:].reshape(-1, 2).T.double()).float().cpu()
+    print(f"gaussian_hmc dense: covariance {emp.tolist()} (target {cov.tolist()})")
+    if not bool(((emp - cov).abs() < 0.12).all()):
+        raise SmokeError("gaussian_hmc: dense covariance off")
+
+    target = torch.tensor([3.0, -2.0], device=device)
+    samples, _ = gaussian_hmc(0, zeros(2) + target, torch.tensor([1.0, 4.0], device=device),
+                              mean=target, **kw)
+    mean = samples[:, 100:].reshape(-1, 2).mean(0)
+    print(f"gaussian_hmc shifted mean: {mean.tolist()} (target [3, -2])")
+    if not bool(((mean - target).abs() < 0.1).all()):
+        raise SmokeError("gaussian_hmc: mean off")
+
+    prec = torch.ones(3, device=device)
+    s1, _ = gaussian_hmc(7, torch.zeros(16, 3, device=device), prec, 50, 5, 0.3)
+    s2, _ = gaussian_hmc(7, torch.zeros(16, 3, device=device), prec, 50, 5, 0.3)
+    if not torch.equal(s1, s2) or torch.allclose(s1[0], s1[1]):
+        raise SmokeError("gaussian_hmc: the same seed must give the same trace, chains must differ")
+    return gaussian_hmc.launches
+
+
+def tiny_card_vs_cpu(torch, device):
+    """The port's tensor path is the same on the card as on the CPU."""
+    from hamiltorch_tpu_torch import MCMCConfig, run_hmc_chains
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
+
+    lp_c, p_c = make_flagship_potential_tree(in_dim=8, hidden=4, n_data=16, device=device)
+    lp_h, p_h = make_flagship_potential_tree(in_dim=8, hidden=4, n_data=16, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    z, u = torch.randn(5, 4, 41, generator=gen), torch.rand(5, 4, generator=gen)
+    cfg = MCMCConfig(num_samples=5, num_steps_per_sample=5, step_size=0.05)
+    on_card = run_hmc_chains(0, lp_c, p_c, cfg, 4, _noise=(z.to(device), u.log().to(device)))
+    on_host = run_hmc_chains(0, lp_h, p_h, cfg, 4, _noise=(z, u.log()))
+    path_err = max(float((on_card.samples[k].cpu() - on_host.samples[k]).abs().max())
+                   for k in on_host.samples)
+    print(f"run_hmc_chains tiny flagship, card vs CPU: max_abs_err {path_err:.3e}")
+    if not path_err <= ATOL:
+        raise SmokeError(f"run_hmc_chains on the card disagrees with the CPU: {path_err:.3e}")
 
 
 def main() -> int:
@@ -194,91 +594,56 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  [{name}] {line.strip()}")
 
-    from hamiltorch_tpu_torch.kernels.bnn_hmc import bnn_hmc
-
     # 3. kernel vs plain, injected noise
-    # both shapes reject a few draws, so accept decisions are tested too
-    small = dict(n=100, i=50, h=128, c=3)
-    _, small_acc = compare_bnn_hmc(torch, small, draws=4, steps=4, eps=0.02, seed=3, device=device)
-    err, flagship_acc = compare_bnn_hmc(torch, FLAGSHIP, draws=3, steps=5, eps=0.01, seed=5,
-                                        device=device)
+    errs = {}
+    # both bnn_hmc shapes reject a few draws, so accept decisions are tested too
+    _, small_acc = compare_bnn_hmc(torch, dict(n=100, i=50, h=128, c=3), draws=4, steps=4,
+                                   eps=0.02, seed=3, device=device)
+    errs["bnn_hmc"], flagship_acc = compare_bnn_hmc(torch, FLAGSHIP, draws=3, steps=5, eps=0.01,
+                                                    seed=5, device=device)
     if not (0.0 < small_acc < 1.0 and 0.0 < flagship_acc < 1.0):
         raise SmokeError(f"acceptance {small_acc}, {flagship_acc}: a Metropolis outcome never occurred")
+    # MCLMC's gradient bends a unit velocity spread over ~1e5 dims, so its
+    # part of the move clears SIGNAL in every block only at large steps
+    # (eps 2, 5 draws; at eps 0.5 the b1 block moves 5e-5)
+    compare_bnn_mclmc(torch, dict(n=100, i=50, h=128, c=3), draws=5, eps=2.0, length=10.0,
+                      seed=3, device=device)
+    errs["bnn_mclmc"] = compare_bnn_mclmc(torch, FLAGSHIP, draws=5, eps=2.0, length=10.0, seed=5,
+                                          device=device)
+    errs["gaussian_hmc"] = max(
+        compare_gaussian_hmc(torch, 3, False, 256, 20, 6, 0.2, seed=3, device=device),
+        compare_gaussian_hmc(torch, 128, True, 64, 20, 6, 0.2, seed=4, device=device),
+    )
 
-    # 4. kernel alone on Philox, and the plain version, at the flagship
-    draws, steps, eps = 10, 50, 2e-4
-    k_ms, p_ms, k_all, p_all = time_bnn_hmc(torch, device, draws, steps, eps)
-    grad_steps = FLAGSHIP["c"] * draws * steps
-    print(f"bnn_hmc {FLAGSHIP} {draws}x{steps}: kernel {k_ms:.3f} ms "
-          f"({grad_steps / k_ms * 1e3:.1f} grad-steps/s), plain {p_ms:.3f} ms "
-          f"({grad_steps / p_ms * 1e3:.1f} grad-steps/s); runs kernel {k_all} plain {p_all} "
+    # 4. kernels alone on Philox, their plain versions and cuBLAS, timed
+    gemm_ms = bnn_gemm_ms(torch, device)
+    print(f"cuBLAS float32 flagship GEMM pair (x W1 and x^T da, 64 chains): {gemm_ms:.4f} ms "
           f"[{card}]")
+    draws, steps, eps = 10, 50, 2e-4
+    times = {
+        "bnn_hmc": time_bnn_hmc(torch, device, gemm_ms, draws, steps, eps, card),
+        "bnn_mclmc": time_bnn_mclmc(torch, device, gemm_ms, 500, 2e-3, 10.0, card),
+    }
+    time_gaussian_hmc(torch, device, 3, False, 1024, 1000, 6, 0.2, card)
+    times["gaussian_hmc"] = time_gaussian_hmc(torch, device, 128, True, 1024, 200, 10, 0.2, card)
 
-    # 5. the main path, counted
-    from hamiltorch_tpu_torch import MCMCConfig, Sampler, run_hmc_chains, sample
-    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
-
-    bnn_hmc.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    fused = bnn_hmc(11, *bnn_inputs(torch, **FLAGSHIP, seed=11, device=device),
-                    num_samples=draws, num_steps=steps, step_size=eps, tau=10.0)
-    torch.cuda.synchronize()
-    if not all(bool(torch.all(torch.isfinite(t))) for t in fused):
-        raise SmokeError("fused sampler returned non-finite values")
-    print(f"fused sampler: acc mean {float(fused[4].mean()):.4f}")
-
-    log_prob_fn, params0 = make_flagship_potential_tree(device=device)
-    config = MCMCConfig(num_samples=draws, num_steps_per_sample=steps, step_size=eps)
-    run_hmc_chains(0, log_prob_fn, params0, config, num_chains=FLAGSHIP["c"])  # warm up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = run_hmc_chains(1, log_prob_fn, params0, config, num_chains=FLAGSHIP["c"])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    for name, leaf in res.samples.items():
-        want = (FLAGSHIP["c"], draws) + tuple(params0[name].shape)
-        if tuple(leaf.shape) != want or not bool(torch.all(torch.isfinite(leaf))):
-            raise SmokeError(f"run_hmc_chains sample {name}: shape {tuple(leaf.shape)}, want {want}")
-    acc = float(res.acc_rate.mean())
-    print(f"run_hmc_chains flagship tree 64 chains {draws}x{steps}: {dt:.3f} s, "
-          f"{grad_steps / dt:.1f} grad-steps/s, acceptance {acc:.4f}, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB [{card}]")
-
-    stds = torch.tensor([0.5, 1.0, 2.0], device=device)
-    draws_g = sample(lambda t: -0.5 * torch.sum((t / stds) ** 2), torch.zeros(3, device=device),
-                     num_samples=400, num_steps_per_sample=5, step_size=0.3,
-                     sampler=Sampler.HMC, key=0, verbose=False)
-    emp = draws_g[1:].std(dim=0)
-    print(f"sample() 3-D Gaussian 400 draws: std {emp.tolist()} (target [0.5, 1, 2])")
-    # the std-0.5 dim is not checked: a trajectory of 5 x 0.3 sits on its
-    # t ~ pi * sigma resonance, where each draw nearly negates it and its
-    # spread grows slowly from the start at 0 (the JAX package reads
-    # 0.15-0.45 there too); the other two dims mix
-    if draws_g.shape != (400, 3) or not bool(torch.all((emp / stds - 1)[1:].abs() < 0.35)):
-        raise SmokeError(f"sample(): shape {tuple(draws_g.shape)}, std {emp.tolist()}")
-
-    launches = {"bnn_hmc": bnn_hmc.launches}
+    # 5. the main paths, each counted from 0
+    launches = {
+        "bnn_hmc": hmc_main_path(torch, device, draws, steps, eps, card),
+        "bnn_mclmc": mclmc_main_path(torch, device, card),
+        "gaussian_hmc": gaussian_main_path(torch, device),
+    }
+    print(f"main-path launches: {launches}")
     for name, count in launches.items():
         if count < 1:
-            raise SmokeError(f"kernel {name} was not launched on the main path")
+            raise SmokeError(f"kernel {name} was not launched on its main path")
 
-    # the port's tensor path is the same on the card as on the CPU
-    lp_c, p_c = make_flagship_potential_tree(in_dim=8, hidden=4, n_data=16, device=device)
-    lp_h, p_h = make_flagship_potential_tree(in_dim=8, hidden=4, n_data=16)
-    gen = torch.Generator().manual_seed(2)
-    z, u = torch.randn(5, 4, 41, generator=gen), torch.rand(5, 4, generator=gen)
-    cfg = MCMCConfig(num_samples=5, num_steps_per_sample=5, step_size=0.05)
-    on_card = run_hmc_chains(0, lp_c, p_c, cfg, 4, _noise=(z.to(device), u.log().to(device)))
-    on_host = run_hmc_chains(0, lp_h, p_h, cfg, 4, _noise=(z, u.log()))
-    path_err = max(float((on_card.samples[k].cpu() - on_host.samples[k]).abs().max())
-                   for k in on_host.samples)
-    print(f"run_hmc_chains tiny flagship, card vs CPU: max_abs_err {path_err:.3e}")
-    if not path_err <= ATOL:
-        raise SmokeError(f"run_hmc_chains on the card disagrees with the CPU: {path_err:.3e}")
+    # 6. the tiny flagship, card vs CPU
+    tiny_card_vs_cpu(torch, device)
 
     print(f"total {time.perf_counter() - t_all:.1f} s")
     summary = [{"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+                "launches": launches[name], "max_abs_err": errs[name], **times[name]}
                for name, route, source, replaces in KERNELS]
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,9 +7,10 @@ found under the same name.  This package imports ``torch`` and never
 
 Ported so far: the HMC chain sampler (``sample`` for ``Sampler.HMC`` /
 ``HMC_NUTS``, ``run_hmc``, ``run_hmc_chains``) with its potential, mass,
-leapfrog, dual-averaging and driver layers, the flagship BNN models, and
-the fused flagship sampler ``kernels.bnn_hmc`` as a CUDA kernel for Hopper.
-ROADMAP.md lists what is still to port.
+leapfrog, dual-averaging and driver layers; MCLMC (``run_mclmc``,
+``run_mclmc_chains``); the flagship BNN models; and the fused samplers
+``kernels.bnn_hmc``, ``kernels.bnn_mclmc`` and ``kernels.gaussian_hmc`` as
+CUDA kernels for Hopper.  ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.6.0"
@@ -18,6 +19,7 @@ from .api import sample
 from .enums import Integrator, Metric, Sampler
 from .samplers.driver import MCMCConfig, MCMCResult, MCMCStats
 from .samplers.hmc import run_hmc, run_hmc_chains
+from .samplers.mclmc import MCLMCConfig, MCLMCResult, MCLMCStats, run_mclmc, run_mclmc_chains
 from .utils.rng import next_key, set_random_seed
 
 __all__ = [
@@ -32,4 +34,9 @@ __all__ = [
     "MCMCConfig",
     "MCMCResult",
     "MCMCStats",
+    "run_mclmc",
+    "run_mclmc_chains",
+    "MCLMCConfig",
+    "MCLMCResult",
+    "MCLMCStats",
 ]

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``build/``
 beside this file (the directory is git-ignored) at first use, and loaded
-with ``ctypes``.  The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a built one is reused.  Nothing
+with ``ctypes``.  The library's file name carries a hash of its source, of every
+header under ``csrc/`` that the source includes (directly or through
+another header), and of the flags, so an edited source or header is rebuilt
+and a built one is reused.  Nothing
 here runs at import time: this module is imported on machines without
 ``nvcc``.
 """
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,6 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -38,11 +42,27 @@ def _nvcc() -> str:
     return str(path)
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header under ``csrc/`` it includes."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            header = path.parent / inc
+            if header.exists():
+                todo.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names) -> dict:

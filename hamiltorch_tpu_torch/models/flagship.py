@@ -7,6 +7,9 @@ precision ``tau_out``.  The JAX package draws its synthetic data with
 optional ``x``, ``y`` and ``theta0`` arrays: given the JAX package's, the
 two packages compute the same potential.  Without them the data come from a
 ``torch.Generator`` seeded with ``seed``, by the same recipe.
+
+Every factory builds its tensors on ``device``: the CUDA card when it is
+None (and raises without one), the CPU only when asked for.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..utils.convert import resolve_device
 
 IN_DIM = 784
 HIDDEN = 128
@@ -36,6 +41,7 @@ def _data(in_dim, hidden, n_data, dtype, seed, x, y, theta0, device):
         raise ValueError("y must be given with x")
     if theta0 is None:
         theta0 = 0.01 * torch.randn(flagship_dims(in_dim, hidden), generator=gen, dtype=dtype)
+    device = resolve_device(device)
     x, y, theta0 = (torch.as_tensor(a, dtype=dtype, device=device) for a in (x, y, theta0))
     return x, y.reshape(-1, 1), theta0
 
@@ -126,6 +132,7 @@ def make_tiny_potential(
     package's data-sharded potential contract; y = sum(x, 1) and theta0 = 0
     as there, so given the JAX package's ``x`` the two agree.
     """
+    device = resolve_device(device)
     if x is None:
         x = torch.randn(n_data, in_dim, generator=torch.Generator().manual_seed(seed))
     x = torch.as_tensor(x, dtype=torch.float32, device=device)

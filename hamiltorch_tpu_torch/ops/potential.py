@@ -20,6 +20,8 @@ from typing import Callable, Tuple
 
 import torch
 
+from ..utils.pytree import unravel_last_axis_fn
+
 LogProbFn = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -75,6 +77,23 @@ def value_and_grad(log_prob_fn: LogProbFn) -> Callable[
         return logp, grad
 
     return vg
+
+
+def make_flat_potential(log_prob_fn, template) -> LogProbFn:
+    """Flat-theta wrapper of a tree potential.
+
+    ``template`` is the (unstacked) parameter tree; the wrapper unravels its
+    flat (D,) argument back to the tree (``utils.pytree`` leaf order) before
+    calling ``log_prob_fn``.  Eager PyTorch needs no identity-stable cache
+    of these wrappers, so unlike the JAX package's this builds a new one on
+    every call.
+    """
+    unravel = unravel_last_axis_fn(template)
+
+    def lp_flat(theta):
+        return log_prob_fn(unravel(theta))
+
+    return lp_flat
 
 
 def resolve_potential(log_prob_fn: LogProbFn, pass_grad=None) -> LogProbFn:

@@ -7,6 +7,11 @@ copy into tensors on the chosen device; both packages then compute the
 same thing on the same numbers.  The arrays may be numpy arrays or anything
 ``numpy.asarray`` accepts (JAX arrays included), so this module imports no
 JAX.
+
+Entry points that make tensors (this module's, the flagship factories) put
+them on the card unless the caller names another device: ``device=None``
+means ``torch.device("cuda")``, and without a card they raise rather than
+fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -15,17 +20,30 @@ import numpy as np
 import torch
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA card when it is None (raises without one)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's entry points run on the card; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def _tensor(a, device, dtype):
     return torch.as_tensor(np.array(a, copy=True), device=device).to(dtype)
 
 
-def from_jax_params(theta, x=None, y=None, device="cpu", dtype=torch.float32):
-    """``(theta, x, y)`` as tensors on ``device``.
+def from_jax_params(theta, x=None, y=None, device=None, dtype=torch.float32):
+    """``(theta, x, y)`` as tensors on ``device`` (the card when None).
 
     ``theta`` is a flat (D,) array or a dict of arrays (a nested dict
     converts leafwise); ``x`` (N, I) and ``y`` (N, 1) are optional and come
     back as None when not given.
     """
+    device = resolve_device(device)
     if isinstance(theta, dict):
         theta_t = {k: from_jax_params(v, device=device, dtype=dtype)[0] for k, v in theta.items()}
     else:

@@ -10,8 +10,9 @@ package's tree chain see the same momentum for the same flat draw.
 
 from __future__ import annotations
 
+import math
 from collections.abc import Mapping
-from typing import Any, Callable
+from typing import Any, Callable, Tuple
 
 import torch
 
@@ -40,6 +41,34 @@ def tree_unflatten_like(template, leaves) -> Any:
         return next(it)
 
     return build(template)
+
+
+def ravel_pytree_fn(params) -> Tuple[torch.Tensor, Callable[[torch.Tensor], Any]]:
+    """Ravel ``params`` to a flat vector; returns (flat, unravel_fn).
+
+    Leaves are flattened row-major and concatenated in sorted-key order,
+    the order of the JAX package's ``ravel_pytree`` for dicts.
+    """
+    flat = torch.cat([torch.as_tensor(leaf).reshape(-1) for leaf in tree_leaves(params)])
+    return flat, unravel_last_axis_fn(params)
+
+
+def unravel_last_axis_fn(template) -> Callable[[torch.Tensor], Any]:
+    """Split the LAST axis of a flat-stacked tensor back into ``template``'s
+    leaves: the returned fn maps (..., D) to a tree of (..., *leaf.shape)
+    in ``ravel_pytree_fn``'s leaf order."""
+    shapes = [tuple(leaf.shape) for leaf in tree_leaves(template)]
+    sizes = [math.prod(shape) for shape in shapes]
+
+    def unravel_last(mat):
+        mat = torch.as_tensor(mat)
+        lead = tuple(mat.shape[:-1])
+        parts = torch.split(mat, sizes, dim=-1)
+        return tree_unflatten_like(
+            template, [part.reshape(lead + shape) for part, shape in zip(parts, shapes)]
+        )
+
+    return unravel_last
 
 
 def is_param_tree(theta: Any) -> bool:

@@ -76,3 +76,17 @@ def draw_noise(key: int, n: int, num_chains: int, dim: int,
         z[c].normal_(generator=gen)
         u[c : c + 1].uniform_(generator=gen)
     return z, torch.log(u)
+
+
+def draw_normals(key: int, n: int, num_chains: int, dim: int,
+                 dtype=torch.float32, device=None) -> torch.Tensor:
+    """``(num_chains, dim)`` standard normals; chain ``c`` from its own
+    generator seeded by ``draw_seed(key, c, n)`` (the ``z`` of
+    ``draw_noise`` without the uniform)."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    gen = torch.Generator(device=device)
+    z = torch.empty((num_chains, dim), dtype=dtype, device=device)
+    for c in range(num_chains):
+        gen.manual_seed(draw_seed(key, c, n))
+        z[c].normal_(generator=gen)
+    return z

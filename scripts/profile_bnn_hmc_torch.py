@@ -46,7 +46,10 @@ if not hasattr(torch.autograd.profiler_util.FunctionEventAvg(), SELF_DEVICE):
     SELF_DEVICE = "self_cuda_time_total"
 
 
-def profile_path(name: str, fn) -> None:
+HMC_RUN = f"{DRAWS} draws x {STEPS} steps x {FLAGSHIP['c']} chains"
+
+
+def profile_path(name: str, fn, what: str = HMC_RUN) -> None:
     fn()  # warm up: build, first-call allocations
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -58,8 +61,7 @@ def profile_path(name: str, fn) -> None:
     kernels = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     device_ms = sum(getattr(e, SELF_DEVICE) for e in kernels) / 1e3
     print(f"== {name}: device time {device_ms:.3f} ms of {wall_ms:.3f} ms wall "
-          f"(busy {device_ms / wall_ms:.1%}) for {DRAWS} draws x {STEPS} steps x "
-          f"{FLAGSHIP['c']} chains")
+          f"(busy {device_ms / wall_ms:.1%}) for {what}")
     print(events.table(sort_by=SELF_DEVICE, row_limit=12, max_name_column_width=60))
 
 

@@ -6,16 +6,25 @@ so they also run where only PyTorch is installed:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
 (``--noconftest`` skips the suite's JAX set-up in ``tests/conftest.py``.)
-Tolerances: parameters after a few draws differ only by float32 rounding of
-differently ordered sums (~1e-7), so atol 1e-5; accept decisions must be
-identical (energies are reduced in float64 on both sides).
+Tolerances: parameters (and Gaussian draws) after a few draws differ only
+by float32 rounding of differently ordered sums (~1e-7), so atol 1e-5;
+accept decisions must be identical (energies are reduced in float64 on both
+sides).  MCLMC's var_e is a float64 sum of dE^2 on both sides, where dE is
+a difference of logp sums near the state; rtol 1e-3.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from hamiltorch_tpu_torch.kernels import bnn_hmc, bnn_hmc_reference
+from hamiltorch_tpu_torch.kernels import (
+    bnn_hmc,
+    bnn_hmc_reference,
+    bnn_mclmc,
+    bnn_mclmc_reference,
+    gaussian_hmc,
+    gaussian_hmc_reference,
+)
 from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
 from hamiltorch_tpu_torch.samplers.driver import MCMCConfig
 from hamiltorch_tpu_torch.samplers.hmc import run_hmc_chains
@@ -72,7 +81,7 @@ def test_run_hmc_chains_on_card_matches_cpu(cuda_device):
     z, log_u = torch.randn(5, 4, 41, generator=gen), torch.rand(5, 4, generator=gen).log()
     cfg = MCMCConfig(num_samples=5, num_steps_per_sample=5, step_size=0.05)
     lp_d, p_d = make_flagship_potential_tree(8, 4, 16, device=cuda_device)
-    lp_h, p_h = make_flagship_potential_tree(8, 4, 16)
+    lp_h, p_h = make_flagship_potential_tree(8, 4, 16, device="cpu")
     on_card = run_hmc_chains(0, lp_d, p_d, cfg, 4, _noise=(z.to(cuda_device), log_u.to(cuda_device)))
     on_host = run_hmc_chains(0, lp_h, p_h, cfg, 4, _noise=(z, log_u))
     assert torch.equal(on_card.stats.accepted.cpu(), on_host.stats.accepted)
@@ -86,3 +95,81 @@ def test_bnn_hmc_kernel_raises_on_shapes_it_does_not_take(cuda_device):
     with pytest.raises(RuntimeError, match="cudaError_t"):
         bnn_hmc(0, *bnn_args(50, 64, 100, 2, 4, cuda_device), num_samples=1, num_steps=1)
     assert bnn_hmc.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(50, 128, 100, 3), (784, 128, 1024, 4)])
+def test_bnn_mclmc_kernel_matches_plain_version(cuda_device, shape):
+    i_dim, h, n, c = shape
+    d = i_dim * h + 2 * h + 1
+    rng = np.random.RandomState(5)
+    u = torch.as_tensor(rng.randn(c, d).astype(np.float32)).to(cuda_device)
+    noise = torch.as_tensor(rng.randn(5, c, d).astype(np.float32)).to(cuda_device)
+    kw = dict(num_samples=5, step_size=2.0, length=10.0, tau=10.0, _noise=noise)
+    before = bnn_mclmc.launches
+    got = bnn_mclmc(0, *bnn_args(i_dim, h, n, c, 4, cuda_device), u, **kw)
+    want = bnn_mclmc_reference(0, *bnn_args(i_dim, h, n, c, 4, cuda_device), u, **kw)
+    torch.cuda.synchronize()
+    assert bnn_mclmc.launches == before + 1
+    for a, b in zip(got[:4], want[:4]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[4], want[4], atol=0, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_bnn_mclmc_kernel_philox_is_deterministic_and_finite(cuda_device):
+    args = bnn_args(784, 128, 1024, 4, 6, cuda_device)
+    u = torch.randn(4, 784 * 128 + 257, device=cuda_device)
+    kw = dict(num_samples=4, step_size=0.5, length=10.0, tau=10.0)
+    a, b, other = bnn_mclmc(3, *args, u, **kw), bnn_mclmc(3, *args, u, **kw), bnn_mclmc(4, *args, u, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0], other[0])
+    assert all(bool(torch.isfinite(t).all()) for t in a)
+
+
+def _dense_precision(d, seed):
+    a = np.random.RandomState(seed).randn(d, d)
+    return (a @ a.T / d + np.eye(d)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dense", [(3, False), (40, False), (200, False), (2, True), (5, True),
+                                     (128, True)])
+def test_gaussian_hmc_kernel_matches_plain_version(cuda_device, d, dense):
+    c, draws, steps, eps = 37, 10, 6, 0.3
+    rng = np.random.RandomState(d)
+    prec = _dense_precision(d, d) if dense else rng.uniform(0.25, 4.0, d).astype(np.float32)
+    mean = rng.randn(d).astype(np.float32)
+    noise = (torch.as_tensor(rng.randn(draws, c, d).astype(np.float32)).to(cuda_device),
+             torch.as_tensor(rng.rand(draws, c).astype(np.float32)).to(cuda_device))
+    args = [torch.as_tensor(a).to(cuda_device) for a in (rng.randn(c, d).astype(np.float32), prec)]
+    kw = dict(mean=torch.as_tensor(mean).to(cuda_device), _noise=noise)
+    before = gaussian_hmc.launches
+    got, got_acc = gaussian_hmc(0, *args, draws, steps, eps, **kw)
+    want, want_acc = gaussian_hmc_reference(0, *args, draws, steps, eps, **kw)
+    torch.cuda.synchronize()
+    assert gaussian_hmc.launches == before + 1
+    # identical accept counts (the rates may differ in the last bit: PyTorch
+    # divides by a scalar on the card through its reciprocal)
+    assert torch.equal(torch.round(got_acc * draws), torch.round(want_acc * draws))
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_gaussian_hmc_kernel_philox_is_deterministic(cuda_device):
+    prec = torch.ones(3, device=cuda_device)
+    theta0 = torch.zeros(16, 3, device=cuda_device)
+    s1, _ = gaussian_hmc(7, theta0, prec, 50, 5, 0.3)
+    s2, _ = gaussian_hmc(7, theta0, prec, 50, 5, 0.3)
+    assert torch.equal(s1, s2)
+    assert not torch.allclose(s1[0], s1[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dense,tile", [(300, False, 8), (240, True, 8), (3, False, 33)])
+def test_gaussian_hmc_kernel_raises_on_shapes_it_does_not_take(cuda_device, d, dense, tile):
+    prec = torch.eye(d, device=cuda_device) if dense else torch.ones(d, device=cuda_device)
+    before = gaussian_hmc.launches
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        gaussian_hmc(0, torch.zeros(4, d, device=cuda_device), prec, 2, 2, 0.1, chain_tile=tile)
+    assert gaussian_hmc.launches == before

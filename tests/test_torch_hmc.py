@@ -76,10 +76,10 @@ def test_run_hmc_chains_matches_jax_draw_for_draw(form, adapt):
     key = jax.random.key(42)
     if form == "flat":
         j_lp, j_theta0 = jflag.make_flagship_potential(*TINY)
-        t_lp, t_theta0 = tflag.make_flagship_potential(*TINY, x=x, y=y, theta0=theta0)
+        t_lp, t_theta0 = tflag.make_flagship_potential(*TINY, x=x, y=y, theta0=theta0, device="cpu")
     else:
         j_lp, j_theta0 = jflag.make_flagship_potential_tree(*TINY)
-        t_lp, t_theta0 = tflag.make_flagship_potential_tree(*TINY, x=x, y=y, theta0=theta0)
+        t_lp, t_theta0 = tflag.make_flagship_potential_tree(*TINY, x=x, y=y, theta0=theta0, device="cpu")
 
     j_res = jht.run_hmc_chains(key, j_lp, j_theta0, jht.MCMCConfig(**kw), num_chains)
     t_res = tht.run_hmc_chains(0, t_lp, t_theta0, tht.MCMCConfig(**kw), num_chains,
@@ -129,7 +129,7 @@ def test_run_hmc_matches_jax_single_chain(thin):
 
 
 def test_chunked_run_reproduces_unchunked():
-    lp, theta0 = tflag.make_flagship_potential(*TINY)
+    lp, theta0 = tflag.make_flagship_potential(*TINY, device="cpu")
     vg = value_and_grad(lp)
     theta = theta0.expand(3, -1).clone()
     logp, grad = torch.func.vmap(vg)(theta)

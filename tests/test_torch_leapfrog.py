@@ -52,7 +52,8 @@ def tiny_flagship(form):
     y = np.tanh(x @ rng.randn(in_dim).astype(np.float32))[:, None].astype(np.float32)
     theta = (0.3 * rng.randn(jflag.flagship_dims(in_dim, hidden))).astype(np.float32)
     t_lp, _ = (tflag.make_flagship_potential if form == "flat"
-               else tflag.make_flagship_potential_tree)(in_dim, hidden, n_data, x=x, y=y, theta0=theta)
+               else tflag.make_flagship_potential_tree)(in_dim, hidden, n_data, x=x, y=y, theta0=theta,
+                                                    device="cpu")
     xj, yj = jnp.asarray(x), jnp.asarray(y)
     s0, s1 = in_dim * hidden, in_dim * hidden + hidden
 

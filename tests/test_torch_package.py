@@ -31,7 +31,8 @@ def test_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
-                         + ["chip_smoke.py", "scripts/profile_bnn_hmc_torch.py"])
+                         + ["chip_smoke.py", "scripts/profile_bnn_hmc_torch.py",
+                            "scripts/profile_mclmc_torch.py"])
 def test_no_jax_import(path):
     src = (REPO / path).read_text()
     assert not re.search(r"^\s*(import jax|from jax\b|import hamiltorch_tpu\b|from hamiltorch_tpu\b)",
@@ -46,3 +47,43 @@ def test_module_paths_mirror_the_jax_package():
         assert (REPO / "hamiltorch_tpu" / rel).exists(), rel
     for src in (PORT / "kernels" / "csrc").glob("*.cu"):
         assert (REPO / "hamiltorch_tpu" / "kernels" / f"{src.stem}.py").exists(), src.name
+
+
+def test_entry_points_default_to_the_card():
+    """With no device given, the factories put their tensors on the card,
+    and without one they raise instead of falling back to the CPU."""
+    import numpy as np
+    import torch
+
+    from hamiltorch_tpu_torch.models import flagship
+    from hamiltorch_tpu_torch.utils.convert import from_jax_params
+
+    calls = [
+        lambda: flagship.make_flagship_potential(8, 4, 16)[1],
+        lambda: flagship.make_flagship_potential_tree(8, 4, 16)[1]["w1"],
+        lambda: flagship.make_tiny_potential()[4],
+        lambda: from_jax_params(np.zeros(3, np.float32))[0],
+    ]
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    assert from_jax_params(np.zeros(3, np.float32), device="cpu")[0].device.type == "cpu"
+
+
+def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
+    from hamiltorch_tpu_torch.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int b = 1;\n")
+    (tmp_path / "unused.cuh").write_text("int u;\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert sorted(p.name for p in _build.sources("k")) == ["a.cuh", "b.cuh", "k.cu"]
+    before = _build.library_path("k")
+    (tmp_path / "unused.cuh").write_text("int u = 2;\n")
+    assert _build.library_path("k") == before
+    (tmp_path / "b.cuh").write_text("int b = 2;\n")  # a header included through another
+    assert _build.library_path("k") != before

@@ -50,18 +50,20 @@ def test_flagship_value_and_grad(width, form):
     if form == "flat":
         j_lp, j_theta0 = jflag.make_flagship_potential(in_dim, hidden, n_data)
         j_point = jnp.asarray(theta)
-        t_point, tx, ty = from_jax_params(theta, x, y)
+        t_point, tx, ty = from_jax_params(theta, x, y, device="cpu")
         t_lp, t_theta0 = tflag.make_flagship_potential(
-            in_dim, hidden, n_data, x=tx, y=ty, theta0=from_jax_params(theta0)[0])
+            in_dim, hidden, n_data, x=tx, y=ty, theta0=from_jax_params(theta0, device="cpu")[0],
+            device="cpu")
     else:
         j_lp, j_theta0 = jflag.make_flagship_potential_tree(in_dim, hidden, n_data)
         s0, s1 = in_dim * hidden, in_dim * hidden + hidden
         split = lambda t: {"w1": t[:s0].reshape(in_dim, hidden), "b1": t[s0:s1],  # noqa: E731
                            "w2": t[s1:s1 + hidden].reshape(hidden, 1), "b2": t[s1 + hidden:]}
         j_point = jax.tree_util.tree_map(jnp.asarray, split(theta))
-        t_point, tx, ty = from_jax_params(split(theta), x, y)
+        t_point, tx, ty = from_jax_params(split(theta), x, y, device="cpu")
         t_lp, t_theta0 = tflag.make_flagship_potential_tree(
-            in_dim, hidden, n_data, x=tx, y=ty, theta0=from_jax_params(theta0)[0])
+            in_dim, hidden, n_data, x=tx, y=ty, theta0=from_jax_params(theta0, device="cpu")[0],
+            device="cpu")
 
     # the recipe reproduces the JAX package's initial point exactly
     for a, b in zip(jax.tree_util.tree_leaves(j_theta0),
@@ -77,7 +79,7 @@ def test_flagship_value_and_grad(width, form):
 
 def test_value_and_grad_vmaps_over_chains():
     x, y, theta0 = jax_flagship_data(8, 4, 16)
-    t_lp, _ = tflag.make_flagship_potential(8, 4, 16, x=x, y=y, theta0=theta0)
+    t_lp, _ = tflag.make_flagship_potential(8, 4, 16, x=x, y=y, theta0=theta0, device="cpu")
     thetas = torch.as_tensor(np.random.RandomState(2).randn(3, theta0.size).astype(np.float32))
     vals, grads = torch.func.vmap(value_and_grad(t_lp))(thetas)
     for c in range(3):
@@ -88,7 +90,7 @@ def test_value_and_grad_vmaps_over_chains():
 
 def test_tiny_potential_matches():
     j_ll, j_prior, j_x, j_y, j_theta0 = jflag.make_tiny_potential()
-    t_ll, t_prior, t_x, t_y, t_theta0 = tflag.make_tiny_potential(x=np.asarray(j_x))
+    t_ll, t_prior, t_x, t_y, t_theta0 = tflag.make_tiny_potential(x=np.asarray(j_x), device="cpu")
     np.testing.assert_array_equal(t_y.numpy(), np.asarray(j_y))
     np.testing.assert_array_equal(t_theta0.numpy(), np.asarray(j_theta0))
     theta = np.random.RandomState(3).randn(j_theta0.size).astype(np.float32)
