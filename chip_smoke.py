@@ -8,19 +8,28 @@ the kernels are built for sm_90a).  It
 
 1. prints the card (``nvidia-smi`` name and power limit, and torch's name);
 2. builds every CUDA kernel of the port from the sources in the checkout
-   (one ``nvcc`` per source, all started together) and prints the time;
+   (one ``nvcc`` per source, all started together) and prints the time,
+   each kernel's registers and shared memory (``-Xptxas -v``), and the
+   count of ``HGMMA`` instructions (the SASS of ``wgmma``) in the
+   ``bnn_hmc`` and ``bnn_mclmc`` libraries (``cuobjdump -sass``); it fails
+   if either has none;
 3. holds each kernel against its plain PyTorch version on the same inputs
    and the same injected noise, and fails above the stated tolerance, on
    any differing accept decision, or where the gradient's part of the move
    is too small beside the tolerance for the comparison to see a wrong
-   gradient: ``bnn_hmc`` and ``bnn_mclmc`` at the flagship and at a small
+   gradient: one BNN gradient alone (``kernels/bnn_grad._bnn_gradient``,
+   the GEMM pair of both BNN kernels) at the flagship and two ragged
+   shapes, ``bnn_hmc`` and ``bnn_mclmc`` at the flagship and at a small
    ragged shape, ``gaussian_hmc`` with diagonal P at D=3 and dense P at
    D=128;
 4. times each kernel and its plain version (CUDA events, median of 3, in
-   turns) and the cuBLAS GEMMs (``torch.matmul``) of the products each
-   kernel computes in its body, and computes each kernel's bound: the
-   larger of its FLOPs at the float32 FMA peak and its bytes at the memory
-   rate;
+   turns), the GEMM pair of one flagship gradient beside cuBLAS's pair
+   (``torch.matmul``) on the same shapes, and the cuBLAS GEMMs of the
+   products each kernel computes in its body, and computes each kernel's
+   bound: the larger of its FLOPs at the float32 FMA peak and its bytes at
+   the memory rate, and for the BNN kernels, whose products run on the
+   tensor cores in 3xTF32, also three times their FLOPs at the dense tf32
+   peak (``bound_3xtf32_ms``);
 5. drives the main paths, each with the launch counts set to 0 just before
    it and read just after, and fails if its kernel was not launched:
    - HMC: the fused flagship sampler ``kernels.bnn_hmc`` and
@@ -48,6 +57,8 @@ no result.  TF32 is off for every float32 matmul (cuBLAS and cuDNN).
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -78,9 +89,15 @@ VAR_E_RTOL = 1e-3
 SIGNAL = 100 * ATOL
 W1_ROW_TILE = 64
 FLAGSHIP = dict(n=1024, i=784, h=128, c=64)
-# the card's float32 FMA peak and memory rate (H100 SXM data sheet, 700 W)
+# the card's float32 FMA peak, dense tf32 tensor-core peak and memory rate
+# (H100 SXM data sheet, 700 W)
 PEAK_FLOPS = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# one gradient alone against its plain version: float32 products summed over
+# N or I terms in another order; relative to the largest gradient entry
+GRAD_RTOL = 1e-5
+LOGP_RTOL = 1e-6
 MCLMC_TUNE_STEPS = 1000  # bench.py:446
 MCLMC_CHUNK = 200  # frozen steps per chunk (every 10th kept)
 
@@ -271,10 +288,15 @@ def bound(flops, nbytes):
 
 
 def bnn_gemm_ms(torch, device):
-    """cuBLAS time (ms) of one flagship forward GEMM x W1 and one backward
-    GEMM x^T da over 64 chains: the products of one gradient evaluation of
-    the BNN kernels.  Median of 3 runs of 20 pairs."""
-    x, _, w1, *_ = bnn_inputs(torch, **FLAGSHIP, seed=7, device=device)
+    """(kernel, cuBLAS) time (ms) of the GEMM pair of one flagship gradient
+    over 64 chains.  Kernel: ``_bnn_gradient`` (forward and backward GEMM
+    with their epilogues and the per-chain reduction), (21 evaluations - 1)
+    / 20 in one call each.  cuBLAS: one forward GEMM x W1 and one backward
+    GEMM x^T da, 20 pairs.  Medians of 3, in turns."""
+    from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient
+
+    x, y, w1, *rest = bnn_inputs(torch, **FLAGSHIP, seed=7, device=device)
+    theta = flat(torch, (w1, *rest)).contiguous()
     da = torch.randn(FLAGSHIP["c"], FLAGSHIP["n"], FLAGSHIP["h"], device=device)
     xt = x.T
 
@@ -283,8 +305,48 @@ def bnn_gemm_ms(torch, device):
             torch.matmul(x, w1)
             torch.matmul(xt, da)
 
-    ms, _ = time_in_turns(torch, {"gemm": pairs})["gemm"]
-    return ms / 20
+    t = time_in_turns(torch, {"one": lambda s: _bnn_gradient(x, y, theta, repeats=1),
+                              "many": lambda s: _bnn_gradient(x, y, theta, repeats=21),
+                              "gemm": pairs})
+    return (t["many"][0] - t["one"][0]) / 20, t["gemm"][0] / 20
+
+
+def compare_bnn_gradient(torch, shape, seed, device):
+    """One gradient of every chain, kernel vs plain: max abs error over the
+    largest gradient entry, and logp's relative error."""
+    from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient, _bnn_gradient_reference
+
+    x, y, *parts = bnn_inputs(torch, shape["n"], shape["i"], shape["h"], shape["c"], seed, device)
+    parts[1] = 0.1 * torch.randn(parts[1].shape, generator=torch.Generator().manual_seed(seed)).to(
+        device)  # nonzero b1, so that a wrong bias column would show
+    theta = flat(torch, parts).contiguous()
+    g, logp = _bnn_gradient(x, y, theta, tau=10.0)
+    want_g, want_logp = _bnn_gradient_reference(x, y, theta, tau=10.0)
+    torch.cuda.synchronize()
+    if not bool(torch.all(torch.isfinite(g))):
+        raise SmokeError("_bnn_gradient returned non-finite values")
+    err = float((g - want_g).abs().max()) / float(want_g.abs().max())
+    lerr = float(((logp - want_logp) / want_logp).abs().max())
+    print(f"one BNN gradient vs plain {shape}: max_abs_err / max|g| = {err:.3e}, "
+          f"logp max_rel_err = {lerr:.3e}")
+    if not (err <= GRAD_RTOL and lerr <= LOGP_RTOL):
+        raise SmokeError(f"_bnn_gradient disagrees with its plain version: {err:.3e}, {lerr:.3e}")
+
+
+def tensor_core_check():
+    """Count HGMMA (wgmma) instructions in the BNN libraries."""
+    from hamiltorch_tpu_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    counts = {}
+    for name in ("bnn_hmc", "bnn_mclmc", "bnn_grad"):
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        counts[name] = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"tensor cores: HGMMA instructions per library {counts}")
+    if not (counts["bnn_hmc"] > 0 and counts["bnn_mclmc"] > 0):
+        raise SmokeError(f"no wgmma in the BNN kernels' SASS: {counts}")
 
 
 def bnn_bytes(shape, extra_per_chain=0):
@@ -299,6 +361,12 @@ def gradient_flops(shape):
     return 2 * 2 * shape["n"] * shape["i"] * shape["h"] * shape["c"]
 
 
+def tf32_bound_ms(flops):
+    """The least time of flops float32 products done in 3xTF32: three tf32
+    products each, at the dense tf32 tensor-core peak."""
+    return 3 * flops / PEAK_TF32 * 1e3
+
+
 def time_bnn_hmc(torch, device, gemm_ms, draws, steps, eps, card):
     """Kernel and plain times (ms) on Philox / torch noise, in turns."""
     from hamiltorch_tpu_torch.kernels.bnn_hmc import bnn_hmc, bnn_hmc_reference
@@ -311,12 +379,15 @@ def time_bnn_hmc(torch, device, gemm_ms, draws, steps, eps, card):
     grad_steps = FLAGSHIP["c"] * draws * steps
     gradients = draws * steps + 1  # one per leapfrog step, one at the start
     b_ms, b_by = bound(gradient_flops(FLAGSHIP) * gradients, bnn_bytes(FLAGSHIP))
+    tc_ms = tf32_bound_ms(gradient_flops(FLAGSHIP) * gradients)
     lib_ms = gemm_ms * gradients
     print(f"bnn_hmc {FLAGSHIP} {draws}x{steps}: kernel {k_ms:.3f} ms "
           f"({grad_steps / k_ms * 1e3:.1f} grad-steps/s), plain {p_ms:.3f} ms "
           f"({grad_steps / p_ms * 1e3:.1f} grad-steps/s); runs kernel {k_all} plain {p_all}; "
-          f"bound {b_ms:.3f} ms ({b_by}); cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+          f"bound {b_ms:.3f} ms ({b_by}, float32 FMA), {tc_ms:.3f} ms (3xTF32 tensor cores); "
+          f"cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                bound_3xtf32_ms=tc_ms)
 
 
 def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
@@ -332,12 +403,15 @@ def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
     grad_steps = FLAGSHIP["c"] * draws * 2
     gradients = 2 * draws + 1  # two per draw, one at the start
     b_ms, b_by = bound(gradient_flops(FLAGSHIP) * gradients, bnn_bytes(FLAGSHIP, dim))
+    tc_ms = tf32_bound_ms(gradient_flops(FLAGSHIP) * gradients)
     lib_ms = gemm_ms * gradients
     print(f"bnn_mclmc {FLAGSHIP} {draws} draws eps={eps} L={length}: kernel {k_ms:.3f} ms "
           f"({grad_steps / k_ms * 1e3:.1f} grad-steps/s), plain {p_ms:.3f} ms "
           f"({grad_steps / p_ms * 1e3:.1f} grad-steps/s); runs kernel {k_all} plain {p_all}; "
-          f"bound {b_ms:.3f} ms ({b_by}); cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+          f"bound {b_ms:.3f} ms ({b_by}, float32 FMA), {tc_ms:.3f} ms (3xTF32 tensor cores); "
+          f"cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                bound_3xtf32_ms=tc_ms)
 
 
 def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card):
@@ -366,7 +440,8 @@ def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card):
           f"({chains * draws / k_ms * 1e3:.4g} chain-draws/s), plain {p_ms:.3f} ms "
           f"({chains * draws / p_ms * 1e3:.4g} chain-draws/s); runs kernel {k_all} plain {p_all}; "
           f"bound {b_ms:.4g} ms ({b_by}); cuBLAS matmuls {lib} [{card}]")
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                bound_3xtf32_ms=None)
 
 
 def hmc_main_path(torch, device, draws, steps, eps, card):
@@ -587,15 +662,19 @@ def main() -> int:
     from hamiltorch_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all([name for name, *_ in KERNELS])
+    logs = _build.build_all([name for name, *_ in KERNELS] + ["bnn_grad"])
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  [{name}] {line.strip()}")
+    tensor_core_check()
 
-    # 3. kernel vs plain, injected noise
+    # 3. kernel vs plain: one gradient alone, then the samplers on injected noise
     errs = {}
+    for shape, seed in ((FLAGSHIP, 5), (dict(n=100, i=50, h=128, c=3), 3),
+                        (dict(n=200, i=784, h=256, c=2), 4)):
+        compare_bnn_gradient(torch, shape, seed, device)
     # both bnn_hmc shapes reject a few draws, so accept decisions are tested too
     _, small_acc = compare_bnn_hmc(torch, dict(n=100, i=50, h=128, c=3), draws=4, steps=4,
                                    eps=0.02, seed=3, device=device)
@@ -616,9 +695,12 @@ def main() -> int:
     )
 
     # 4. kernels alone on Philox, their plain versions and cuBLAS, timed
-    gemm_ms = bnn_gemm_ms(torch, device)
-    print(f"cuBLAS float32 flagship GEMM pair (x W1 and x^T da, 64 chains): {gemm_ms:.4f} ms "
-          f"[{card}]")
+    pair_ms, gemm_ms = bnn_gemm_ms(torch, device)
+    flops = gradient_flops(FLAGSHIP)
+    print(f"flagship GEMM pair (x W1 and x^T da, 64 chains): kernel {pair_ms:.4f} ms per gradient "
+          f"(3xTF32 wgmma, with epilogues and the per-chain reduction), cuBLAS float32 "
+          f"{gemm_ms:.4f} ms; bounds {bound(flops, 0)[0]:.4f} ms (float32 FMA), "
+          f"{tf32_bound_ms(flops):.4f} ms (3xTF32 tensor cores) [{card}]")
     draws, steps, eps = 10, 50, 2e-4
     times = {
         "bnn_hmc": time_bnn_hmc(torch, device, gemm_ms, draws, steps, eps, card),

@@ -17,7 +17,10 @@ Two versions of the same function live here:
   of ``csrc/bnn_hmc.cu`` (built for Hopper at first use) and nothing else;
   on CPU tensors it calls the plain version, and on any other device it
   raises.  The tensors' device takes the place of the JAX function's
-  ``interpret`` flag.
+  ``interpret`` flag.  The kernel's two GEMMs per step run on the tensor
+  cores in 3xTF32 (``csrc/bnn_grad.cuh``: each float32 operand split into
+  two tf32 parts, three products), which keeps float32 accuracy; the
+  workspace size comes from the C side.
 * ``bnn_hmc_reference`` is the plain PyTorch version.  The CPU tests hold
   it against the Pallas kernel and against autodiff, and ``chip_smoke.py``
   holds the CUDA kernel against it.
@@ -41,7 +44,9 @@ the given momenta and uniforms instead of its own random numbers (a test
 hook, off the main path).  Momenta are in the flat layout w1 (row-major),
 b1, w2, b2 of each chain, D = I*H + 2H + 1.  Without it the plain version
 draws from ``utils.rng``'s per-(seed, chain, draw) streams and the CUDA
-kernel from Philox keyed the same way; the two streams differ.
+kernel from Philox keyed the same way; the two streams differ.  (The
+kernel keeps W1 transposed in its own state; the given momenta and its
+Philox counters stay keyed on this flat layout.)
 """
 
 from __future__ import annotations

@@ -24,7 +24,9 @@ Two versions of the same function live here:
   kernel of ``csrc/bnn_mclmc.cu`` (built for Hopper at first use) and
   nothing else; on CPU tensors it calls the plain version, and on any other
   device it raises.  The tensors' device takes the place of the JAX
-  function's ``interpret`` flag.
+  function's ``interpret`` flag.  The kernel's gradients run on the tensor
+  cores in 3xTF32 (``csrc/bnn_grad.cuh``), which keeps float32 accuracy;
+  the workspace size comes from the C side.
 * ``bnn_mclmc_reference`` is the plain PyTorch version, with the kernel's
   arithmetic: norms, dots and logp reduced in float64, the rotation's
   scalars in float64 and applied in float32, parameters, velocities and
@@ -39,7 +41,8 @@ shape.  Neither guards against non-finite steps (``run_mclmc*`` does).
 normals instead of its own (a test hook, off the main path), in the flat
 layout w1 (row-major), b1, w2, b2.  Without it the plain version draws
 from ``utils.rng``'s per-(seed, chain, draw) streams and the CUDA kernel
-from Philox keyed the same way; the two streams differ.
+from Philox keyed the same way; the two streams differ.  ``u`` and the
+normals keep this flat layout although the kernel holds W1 transposed.
 """
 
 from __future__ import annotations

@@ -14,16 +14,20 @@
 // x W1 and the backward x^T da, each 2*N*I*H flops.  At the flagship
 // (N=1024, I=784, H=128) that is 2 x 205.5 MFLOP per chain, 26.3 GFLOP per
 // step for 64 chains, against about 0.2 GB of state traffic per step: the
-// step is bound by float32 FMA throughput (67 TFLOP/s on an H100 SXM at
-// 700 W, about 0.39 ms per step at best), not by memory.
+// step is bound by the tensor cores, which run the products in 3xTF32
+// (3 x 26.3 GFLOP at the 495 TFLOP/s dense tf32 peak of an H100 SXM at
+// 700 W: 0.16 ms per step at best; in float32 FMA it would be 0.39 ms),
+// not by memory.
 //
 // What the design does about it.  The TPU kernel keeps one chain's whole
 // state on chip for the whole run; one chain's f32 state is 402 KB, more
 // than the 227 KB of shared memory a block can have.  So the state of all
-// chains (theta, momentum, gradient, proposal) lives in device memory, and
-// the host loops over draws and steps, launching on the caller's stream
-// three kernels per leapfrog step (launch_gradient, bnn_grad.cuh: forward
-// GEMM, backward GEMM fusing the kick and the next drift, and a per-chain
+// chains (theta, momentum, gradient, proposal, packed with W1 transposed:
+// see bnn_grad.cuh) lives in device memory, x is split into tf32 parts and
+// staged once per run, and the host loops over draws and steps, launching
+// on the caller's stream three kernels per leapfrog step (launch_gradient,
+// bnn_grad.cuh: the forward and backward GEMMs as TMA-fed wgmma tiles in
+// 3xTF32, the backward fusing the kick and the next drift, and a per-chain
 // kernel for the small parameters and the energies) plus, per draw,
 //   init_draw_kernel Philox + Box-Muller momenta (or given ones), kinetic
 //                    energy, the half kick and the first drift;
@@ -63,38 +67,39 @@ Layout make_layout(int n, int in_dim, int hidden, int chains) {
   return L;
 }
 
-// Start of a draw: p = z (Philox or given), partial sums of |z|^2,
-// p += eps/2 grad, th = theta + eps p.
+// Start of a draw: p = z (Philox or given, both keyed on the logical
+// element), partial sums of |z|^2, p += eps/2 grad, th = theta + eps p.
 __global__ void __launch_bounds__(EW) init_draw_kernel(
     const float* __restrict__ theta, const float* __restrict__ grad, float* __restrict__ th,
-    float* __restrict__ p, double* __restrict__ pk0, long long d, long long dp, int chains,
-    int draw, float eps, uint2 key, const float* __restrict__ momenta) {
+    float* __restrict__ p, double* __restrict__ pk0, const BnnDims s, int draw, float eps,
+    uint2 key, const float* __restrict__ momenta) {
   const int c = blockIdx.y;
-  const long long base = c * dp;
-  const float* mom = momenta ? momenta + ((long long)draw * chains + c) * d : nullptr;
+  const long long base = c * s.dp;
+  const float* mom = momenta ? momenta + ((long long)draw * s.chains + c) * s.d : nullptr;
   double k0 = 0.0;
-  const long long pairs = (d + 1) / 2;
+  const long long pairs = (s.d + 1) / 2;
   for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x; q < pairs;
        q += (long long)gridDim.x * blockDim.x) {
+    const Pair pr = pair_at(q, s);
     float z[2];
     if (mom) {
-      z[0] = mom[2 * q];
-      z[1] = (2 * q + 1 < d) ? mom[2 * q + 1] : 0.0f;
+      z[0] = mom[pr.k0];
+      z[1] = (pr.m1 >= 0) ? mom[pr.k0 + 1] : 0.0f;
     } else {
       const float2 r = box_muller(
-          philox(make_uint4((uint32_t)q, (uint32_t)draw, (uint32_t)c, 0u), key));
+          philox(make_uint4((uint32_t)(pr.k0 / 2), (uint32_t)draw, (uint32_t)c, 0u), key));
       z[0] = r.x;
       z[1] = r.y;
     }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const long long k = 2 * q + e;
-      if (k < d) {
+      const long long m = e ? pr.m1 : pr.m0;
+      if (m >= 0) {
         float pv = z[e];
         k0 += (double)pv * pv;
-        pv = fmaf(0.5f * eps, grad[base + k], pv);
-        p[base + k] = pv;
-        th[base + k] = fmaf(eps, pv, theta[base + k]);
+        pv = fmaf(0.5f * eps, grad[base + m], pv);
+        p[base + m] = pv;
+        th[base + m] = fmaf(eps, pv, theta[base + m]);
       }
     }
   }
@@ -131,13 +136,14 @@ __global__ void mh_kernel(const double* __restrict__ pk0, int ew_blocks,
   }
 }
 
-// Accepted chains: theta <- th, grad <- gr.
+// Accepted chains: theta <- th, grad <- gr (every packed slot; padding
+// slots are zero on both sides).
 __global__ void __launch_bounds__(EW) select_kernel(
     float* __restrict__ theta, float* __restrict__ grad, const float* __restrict__ th,
-    const float* __restrict__ gr, const double* __restrict__ flag, long long d, long long dp) {
+    const float* __restrict__ gr, const double* __restrict__ flag, long long dp) {
   const int c = blockIdx.y;
   if (flag[c] == 0.0) return;
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < d;
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < dp;
        k += (long long)gridDim.x * blockDim.x) {
     theta[c * dp + k] = th[c * dp + k];
     grad[c * dp + k] = gr[c * dp + k];
@@ -159,7 +165,7 @@ const char* bnn_hmc_error_string(int err) { return cudaGetErrorString((cudaError
 // All pointers are device pointers (stream is a cudaStream_t); hidden must
 // be a multiple of 128 and chains at most 65535 (a grid dimension), and the
 // caller checks num_samples, num_steps >= 1; momenta (S, C, D) and uniforms
-// (S, C) may be null.
+// (S, C) may be null.  N and I are free (TMA zero-fills ragged tiles).
 // Launches on the stream without synchronising and returns the first
 // launch error as a cudaError_t (0 on success).
 int bnn_hmc_run(const float* x, const float* y, const float* w1, const float* b1,
@@ -180,6 +186,7 @@ int bnn_hmc_run(const float* x, const float* y, const float* w1, const float* b1
   float* gr = (float*)(ws + L.gr);
   float* p = (float*)(ws + L.p);
   const GradScratch scratch = grad_scratch(ws, L.grad_ws);
+  GradMaps maps;
   double* pk0 = (double*)(ws + L.pk0);
   double* logp_cur = (double*)(ws + L.logp_cur);
   double* logp_prop = (double*)(ws + L.logp_prop);
@@ -192,31 +199,32 @@ int bnn_hmc_run(const float* x, const float* y, const float* w1, const float* b1
   const int mh_blocks = (chains + 127) / 128;
 
   auto gradient = [&](float kappa, int drift) -> int {
-    return launch_gradient(S, x, y, th, gr, p, scratch, logp_prop, kin_prop, tau, kappa,
+    return launch_gradient(S, maps, y, th, gr, p, scratch, logp_prop, kin_prop, tau, kappa,
                            step_size, drift, stream);
   };
   auto metropolis = [&](int draw, int force) -> int {
     mh_kernel<<<mh_blocks, 128, 0, stream>>>(pk0, S.ew_blocks, logp_cur, logp_prop, kin_prop,
                                              flag, count, chains, draw, key, uniforms, force);
     LAUNCH_CHECK();
-    select_kernel<<<ew_grid, EW, 0, stream>>>(theta, grad, th, gr, flag, S.d, S.dp);
+    select_kernel<<<ew_grid, EW, 0, stream>>>(theta, grad, th, gr, flag, S.dp);
     LAUNCH_CHECK();
     return 0;
   };
 
-  pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, theta, th, in_dim, hidden, S.d, S.dp);
-  LAUNCH_CHECK();
   int err;
-  if ((err = (int)cudaMemsetAsync(p, 0, sizeof(float) * chains * S.dp, stream)) != 0) return err;
-  if ((err = (int)cudaMemsetAsync(count, 0, sizeof(double) * chains, stream)) != 0) return err;
+  // zeros everywhere first: the padding slots of the packed state stay zero
+  if ((err = (int)cudaMemsetAsync(ws, 0, L.bytes, stream)) != 0) return err;
+  pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, theta, th, S);
+  LAUNCH_CHECK();
+  if ((err = prepare_gradient(S, x, th, scratch, &maps, stream)) != 0) return err;
 
   // gradient and logp at the initial point; "accept" it as the current state
   if ((err = gradient(0.0f, 0)) != 0) return err;
   if ((err = metropolis(0, 1)) != 0) return err;
 
   for (int draw = 0; draw < num_samples; ++draw) {
-    init_draw_kernel<<<ew_grid, EW, 0, stream>>>(theta, grad, th, p, pk0, S.d, S.dp, chains,
-                                                 draw, step_size, key, momenta);
+    init_draw_kernel<<<ew_grid, EW, 0, stream>>>(theta, grad, th, p, pk0, S, draw, step_size, key,
+                                                 momenta);
     LAUNCH_CHECK();
     for (int s = 1; s <= num_steps; ++s) {
       const bool last = (s == num_steps);
@@ -227,7 +235,7 @@ int bnn_hmc_run(const float* x, const float* y, const float* w1, const float* b1
   }
 
   unpack_kernel<<<ew_grid, EW, 0, stream>>>(theta, count, (double)num_samples, w1_out, b1_out,
-                                            w2_out, b2_out, acc_out, in_dim, hidden, S.d, S.dp);
+                                            w2_out, b2_out, acc_out, S);
   LAUNCH_CHECK();
   return 0;
 }

@@ -20,16 +20,20 @@
 //
 // What bounds it.  Each draw is two gradient evaluations, four GEMMs of
 // 2*N*I*H flops per chain: at the flagship (N=1024, I=784, H=128) 52.6
-// GFLOP per draw for 64 chains, about 0.79 ms per draw at the 67 TFLOP/s
-// float32 FMA peak of an H100 SXM (700 W).  The vector algebra between the
-// gradients reads and writes the 100,609-float state a few times per
-// rotation (about 0.2 GB per draw at 64 chains, ~0.06 ms at 3.35 TB/s).
+// GFLOP per draw for 64 chains.  The GEMMs run on the tensor cores in
+// 3xTF32 (bnn_grad.cuh): 3 x 52.6 GFLOP at the 495 TFLOP/s dense tf32 peak
+// of an H100 SXM (700 W) is 0.32 ms per draw (0.79 ms at the 67 TFLOP/s
+// float32 FMA peak).  The vector algebra between the gradients reads and
+// writes the 100,609-float state a few times per rotation (about 0.2 GB per
+// draw at 64 chains, ~0.06 ms at 3.35 TB/s).
 //
 // What the design does about it.  As in bnn_hmc.cu, the state of all chains
 // lives in device memory (one chain's state is larger than a block's shared
-// memory) and the host loops over draws, launching on the caller's stream:
-// the gradient (launch_gradient: forward GEMM, backward GEMM, per-chain
-// kernel; no kick), and for each rotation
+// memory), packed with W1 transposed (bnn_grad.cuh; the rotations below are
+// elementwise and do not care about the order, the refresh normals are
+// keyed on the logical element), and the host loops over draws, launching
+// on the caller's stream: the gradient (launch_gradient: forward and
+// backward wgmma GEMMs, per-chain kernel; no kick), and for each rotation
 //   dots_kernel    per-block partial sums of |g|^2 and u.g in float64;
 //   rotate_kernel  every block reduces its chain's partials in a fixed order
 //                  to the rotation's scalars (float64), writes
@@ -80,16 +84,16 @@ __device__ __forceinline__ double chain_sum(const double* part, int c, int ew_bl
   return s;
 }
 
-// part[c][block] = (sum a^2, sum a.b) over the real dims of chain blockIdx.y
+// part[c][block] = (sum a^2, sum a.b) over the packed slots of chain
+// blockIdx.y (padding slots are zero)
 __global__ void __launch_bounds__(EW) dots_kernel(const float* __restrict__ a,
                                                   const float* __restrict__ b,
-                                                  double* __restrict__ part, long long d,
-                                                  long long dp) {
+                                                  double* __restrict__ part, long long dp) {
   const int c = blockIdx.y;
   const float* ac = a + c * dp;
   const float* bc = b + c * dp;
   double aa = 0.0, ab = 0.0;
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < d;
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < dp;
        k += (long long)gridDim.x * blockDim.x) {
     const double av = ac[k];
     aa += av * av;
@@ -104,8 +108,9 @@ __global__ void __launch_bounds__(EW) dots_kernel(const float* __restrict__ a,
   }
 }
 
-// One isokinetic rotation toward g (see the top of the file); pdot holds
-// the partials of |g|^2 and u.g, pnorm receives those of |w|^2.
+// One isokinetic rotation toward g (see the top of the file) over every
+// packed slot (padding stays zero); pdot holds the partials of |g|^2 and
+// u.g, pnorm receives those of |w|^2; d is the logical dimension.
 __global__ void __launch_bounds__(EW) rotate_kernel(
     const float* __restrict__ g, float* __restrict__ u, const double* __restrict__ pdot,
     double* __restrict__ pnorm, double* __restrict__ dk, double* __restrict__ logp_cur,
@@ -140,7 +145,7 @@ __global__ void __launch_bounds__(EW) rotate_kernel(
   const float* gc = g + c * dp;
   float* uc = u + c * dp;
   double nn = 0.0;
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < d;
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < dp;
        k += (long long)gridDim.x * blockDim.x) {
     const float w = fmaf(ce, gc[k], s * uc[k]);
     uc[k] = w;
@@ -152,39 +157,41 @@ __global__ void __launch_bounds__(EW) rotate_kernel(
 
 // u <- u / |u| (|u|^2 from the partials in pnorm); then with th the drift
 // th += h u, or with part_out the refresh u += nu z (z from Philox, or the
-// given normals) and partial sums of |u|^2 into part_out.
+// given normals, both keyed on the logical element) and partial sums of
+// |u|^2 into part_out.  Padding slots are not touched.
 __global__ void __launch_bounds__(EW) scale_kernel(
     float* __restrict__ u, float* __restrict__ th, const double* __restrict__ pnorm,
-    double* __restrict__ part_out, long long d, long long dp, float h, float nu, int chains,
-    int draw, uint2 key, const float* __restrict__ normals) {
+    double* __restrict__ part_out, const BnnDims s, float h, float nu, int draw, uint2 key,
+    const float* __restrict__ normals) {
   __shared__ float inv_s;
   const int c = blockIdx.y;
   if (threadIdx.x == 0) inv_s = (float)(1.0 / sqrt(chain_sum(pnorm, c, gridDim.x, 0)));
   __syncthreads();
   const float inv = inv_s;
-  float* uc = u + c * dp;
-  float* thc = th ? th + c * dp : nullptr;
-  const float* z_in = normals ? normals + ((long long)draw * chains + c) * d : nullptr;
+  float* uc = u + c * s.dp;
+  float* thc = th ? th + c * s.dp : nullptr;
+  const float* z_in = normals ? normals + ((long long)draw * s.chains + c) * s.d : nullptr;
   double nn = 0.0;
-  const long long pairs = (d + 1) / 2;
+  const long long pairs = (s.d + 1) / 2;
   for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x; q < pairs;
        q += (long long)gridDim.x * blockDim.x) {
+    const Pair pr = pair_at(q, s);
     float z[2] = {0.f, 0.f};
     if (part_out) {
       if (z_in) {
-        z[0] = z_in[2 * q];
-        z[1] = (2 * q + 1 < d) ? z_in[2 * q + 1] : 0.0f;
+        z[0] = z_in[pr.k0];
+        z[1] = (pr.m1 >= 0) ? z_in[pr.k0 + 1] : 0.0f;
       } else {
-        const float2 r =
-            box_muller(philox(make_uint4((uint32_t)q, (uint32_t)draw, (uint32_t)c, 2u), key));
+        const float2 r = box_muller(
+            philox(make_uint4((uint32_t)(pr.k0 / 2), (uint32_t)draw, (uint32_t)c, 2u), key));
         z[0] = r.x;
         z[1] = r.y;
       }
     }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const long long k = 2 * q + e;
-      if (k < d) {
+      const long long k = e ? pr.m1 : pr.m0;
+      if (k >= 0) {
         float v = uc[k] * inv;
         if (thc) thc[k] = fmaf(h, v, thc[k]);
         if (part_out) {
@@ -217,7 +224,7 @@ const char* bnn_mclmc_error_string(int err) { return cudaGetErrorString((cudaErr
 // nu = sqrt(expm1(2 eps / L) / D) comes from the caller.  All pointers are
 // device pointers (stream is a cudaStream_t); hidden must be a multiple of
 // 128 and chains at most 65535 (a grid dimension), and the caller checks
-// num_samples >= 1; normals (S, C, D) may be null.  Launches on the stream
+// num_samples >= 1; normals (S, C, D) may be null.  N and I are free.  Launches on the stream
 // without synchronising and returns the first launch error as a
 // cudaError_t (0 on success).
 int bnn_mclmc_run(const float* x, const float* y, const float* w1, const float* b1,
@@ -236,6 +243,7 @@ int bnn_mclmc_run(const float* x, const float* y, const float* w1, const float* 
   float* u = (float*)(ws + L.u);
   float* g = (float*)(ws + L.g);
   const GradScratch scratch = grad_scratch(ws, L.grad_ws);
+  GradMaps maps;
   double* pdot = (double*)(ws + L.pdot);
   double* pnorm = (double*)(ws + L.pnorm);
   double* logp_cur = (double*)(ws + L.logp_cur);
@@ -248,37 +256,36 @@ int bnn_mclmc_run(const float* x, const float* y, const float* w1, const float* 
   int err;
 
   auto gradient = [&]() -> int {
-    return launch_gradient(S, x, y, th, g, nullptr, scratch, logp_prop, nullptr, tau, 0.f, 0.f,
-                           0, stream);
+    return launch_gradient(S, maps, y, th, g, nullptr, scratch, logp_prop, nullptr, tau, 0.f,
+                           0.f, 0, stream);
   };
   // V(coef) and, unless last, the drift X(eps/2) that follows it
   auto rotate = [&](double coef, int last) -> int {
-    dots_kernel<<<ew_grid, EW, 0, stream>>>(g, u, pdot, S.d, S.dp);
+    dots_kernel<<<ew_grid, EW, 0, stream>>>(g, u, pdot, S.dp);
     LAUNCH_CHECK();
     rotate_kernel<<<ew_grid, EW, 0, stream>>>(g, u, pdot, pnorm, dk, logp_cur, logp_prop, sum_de2,
                                               S.d, S.dp, coef, last);
     LAUNCH_CHECK();
     if (!last) {
-      scale_kernel<<<ew_grid, EW, 0, stream>>>(u, th, pnorm, nullptr, S.d, S.dp, half, 0.f,
-                                               chains, 0, key, nullptr);
+      scale_kernel<<<ew_grid, EW, 0, stream>>>(u, th, pnorm, nullptr, S, half, 0.f, 0, key,
+                                               nullptr);
       LAUNCH_CHECK();
     }
     return 0;
   };
 
-  pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, th, nullptr, in_dim, hidden, S.d, S.dp);
+  // zeros everywhere first: the padding slots of the packed state stay zero
+  if ((err = (int)cudaMemsetAsync(ws, 0, L.bytes, stream)) != 0) return err;
+  pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, th, nullptr, S);
   LAUNCH_CHECK();
-  if ((err = (int)cudaMemcpy2DAsync(u, sizeof(float) * S.dp, u_in, sizeof(float) * S.d,
-                                    sizeof(float) * S.d, chains, cudaMemcpyDeviceToDevice,
-                                    stream)) != 0)
-    return err;
-  if ((err = (int)cudaMemsetAsync(dk, 0, sizeof(double) * chains, stream)) != 0) return err;
-  if ((err = (int)cudaMemsetAsync(sum_de2, 0, sizeof(double) * chains, stream)) != 0) return err;
+  pack_flat_kernel<<<ew_grid, EW, 0, stream>>>(u_in, u, S);
+  LAUNCH_CHECK();
+  if ((err = prepare_gradient(S, x, th, scratch, &maps, stream)) != 0) return err;
   // u <- unit(u); gradient and logp at the initial point
-  dots_kernel<<<ew_grid, EW, 0, stream>>>(u, u, pnorm, S.d, S.dp);
+  dots_kernel<<<ew_grid, EW, 0, stream>>>(u, u, pnorm, S.dp);
   LAUNCH_CHECK();
-  scale_kernel<<<ew_grid, EW, 0, stream>>>(u, nullptr, pnorm, nullptr, S.d, S.dp, 0.f, 0.f, chains,
-                                           0, key, nullptr);
+  scale_kernel<<<ew_grid, EW, 0, stream>>>(u, nullptr, pnorm, nullptr, S, 0.f, 0.f, 0, key,
+                                           nullptr);
   LAUNCH_CHECK();
   if ((err = gradient()) != 0) return err;
   if ((err = (int)cudaMemcpyAsync(logp_cur, logp_prop, sizeof(double) * chains,
@@ -292,17 +299,16 @@ int bnn_mclmc_run(const float* x, const float* y, const float* w1, const float* 
     if ((err = gradient()) != 0) return err;
     if ((err = rotate(B1 * step_size, 1)) != 0) return err;
     // refresh: u <- unit(unit(w) + nu z)
-    scale_kernel<<<ew_grid, EW, 0, stream>>>(u, nullptr, pnorm, pdot, S.d, S.dp, 0.f, nu, chains,
-                                             draw, key, normals);
+    scale_kernel<<<ew_grid, EW, 0, stream>>>(u, nullptr, pnorm, pdot, S, 0.f, nu, draw, key,
+                                             normals);
     LAUNCH_CHECK();
-    scale_kernel<<<ew_grid, EW, 0, stream>>>(u, nullptr, pdot, nullptr, S.d, S.dp, 0.f, 0.f,
-                                             chains, draw, key, nullptr);
+    scale_kernel<<<ew_grid, EW, 0, stream>>>(u, nullptr, pdot, nullptr, S, 0.f, 0.f, draw, key,
+                                             nullptr);
     LAUNCH_CHECK();
   }
 
   unpack_kernel<<<ew_grid, EW, 0, stream>>>(th, sum_de2, (double)num_samples * (double)S.d, w1_out,
-                                            b1_out, w2_out, b2_out, var_e_out, in_dim, hidden,
-                                            S.d, S.dp);
+                                            b1_out, w2_out, b2_out, var_e_out, S);
   LAUNCH_CHECK();
   return 0;
 }

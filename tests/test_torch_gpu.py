@@ -10,7 +10,10 @@ Tolerances: parameters (and Gaussian draws) after a few draws differ only
 by float32 rounding of differently ordered sums (~1e-7), so atol 1e-5;
 accept decisions must be identical (energies are reduced in float64 on both
 sides).  MCLMC's var_e is a float64 sum of dE^2 on both sides, where dE is
-a difference of logp sums near the state; rtol 1e-3.
+a difference of logp sums near the state; rtol 1e-3.  One gradient alone
+(``_bnn_gradient``, the GEMM pair in 3xTF32 on the tensor cores) is held
+to 1e-5 of the largest gradient entry and logp to 1e-6 relative: float32
+products summed over N or I terms in another order.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ from hamiltorch_tpu_torch.kernels import (
     gaussian_hmc,
     gaussian_hmc_reference,
 )
+from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient, _bnn_gradient_reference
 from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
 from hamiltorch_tpu_torch.samplers.driver import MCMCConfig
 from hamiltorch_tpu_torch.samplers.hmc import run_hmc_chains
@@ -125,6 +129,31 @@ def test_bnn_mclmc_kernel_philox_is_deterministic_and_finite(cuda_device):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert not torch.equal(a[0], other[0])
     assert all(bool(torch.isfinite(t).all()) for t in a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(50, 128, 100, 3), (784, 256, 200, 2), (784, 128, 1024, 64)])
+def test_bnn_gradient_kernel_matches_plain_version(cuda_device, shape):
+    i_dim, h, n, c = shape
+    x, y, *parts = bnn_args(i_dim, h, n, c, 4, cuda_device)
+    theta = torch.cat([t.reshape(c, -1) for t in parts], dim=1).contiguous()
+    before = _bnn_gradient.launches
+    g, logp = _bnn_gradient(x, y, theta, tau=10.0)
+    want_g, want_logp = _bnn_gradient_reference(x, y, theta, tau=10.0)
+    torch.cuda.synchronize()
+    assert _bnn_gradient.launches == before + 1
+    assert float((g - want_g).abs().max()) <= 1e-5 * float(want_g.abs().max())
+    assert float(((logp - want_logp) / want_logp).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_bnn_gradient_kernel_raises_on_shapes_it_does_not_take(cuda_device):
+    x, y, *parts = bnn_args(50, 64, 100, 2, 4, cuda_device)
+    theta = torch.cat([t.reshape(2, -1) for t in parts], dim=1).contiguous()
+    before = _bnn_gradient.launches
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        _bnn_gradient(x, y, theta)
+    assert _bnn_gradient.launches == before
 
 
 def _dense_precision(d, seed):
