@@ -20,8 +20,12 @@ the kernels are built for sm_90a).  It
    gradient: one BNN gradient alone (``kernels/bnn_grad._bnn_gradient``,
    the GEMM pair of both BNN kernels) at the flagship and two ragged
    shapes, ``bnn_hmc`` and ``bnn_mclmc`` at the flagship and at a small
-   ragged shape, ``gaussian_hmc`` with diagonal P at D=3 and dense P at
-   D=128;
+   ragged shape, ``gaussian_hmc`` once per variant of its kernel: 4 lanes
+   per chain (D=3 diagonal, also at a ragged chain count), 32 lanes (D=20
+   diagonal and dense), a warp per chain (D=200 diagonal), the tensor
+   cores (dense D=128 and D=64) and dense P beyond their range (D=192),
+   and at every shape its main path launches (D=2 dense and diagonal at
+   256 chains, D=3 at 16 chains, dense D=64 at 256 chains);
 4. times each kernel and its plain version (CUDA events, median of 3, in
    turns), the GEMM pair of one flagship gradient beside cuBLAS's pair
    (``torch.matmul``) on the same shapes, and the cuBLAS GEMMs of the
@@ -29,7 +33,15 @@ the kernels are built for sm_90a).  It
    bound: the larger of its FLOPs at the float32 FMA peak and its bytes at
    the memory rate, and for the BNN kernels, whose products run on the
    tensor cores in 3xTF32, also three times their FLOPs at the dense tf32
-   peak (``bound_3xtf32_ms``);
+   peak (``bound_3xtf32_ms``); for ``gaussian_hmc`` also its latency bound:
+   a chain's draws x the 7 dependent operations a draw needs at least (the
+   L leapfrog steps of a Gaussian are one linear map) at the card's
+   dependent-FMA latency (a probe kernel, ``scripts/csrc/gpu_probes.cu``,
+   measures it) over the SM clock ``nvidia-smi --query-gpu=clocks.max.sm``
+   reports, beside the chains of a step-by-step leapfrog (2 L + 6) and of
+   this kernel (4 L + 6), and beside the dense shape's tensor-core bound the
+   time its ``mma.sync`` instructions take at the rate a second probe kernel
+   measures;
 5. drives the main paths, each with the launch counts set to 0 just before
    it and read just after, and fails if its kernel was not launched:
    - HMC: the fused flagship sampler ``kernels.bnn_hmc`` and
@@ -44,8 +56,9 @@ the kernels are built for sm_90a).  It
      of the flagship's logp);
    - Gaussian: ``kernels.gaussian_hmc`` recovers the moments of the 3-D
      diagonal, 2-D dense and shifted-mean Gaussians of
-     ``tests/test_kernels.py`` (256 chains x 600 draws, L=6, eps=0.2), the
-     same seed gives the same trace, and chains differ;
+     ``tests/test_kernels.py`` (256 chains x 600 draws, L=6, eps=0.2) and the
+     covariance of a dense 64-D one (the tensor-core variant), the same seed
+     gives the same trace, and chains differ;
 6. checks the tiny flagship on the card against the CPU;
 7. prints one JSON line with every kernel's summary and, last, the device
    line.
@@ -281,10 +294,53 @@ def time_in_turns(torch, fns: dict) -> dict:
     return {name: (statistics.median(t), t) for name, t in times.items()}
 
 
-def bound(flops, nbytes):
-    """(bound ms, what bounds it) at the card's peaks."""
+def bound(flops, nbytes, latency_ms=0.0):
+    """(bound ms, what bounds it) at the card's peaks; latency_ms is the least
+    time of the longest chain of dependent operations, where that is known."""
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return max((t_ops, "operations"), (t_bytes, "bytes"), (latency_ms, "latency"))
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+PROBES = REPO / "scripts" / "csrc" / "gpu_probes.cu"
+
+
+def probe(torch, device, name, iters, sink_size, n_out):
+    """Run a probe kernel of scripts/csrc/gpu_probes.cu; returns what it wrote."""
+    import ctypes
+
+    from hamiltorch_tpu_torch.kernels import _build
+
+    fn = getattr(_build.load(PROBES), name)
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    sink = torch.empty(sink_size, dtype=torch.float32, device=device)
+    out = torch.empty(n_out, dtype=torch.int64, device=device)
+    err = fn(iters, sink.data_ptr(), out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise SmokeError(f"{name} failed: cudaError_t {err}")
+    return out.tolist()
+
+
+def fma_latency_cycles(torch, device, iters):
+    """(SM clock cycles per dependent float32 FMA, the SM clock in Hz during
+    the probe): one thread, ``iters`` FMAs each waiting for the last, between
+    two readings of the nanosecond timer."""
+    cycles, ns = probe(torch, device, "probe_fma_latency", iters, 1, 2)
+    return cycles / iters, cycles / ns * 1e9
+
+
+def mma_cycles(torch, device, iters=1 << 16):
+    """SM clock cycles per ``mma.sync.m16n8k8`` tf32 instruction and SM sub-core
+    with the tensor-core variant's 8 warps issuing 6 independent ones a round:
+    what that instruction sustains on this card."""
+    (cycles,) = probe(torch, device, "probe_mma_rate", iters, 256, 1)
+    return cycles / (iters * 6 * 2)  # 2 warps share a sub-core
 
 
 def bnn_gemm_ms(torch, device):
@@ -387,7 +443,7 @@ def time_bnn_hmc(torch, device, gemm_ms, draws, steps, eps, card):
           f"bound {b_ms:.3f} ms ({b_by}, float32 FMA), {tc_ms:.3f} ms (3xTF32 tensor cores); "
           f"cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                bound_3xtf32_ms=tc_ms)
+                bound_3xtf32_ms=tc_ms, bound_latency_ms=None)
 
 
 def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
@@ -411,10 +467,10 @@ def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
           f"bound {b_ms:.3f} ms ({b_by}, float32 FMA), {tc_ms:.3f} ms (3xTF32 tensor cores); "
           f"cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                bound_3xtf32_ms=tc_ms)
+                bound_3xtf32_ms=tc_ms, bound_latency_ms=None)
 
 
-def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card):
+def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card, fma_ns, mma_ns):
     from hamiltorch_tpu_torch.kernels.gaussian_hmc import gaussian_hmc, gaussian_hmc_reference
 
     prec = (dense_precision(torch, d, 1) if dense else torch.linspace(0.25, 4.0, d)).to(device)
@@ -428,20 +484,49 @@ def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card):
     # and the drift and kick (4 D); bytes: theta0 and P read, draws written
     flops = chains * draws * steps * ((2 * d * d if dense else 2 * d) + 4 * d)
     nbytes = 4 * (chains * d + prec.numel() + chains * draws * d + chains)
-    b_ms, b_by = bound(flops, nbytes)
-    lib_ms = None
+    # latency: a chain's draws follow one another (the accept decides where
+    # the next draw starts).  The least chain of dependent operations in a
+    # draw: on a Gaussian the L leapfrog steps are one fixed linear map of
+    # (theta - mean, p), so the proposal is a product and an FMA deep
+    # whatever L (2); then the energy's convert to float64, product, sum and
+    # difference with h0 (4; h0 and log u do not wait for the proposal) and
+    # the compare-and-select (1): 7.  A design that keeps the leapfrog step
+    # by step, as the plain version rounds it, needs 2 L + 6 (drift and kick
+    # an FMA each with eps P folded in, the first half kick 1); this
+    # kernel's own chain is 4 L + 6 (drift, theta - mean, times P, kick).
+    latency_ms = draws * 7 * fma_ns * 1e-6
+    stepwise_ms = draws * (2 * steps + 6) * fma_ns * 1e-6
+    as_built_ms = draws * (4 * steps + 6) * fma_ns * 1e-6
+    b_ms, b_by = bound(flops, nbytes, latency_ms)
+    lib_ms = tc_ms = None
     if dense:  # cuBLAS: the (C, D) x (D, D) gradient product of every step
         x = torch.randn(chains, d, device=device)
         ms, _ = time_in_turns(torch, {"mm": lambda s: [torch.matmul(x, prec) for _ in range(100)]})["mm"]
         lib_ms = ms / 100 * draws * steps
+        tc_ms = tf32_bound_ms(chains * draws * steps * 2 * d * d)
     kind = "dense" if dense else "diagonal"
     lib = "n/a" if lib_ms is None else f"{lib_ms:.3f} ms"
+    # the tensor-core bound assumes all 132 SMs busy: these chains are
+    # chains / 16 blocks of 16-row mma tiles (64 at 1024 chains)
+    tc = ""
+    if dense:
+        # the tensor-core variant as built: a block of 16 chains issues 3 mma.sync per
+        # 16 x 8 x 8 product, a quarter of them on each of its SM's four sub-cores
+        dp = 32 * -(-d // 32)
+        sync_ms = draws * steps * 3 * (dp // 8) ** 2 / 4 * mma_ns * 1e-6
+        tc = (f", {tc_ms:.4g} ms (3xTF32 tensor cores, were the card full: {-(-chains // 16)} "
+              f"blocks of 16 chains for 132 SMs), {sync_ms:.4g} ms (a block's mma.sync at the "
+              f"probed rate)")
     print(f"gaussian_hmc D={d} {kind} {chains} chains {draws}x{steps}: kernel {k_ms:.3f} ms "
           f"({chains * draws / k_ms * 1e3:.4g} chain-draws/s), plain {p_ms:.3f} ms "
           f"({chains * draws / p_ms * 1e3:.4g} chain-draws/s); runs kernel {k_all} plain {p_all}; "
-          f"bound {b_ms:.4g} ms ({b_by}); cuBLAS matmuls {lib} [{card}]")
+          f"bound {b_ms:.4g} ms ({b_by}; operations {flops / PEAK_FLOPS * 1e3:.4g}, bytes "
+          f"{nbytes / PEAK_BYTES * 1e3:.4g}, latency {latency_ms:.4g}; the dependent chain of a "
+          f"step-by-step leapfrog {stepwise_ms:.4g} ms, of this design {as_built_ms:.4g} ms){tc}; "
+          f"cuBLAS matmuls {lib} "
+          f"[{card}]")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                bound_3xtf32_ms=None)
+                bound_3xtf32_ms=tc_ms, bound_latency_ms=latency_ms)
 
 
 def hmc_main_path(torch, device, draws, steps, eps, card):
@@ -609,6 +694,16 @@ def gaussian_main_path(torch, device):
     if not bool(((mean - target).abs() < 0.1).all()):
         raise SmokeError("gaussian_hmc: mean off")
 
+    # dense 64-D: the tensor-core variant
+    prec = dense_precision(torch, 64, 2)
+    cov = torch.linalg.inv(prec.double()).float()
+    samples, acc = gaussian_hmc(5, zeros(64), prec.to(device), **kw)
+    emp = torch.cov(samples[:, 150:].reshape(-1, 64).T.double()).float().cpu()
+    print(f"gaussian_hmc dense 64-D: covariance max_abs_err {float((emp - cov).abs().max()):.4f} "
+          f"(entries up to {float(cov.abs().max()):.3f}) acceptance {float(acc.mean()):.4f}")
+    if not (bool(((emp - cov).abs() < 0.05).all()) and float(acc.mean()) > 0.8):
+        raise SmokeError("gaussian_hmc: dense 64-D covariance or acceptance off")
+
     prec = torch.ones(3, device=device)
     s1, _ = gaussian_hmc(7, torch.zeros(16, 3, device=device), prec, 50, 5, 0.3)
     s2, _ = gaussian_hmc(7, torch.zeros(16, 3, device=device), prec, 50, 5, 0.3)
@@ -662,7 +757,8 @@ def main() -> int:
     from hamiltorch_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all([name for name, *_ in KERNELS] + ["bnn_grad"])
+    logs = _build.build_all([name for name, *_ in KERNELS] + ["bnn_grad", PROBES])
+    logs = {Path(name).stem: log for name, log in logs.items()}
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -689,10 +785,18 @@ def main() -> int:
                       seed=3, device=device)
     errs["bnn_mclmc"] = compare_bnn_mclmc(torch, FLAGSHIP, draws=5, eps=2.0, length=10.0, seed=5,
                                           device=device)
+    # one shape per variant of gaussian_hmc's kernel, and every shape its
+    # main path launches: (D, dense, chains)
     errs["gaussian_hmc"] = max(
-        compare_gaussian_hmc(torch, 3, False, 256, 20, 6, 0.2, seed=3, device=device),
-        compare_gaussian_hmc(torch, 128, True, 64, 20, 6, 0.2, seed=4, device=device),
-    )
+        compare_gaussian_hmc(torch, d, dense, chains, 20, 6, 0.2, seed=seed, device=device)
+        for seed, (d, dense, chains) in enumerate((
+            (3, False, 256), (3, False, 37),  # 4 lanes per chain; ragged chain count
+            (20, False, 64), (20, True, 64),  # 32 lanes per chain
+            (200, False, 64),  # a warp per chain
+            (128, True, 64),  # tensor cores, 3xTF32
+            (192, True, 37),  # beyond the tensor-core variant's range: float32 FMA
+            (2, True, 256), (2, False, 256), (3, False, 16), (64, True, 256),  # the main path's
+        ), start=3))
 
     # 4. kernels alone on Philox, their plain versions and cuBLAS, timed
     pair_ms, gemm_ms = bnn_gemm_ms(torch, device)
@@ -706,8 +810,22 @@ def main() -> int:
         "bnn_hmc": time_bnn_hmc(torch, device, gemm_ms, draws, steps, eps, card),
         "bnn_mclmc": time_bnn_mclmc(torch, device, gemm_ms, 500, 2e-3, 10.0, card),
     }
-    time_gaussian_hmc(torch, device, 3, False, 1024, 1000, 6, 0.2, card)
-    times["gaussian_hmc"] = time_gaussian_hmc(torch, device, 128, True, 1024, 200, 10, 0.2, card)
+    fma_latency_cycles(torch, device, 4096)  # warm up
+    (fma_cycles, probe_hz), clock_hz = fma_latency_cycles(torch, device, 1 << 20), max_sm_clock_hz()
+    fma_ns = fma_cycles / clock_hz * 1e9
+    print(f"dependent float32 FMA: {fma_cycles:.3f} cycles (probe kernel, which ran at "
+          f"{probe_hz / 1e6:.0f} MHz), {fma_ns:.4f} ns at the card's maximum SM clock of "
+          f"{clock_hz / 1e6:.0f} MHz [{card}]")
+    mma_cyc = mma_cycles(torch, device)
+    mma_ns = mma_cyc / clock_hz * 1e9
+    print(f"mma.sync.m16n8k8 tf32: {mma_cyc:.3f} cycles per instruction and SM sub-core (probe "
+          f"kernel, 8 warps): {2 * 16 * 8 * 8 * 4 * 132 / mma_ns / 1e3:.1f} TFLOP/s over 132 SMs "
+          f"against the {PEAK_TF32 / 1e12:.0f} TFLOP/s that wgmma reaches [{card}]")
+    time_gaussian_hmc(torch, device, 3, False, 1024, 1000, 6, 0.2, card, fma_ns, mma_ns)
+    # many chains: the lane groups fill their warps and the time is throughput
+    time_gaussian_hmc(torch, device, 3, False, 65536, 100, 6, 0.2, card, fma_ns, mma_ns)
+    times["gaussian_hmc"] = time_gaussian_hmc(torch, device, 128, True, 1024, 200, 10, 0.2, card,
+                                              fma_ns, mma_ns)
 
     # 5. the main paths, each counted from 0
     launches = {

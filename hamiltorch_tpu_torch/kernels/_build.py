@@ -1,6 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
+Each ``csrc/<name>.cu`` has a plain C interface.  (A ``Path`` in place of a
+name is a source elsewhere in the checkout: the probes and former designs
+that the timing scripts build for themselves.)  It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``build/``
 beside this file (the directory is git-ignored) at first use, and loaded
 with ``ctypes``.  The library's file name carries a hash of its source, of every
@@ -42,27 +44,31 @@ def _nvcc() -> str:
     return str(path)
 
 
-def sources(name: str) -> list:
-    """``csrc/<name>.cu`` and every header under ``csrc/`` it includes."""
-    found, todo = [], [CSRC / f"{name}.cu"]
+def _source(name) -> Path:
+    return name if isinstance(name, Path) else CSRC / f"{name}.cu"
+
+
+def sources(name) -> list:
+    """``csrc/<name>.cu`` and every header it includes by a relative path."""
+    found, todo = [], [_source(name)]
     while todo:
         path = todo.pop()
         if path in found:
             continue
         found.append(path)
         for inc in _INCLUDE.findall(path.read_text()):
-            header = path.parent / inc
+            header = (path.parent / inc).resolve()
             if header.exists():
                 todo.append(header)
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name) -> Path:
     """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for path in sources(name):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{_source(name).stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names) -> dict:
@@ -79,7 +85,7 @@ def build_all(names) -> dict:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
@@ -88,13 +94,13 @@ def build_all(names) -> dict:
         log, _ = proc.communicate()
         logs[name] = log
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed on {_source(name).name}:\n{log}")
         os.replace(tmp, out)
     return logs
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
+def load(name) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     build_all([name])
     return ctypes.CDLL(str(library_path(name)))

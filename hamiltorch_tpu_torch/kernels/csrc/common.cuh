@@ -2,8 +2,8 @@
 // random numbers (Philox4x32-10, Box-Muller) that replace the TPU's on-core
 // PRNG, fixed-order float64 reductions over a warp or a block (a fixed
 // order makes every run deterministic), and Hopper's asynchronous machinery
-// as inline PTX: mbarriers, TMA tile loads, wgmma on tf32 operands, and the
-// split of a float into two tf32 parts.
+// as inline PTX: mbarriers, TMA tile loads, wgmma and mma.sync on tf32
+// operands, and the split of a float into two tf32 parts.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
@@ -48,6 +48,16 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
+// Sum over each aligned group of G lanes (G a power of two up to 32), the
+// same in every lane of the group; no shuffle at all for G = 1.  Every lane
+// of the warp must call it.
+template <int G>
+__device__ __forceinline__ double group_sum(double v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
 // Sum over a block of blockDim.x (a multiple of 32, at most 1024) threads;
 // the result is valid in thread 0.  Safe to call more than once per kernel.
 __device__ double block_sum(double v) {
@@ -77,6 +87,31 @@ __device__ __forceinline__ float tf32_round(float a) {
 __device__ __forceinline__ void tf32_split(float a, float& big, float& small) {
   big = tf32_round(a);
   small = tf32_round(a - big);
+}
+
+// d (16 x 8) += a (16 x 8, row-major) b (8 x 8), tf32 operands given as bit
+// patterns, in the register layout of mma.sync.m16n8k8 (g = lane / 4,
+// t = lane % 4): a[0..3] = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];
+// b0, b1 = B[t][g], B[t+4][g]; d[0..3] = D[g][2t], D[g][2t+1], D[g+8][2t],
+// D[g+8][2t+1]
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The split by integer arithmetic on the bit pattern: big as tf32_split's
+// (add half a tf32 ulp to the magnitude, clear the low 13 bits: what
+// cvt.rna.tf32.f32 gives for finite a); small = a - big is exact and left
+// unrounded, the tensor cores reading only its upper 19 bits (a truncation
+// below 2^-21 |a|).  cvt.rna.tf32.f32 issues at the conversion unit's rate,
+// a fraction of the ALU's: a loop that splits an operand per mma is bound
+// by it.
+__device__ __forceinline__ void tf32_split_alu(float a, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(a - __uint_as_float(big));
 }
 
 // ---- mbarriers and TMA ----

@@ -9,192 +9,79 @@
 //     g = -(theta - mean) @ P         (P dense, one matvec),
 // the potential -1/2 sum (theta - mean) g and the kinetic energy 1/2 |p|^2.
 // It writes every draw (C, N, D) and each chain's acceptance rate.  The
-// momenta and the uniform come from Philox + Box-Muller keyed on
-// (seed, chain, draw) (or are given).  Unlike the TPU kernel it computes
-// over the real D only (no lane padding).
+// momenta and the uniform come from Philox + Box-Muller keyed on the logical
+// (element, draw, chain) (or are given), so the draws do not depend on which
+// variant below runs or on its block shape.  Unlike the TPU kernel it
+// computes over the real D only (no lane padding).
 //
-// What bounds it.  Per chain and leapfrog step the work is one gradient:
-// 2 D^2 flops for dense P (1024 chains x 200 draws x 10 steps at D=128 is
-// 67 GFLOP, ~1.0 ms at the 67 TFLOP/s float32 FMA peak of an H100 SXM at
-// 700 W), a few flops per element for diagonal P; the bytes are the draws
-// written out (C N D floats).  At small D neither bounds it: each chain's
-// L steps per draw are a chain of dependent operations, so the time is the
-// latency of that chain times the draws.
+// What bounds it.  Dense P: per leapfrog step the chains' matvecs are one
+// (C, D) x (D, D) product, 2 C D^2 flops (1024 chains x 200 draws x 10 steps
+// at D=128 is 67 GFLOP, ~1.0 ms at the 67 TFLOP/s float32 FMA peak of an H100
+// SXM at 700 W); a warp that does its own chain's matvec from shared memory
+// issues more loads than FMAs and runs at the shared-memory rate.  Small D:
+// neither flops nor bytes (the draws written out) bound it; each chain's
+// draws x L steps are one chain of dependent operations, so the time is the
+// latency of one draw times the draws, whatever the number of chains the
+// card can hold at once.
 //
-// What the design does about it.  One warp per chain keeps the chain's
-// state in registers for the whole run (lane l holds elements l + 32 j,
-// j < D/32 rounded up, D <= 256), so the only device-memory traffic is the
-// draws written out; reductions (the energies) are warp shuffles in
-// float64 in a fixed order, so a run is deterministic.  The gradient at the
-// current state rides along between draws (recomputing it, as the TPU kernel
-// does, gives the same numbers), so a draw costs L gradients.  Dense P
-// lives in shared memory, loaded once per block of chain_tile warps; each
-// warp broadcasts theta - mean through its own shared row.
+// What the design does about it.  The chain state stays in registers for the
+// whole run; only the draws go to device memory.  The gradient at the current
+// state rides along between draws, so a draw costs L gradients.  Per draw the
+// energy difference h0 - h1 is one float64 sum over the chain's elements of
+// 1/2 (p^2 - (theta - mean) g) before less after, reduced once in a fixed
+// order, so a run is deterministic.  One Philox draw gives the normals of
+// four neighbouring elements (both outputs of two Box-Muller transforms).
+// Four variants (templates of gaussian_hmc.cuh), chosen by the wrapper's
+// plan from D (kernels/gaussian_hmc.py::_plan); only what the plan can choose
+// is instantiated here:
+//   1. D <= 8: 2, 4 or 8 lanes per chain, one element each, as in 2.  (One
+//      thread per chain with the whole state in its registers needs no
+//      shuffle at all but measured slower at 1024 and at 65,536 chains: every
+//      float32 -> float64 conversion of the energy then issues on one thread,
+//      at the conversion unit's quarter rate.
+//      scripts/gaussian_hmc_variants_torch.py builds and times it.)
+//   2. 8 < D <= 32: 16 or 32 lanes per chain, one element each, reductions
+//      and the dense matvec by shuffles within the lane group.
+//      In 1 and 2 the noise is taken off the chain of dependent operations:
+//      producer warps of the block fill a two-buffer shared-memory ring with
+//      the normals and the float64 log-uniforms of the next RING_DRAWS draws
+//      (Philox, Box-Muller and log, or the given numbers) while the consumer
+//      warp runs the leapfrog of the current ones; one block barrier per
+//      RING_DRAWS draws.  Few chains are spread thinly (a consumer warp may
+//      hold fewer chains than it has room for) so that every SM works.
+//   3. One warp per chain (lane l holds elements l + 32 j), float32 FMA: any
+//      diagonal P with D > 32, and dense P beyond the tensor-core variant's
+//      range (P and one row per warp for theta - mean in shared memory).
+//   4. Dense P, 32 < D <= 128: blocks of 16 chains on the tensor cores.  A
+//      step of the block is a (16, D) x (D, D) product done with
+//      mma.sync.m16n8k8 in 3xTF32 by 4 or 8 consumer warps that split the
+//      output columns (16-row tiles, not wgmma's 64: 1024 chains are 64 such
+//      blocks but only 16 wgmma tiles).  P is split once into tf32 big and
+//      small parts in mma fragment order; each thread keeps the big
+//      fragments of its columns in registers for the whole run and reads the
+//      small ones from shared memory.  Each step every thread splits its own
+//      elements of theta - mean (integer arithmetic: cvt.rna.tf32 issues at
+//      a fraction of the ALU's rate and bound the first version) and stores
+//      them in fragment order into a double-buffered shared tile, so that
+//      after one barrier (each warp's output columns are every warp's K)
+//      every lane reads its A fragments 16 bytes at a time.  big*big,
+//      big*small and small*big each have their own accumulator.  The state
+//      lives in the accumulator's register layout, so kick and drift are
+//      elementwise.  Two producer warps fill the next draw's momenta and
+//      log-uniforms into shared memory meanwhile.  Beyond D=128 the split P
+//      (8 Dp^2 bytes, Dp = D rounded up to 32), the tiles and the noise no
+//      longer fit a block's 232,448 bytes together.
 
-#include "common.cuh"
+#include "gaussian_hmc.cuh"
 
 namespace {
 
-constexpr int MAX_D = 256;
-constexpr int MAX_SHARED = 232448;  // bytes of shared memory a block may use
-
-// g = -(th - mu) P for this lane's elements (dense P in shared memory, with
-// the warp's row dl for the broadcast), or -(th - mu) * pr (diagonal)
-template <int DPL, bool DENSE>
-__device__ __forceinline__ void gradient(const float (&th)[DPL], const float (&mu)[DPL],
-                                         const float (&pr)[DPL], float (&g)[DPL],
-                                         const float* __restrict__ P, float* dl, int d,
-                                         int lane) {
-  if (DENSE) {
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int k = lane + 32 * j;
-      if (k < d) dl[k] = th[j] - mu[j];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int k = lane + 32 * j;
-      float s = 0.f;
-      if (k < d)
-        for (int i = 0; i < d; ++i) s = fmaf(dl[i], P[i * d + k], s);
-      g[j] = -s;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) g[j] = -(th[j] - mu[j]) * pr[j];
-  }
-}
-
-// -1/2 sum (th - mu) g + 1/2 |p|^2 over the chain, in float64 (every lane)
-template <int DPL>
-__device__ __forceinline__ double energy(const float (&th)[DPL], const float (&mu)[DPL],
-                                         const float (&g)[DPL], const float (&p)[DPL]) {
-  double pot = 0.0, kin = 0.0;
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    pot += (double)(th[j] - mu[j]) * (double)g[j];
-    kin += (double)p[j] * (double)p[j];
-  }
-  return -0.5 * warp_sum(pot) + 0.5 * warp_sum(kin);
-}
-
-template <int DPL, bool DENSE>
-__global__ void gaussian_hmc_kernel(const float* __restrict__ theta0,
-                                    const float* __restrict__ prec,
-                                    const float* __restrict__ mean, float* __restrict__ out,
-                                    float* __restrict__ acc, int chains, int d, int num_samples,
-                                    int num_steps, float eps, uint2 key,
-                                    const float* __restrict__ momenta,
-                                    const float* __restrict__ uniforms) {
-  extern __shared__ float smem[];  // dense: P (d x d), then one row of d per warp
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * (blockDim.x >> 5) + warp;
-  float* dl = smem + (DENSE ? d * d + warp * d : 0);
-  if (DENSE) {
-    for (int i = threadIdx.x; i < d * d; i += blockDim.x) smem[i] = prec[i];
-    __syncthreads();
-  }
-  if (c >= chains) return;
-
-  float theta[DPL], gc[DPL], th[DPL], g[DPL], p[DPL], mu[DPL], pr[DPL];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int k = lane + 32 * j;
-    const bool in = k < d;
-    theta[j] = in ? theta0[(long long)c * d + k] : 0.f;
-    mu[j] = (in && mean) ? mean[k] : 0.f;
-    pr[j] = (in && !DENSE) ? prec[k] : 0.f;
-  }
-  gradient<DPL, DENSE>(theta, mu, pr, gc, smem, dl, d, lane);
-
-  int accepted = 0;
-  for (int n = 0; n < num_samples; ++n) {
-    const float* mom = momenta ? momenta + ((long long)n * chains + c) * d : nullptr;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int k = lane + 32 * j;
-      float z = 0.f;
-      if (k < d)
-        z = mom ? mom[k]
-                : box_muller(philox(make_uint4((uint32_t)k, (uint32_t)n, (uint32_t)c, 0u), key)).x;
-      p[j] = z;
-    }
-    const double h0 = energy<DPL>(theta, mu, gc, p);
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      p[j] = fmaf(0.5f * eps, gc[j], p[j]);
-      th[j] = theta[j];
-      g[j] = gc[j];
-    }
-    for (int s = 0; s < num_steps; ++s) {
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) th[j] = fmaf(eps, p[j], th[j]);
-      gradient<DPL, DENSE>(th, mu, pr, g, smem, dl, d, lane);
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) p[j] = fmaf(eps, g[j], p[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) p[j] = fmaf(-0.5f * eps, g[j], p[j]);
-    const double h1 = energy<DPL>(th, mu, g, p);
-    const float u = uniforms
-        ? uniforms[(long long)n * chains + c]
-        : uniform01(philox(make_uint4(0u, (uint32_t)n, (uint32_t)c, 1u), key).x);
-    if ((h0 - h1) >= log((double)u)) {  // the same decision in every lane
-      ++accepted;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        theta[j] = th[j];
-        gc[j] = g[j];
-      }
-    }
-    float* row = out + ((long long)c * num_samples + n) * d;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int k = lane + 32 * j;
-      if (k < d) row[k] = theta[j];
-    }
-  }
-  if (lane == 0) acc[c] = (float)accepted / (float)num_samples;
-}
-
-template <int DPL, bool DENSE>
-int launch(const float* theta0, const float* prec, const float* mean, float* out, float* acc,
-           int chains, int d, int num_samples, int num_steps, float eps, uint2 key,
-           const float* momenta, const float* uniforms, int chain_tile, size_t shared,
-           cudaStream_t stream) {
-  auto kernel = gaussian_hmc_kernel<DPL, DENSE>;
-  if (shared > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (chains + chain_tile - 1) / chain_tile;
-  kernel<<<blocks, 32 * chain_tile, shared, stream>>>(theta0, prec, mean, out, acc, chains, d,
-                                                      num_samples, num_steps, eps, key, momenta,
-                                                      uniforms);
-  LAUNCH_CHECK();
-  return 0;
-}
-
-template <bool DENSE>
-int dispatch(int dpl, const float* theta0, const float* prec, const float* mean, float* out,
-             float* acc, int chains, int d, int num_samples, int num_steps, float eps, uint2 key,
-             const float* momenta, const float* uniforms, int chain_tile, size_t shared,
-             cudaStream_t stream) {
-#define GAUSSIAN_HMC_CASE(N)                                                                    \
-  case N:                                                                                       \
-    return launch<N, DENSE>(theta0, prec, mean, out, acc, chains, d, num_samples, num_steps, \
-                            eps, key, momenta, uniforms, chain_tile, shared, stream);
-  switch (dpl) {
-    GAUSSIAN_HMC_CASE(1)
-    GAUSSIAN_HMC_CASE(2)
-    GAUSSIAN_HMC_CASE(4)
-    GAUSSIAN_HMC_CASE(8)
-  }
-#undef GAUSSIAN_HMC_CASE
-  return (int)cudaErrorInvalidValue;
+// variants 1 and 2: G lanes per chain, one element each, with the noise ring
+template <int G>
+int launch_ring(const Args& a, bool dense, int warps, int consumers, int cpw, size_t shared,
+                cudaStream_t stream) {
+  return dense ? launch_chain<G, 1, true, true>(a, warps, consumers, cpw, shared, stream)
+               : launch_chain<G, 1, false, true>(a, warps, consumers, cpw, shared, stream);
 }
 
 }  // namespace
@@ -206,29 +93,58 @@ const char* gaussian_hmc_error_string(int err) { return cudaGetErrorString((cuda
 // Run num_samples HMC draws of num_steps leapfrog steps on every chain.
 // theta0 (C, D); prec (D,) with dense == 0 or (D, D) with dense == 1; mean
 // (D,) or null for zero; out (C, S, D); acc (C,).  momenta (S, C, D) and
-// uniforms (S, C) may be null.  Takes 1 <= D <= 256, 1 <= chain_tile <= 32
-// and, for dense P, (D + chain_tile) D floats of shared memory at most
-// 232,448 bytes (D <= 220 at chain_tile 8); returns cudaErrorInvalidValue
-// for other shapes.  The caller checks num_samples, num_steps >= 1.
-// Launches on the stream without synchronising and returns the first
-// launch error as a cudaError_t (0 on success).
+// uniforms (S, C) may be null.  The caller checks num_samples, num_steps >= 1
+// and plans the launch (kernels/gaussian_hmc.py::_plan, which alone holds
+// the choice of variant and the shared-memory formulas):
+//   variant 1 (D <= 8; `group` 2, 4 or 8 >= D) and 2 (8 < D <= 32; `group` 16
+//     or 32 >= D): blocks of 4 (variant 1) or 8 warps, of which the first
+//     `consumers` run `cpw` <= 32 / group chains each and the others produce
+//     their noise; `shared` holds the ring and, after it, a dense P;
+//   variant 3 (D > 32; diagonal P, or dense P with D > 128): `consumers`
+//     <= 8 warps a block, one chain each; `shared` holds a dense P and one
+//     row of D per warp;
+//   variant 4 (dense P, 32 < D <= 128): 4 or 8 consumer warps by D rounded
+//     up to 32 (64: 8, 96: 4, 128: 8) and 2 producer warps; `shared` holds
+//     the layout above MmaShape.
+// Returns cudaErrorInvalidValue for any other plan (variant 0: the wrapper
+// found none, which is how D > 256, dense D > 240 and chain_tile outside
+// 1..32 are refused).  Launches on the stream without synchronising and
+// returns the first launch error as a cudaError_t (0 on success).
 int gaussian_hmc_run(const float* theta0, const float* prec, const float* mean, float* out,
                      float* acc, int chains, int d, int dense, int num_samples, int num_steps,
-                     float step_size, unsigned long long seed, int chain_tile,
-                     const float* momenta, const float* uniforms, void* stream_ptr) {
-  if (d < 1 || d > MAX_D || chains < 1 || chain_tile < 1 || chain_tile > 32)
-    return (int)cudaErrorInvalidValue;
-  const size_t shared = dense ? sizeof(float) * (size_t)(d + chain_tile) * d : 0;
-  if (shared > MAX_SHARED) return (int)cudaErrorInvalidValue;
-  const int dpl = d <= 32 ? 1 : d <= 64 ? 2 : d <= 128 ? 4 : 8;
-  const uint2 key = seed_key(seed);
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  return dense ? dispatch<true>(dpl, theta0, prec, mean, out, acc, chains, d, num_samples,
-                                num_steps, step_size, key, momenta, uniforms, chain_tile, shared,
-                                stream)
-               : dispatch<false>(dpl, theta0, prec, mean, out, acc, chains, d, num_samples,
-                                 num_steps, step_size, key, momenta, uniforms, chain_tile,
-                                 shared, stream);
+                     float step_size, unsigned long long seed, int variant, int group,
+                     int consumers, int cpw, int shared, const float* momenta,
+                     const float* uniforms, void* stream_ptr) {
+  const int invalid = (int)cudaErrorInvalidValue;
+  if (d < 1 || d > MAX_D || chains < 1 || (variant < 3 && group < d)) return invalid;
+  if (shared < 0 || shared > MAX_SHARED) return invalid;
+  const Args a = {theta0, prec, mean, out, acc, chains, d, num_samples, num_steps, step_size,
+                  seed_key(seed), momenta, uniforms};
+  cudaStream_t s = (cudaStream_t)stream_ptr;
+  if (variant == 1 && d <= 8) {
+    switch (group) {
+      case 2: return launch_ring<2>(a, dense, 4, consumers, cpw, shared, s);
+      case 4: return launch_ring<4>(a, dense, 4, consumers, cpw, shared, s);
+      case 8: return launch_ring<8>(a, dense, 4, consumers, cpw, shared, s);
+    }
+  } else if (variant == 2 && d > 8 && d <= 32) {
+    switch (group) {
+      case 16: return launch_ring<16>(a, dense, 8, consumers, cpw, shared, s);
+      case 32: return launch_ring<32>(a, dense, 8, consumers, cpw, shared, s);
+    }
+  } else if (variant == 3 && d > 32 && cpw == 1) {
+    if (dense)
+      return d > 128 ? launch_chain<32, 8, true, false>(a, consumers, consumers, 1, shared, s)
+                     : invalid;
+    if (d <= 64) return launch_chain<32, 2, false, false>(a, consumers, consumers, 1, shared, s);
+    if (d <= 128) return launch_chain<32, 4, false, false>(a, consumers, consumers, 1, shared, s);
+    return launch_chain<32, 8, false, false>(a, consumers, consumers, 1, shared, s);
+  } else if (variant == 4 && dense && d > 32 && d <= 128) {
+    if (d <= 64) return consumers == 8 ? launch_mma<1, 8, 2>(a, shared, s) : invalid;
+    if (d <= 96) return consumers == 4 ? launch_mma<3, 4, 2>(a, shared, s) : invalid;
+    return consumers == 8 ? launch_mma<2, 8, 2>(a, shared, s) : invalid;
+  }
+  return invalid;
 }
 
 }  // extern "C"

@@ -33,6 +33,7 @@ and the plain version from one ``torch.Generator`` per draw seeded by
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -95,6 +96,74 @@ def gaussian_hmc_reference(seed, theta0, precision, num_samples, num_steps=10, s
     return out, accepted / num_samples
 
 
+MAX_SHARED = 232448  # bytes of shared memory one block may use on Hopper
+MMA_MAX_D = 128  # largest dense D of the tensor-core variant
+RING_DRAWS = 16  # draws of noise per buffer of the small-D variants' ring
+
+# What the wrapper asks of csrc/gaussian_hmc.cu: ``variant`` 1-4 (0: no
+# variant takes the shape), ``group`` lanes per chain, ``consumers`` warps of
+# a block that run ``chains_per_warp`` chains each (variants 1, 2 and 4 add
+# warps that produce noise), ``shared`` bytes.
+Plan = collections.namedtuple("Plan", "variant group consumers chains_per_warp shared")
+_NO_PLAN = Plan(0, 0, 0, 0, 0)
+_SMS = 132  # streaming multiprocessors of an H100
+
+
+def _ring_bytes(chains_per_block, d):
+    """Two buffers of RING_DRAWS draws: a float64 log-uniform and d normals."""
+    return 2 * RING_DRAWS * chains_per_block * (8 + 4 * d)
+
+
+def _plan(d, dense, chain_tile, chains):
+    """The kernel variant for (D, diagonal or dense P) and its block shape.
+
+    1. D <= 8: 2, 4 or 8 lanes per chain, one element each; blocks of 1
+       warp of chains and 3 warps that produce its noise into a
+       shared-memory ring.
+    2. 8 < D <= 32: 16 or 32 lanes per chain, one element each; up to
+       ``min(chain_tile, 4)`` warps of chains, the rest of 8 warps producers.
+    3. D > 32, diagonal P, or dense P with D > MMA_MAX_D: one warp per chain
+       (float32 FMA; dense P and one row per warp in shared memory), at most
+       ``min(chain_tile, 8)`` warps a block, fewer where that is needed to
+       fit P.
+    4. Dense P, 32 < D <= MMA_MAX_D: blocks of 16 chains on the tensor cores
+       (3xTF32), P pre-split in shared memory, 8 warps of chains where D
+       rounded up to 32 divides by 64 and 4 otherwise, and 2 warps that
+       produce the next draw's noise; ``chain_tile`` is not used.  (Beyond
+       D=128 the split P, theta - mean and the noise no longer fit a block
+       together.)
+
+    In 1-3 a block takes fewer chains than it could where that spreads the
+    chains over the card's SMs: each chain's time is its own latency.
+    """
+    if not (1 <= d <= 256 and 1 <= chain_tile <= 32 and chains >= 1):
+        return _NO_PLAN
+    p_bytes = 4 * d * d if dense else 0
+    if d <= 8:
+        group = 2 if d <= 2 else 4 if d <= 4 else 8
+        per_warp = min(32 // group, -(-chains // _SMS))
+        return Plan(1, group, 1, per_warp, _ring_bytes(per_warp, d) + p_bytes)
+    if d <= 32:
+        group = 16 if d <= 16 else 32
+        per_warp = min(32 // group, -(-chains // _SMS))
+        consumers = min(chain_tile, 4, -(-chains // (per_warp * _SMS)))
+        return Plan(2, group, consumers, per_warp, _ring_bytes(consumers * per_warp, d) + p_bytes)
+    if dense and d <= MMA_MAX_D:
+        dp = 32 * -(-d // 32)
+        consumers = 8 if dp % 64 == 0 else 4
+        # energy partials and log-uniforms, P and theta - mean (each split in two
+        # tf32 parts, theta - mean of two steps), the producers' two draws of momenta
+        shared = (8 * (consumers + 2) * 16 + 8 * dp * dp + 2 * 2 * 16 * dp * 4
+                  + 2 * 16 * (dp + 8) * 4)
+        return Plan(4, 32, consumers, 0, shared)
+    warps = min(chain_tile, 8, -(-chains // _SMS))
+    if dense:
+        warps = min(warps, MAX_SHARED // (4 * d) - d)
+        if warps < 1:
+            return _NO_PLAN
+    return Plan(3, 32, warps, 1, (d + warps) * d * 4 if dense else 0)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from ._build import load
@@ -105,7 +174,8 @@ def _library():
     lib.gaussian_hmc_run.argtypes = (
         [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int]
+        + [ctypes.c_float, ctypes.c_ulonglong]
+        + [ctypes.c_int] * 5
         + [ctypes.c_void_p] * 3
     )
     lib.gaussian_hmc_run.restype = ctypes.c_int
@@ -117,13 +187,18 @@ def gaussian_hmc(seed, theta0, precision, num_samples, num_steps=10, step_size=0
     """Sample C chains from N(mean, P^-1); returns (samples (C, N, D), acc (C,)).
 
     ``precision`` is (D,) for a diagonal P or (D, D) for a dense SPD one;
-    ``mean`` is (D,) or None for zero.  On the card each chain is one warp
-    whose state stays in registers, and ``chain_tile`` is the number of
-    chains (warps) in one thread block: the block loads a dense P into its
-    shared memory once for all its chains.  The kernel takes D <= 256,
-    ``1 <= chain_tile <= 32`` and, for dense P, (D + chain_tile) * D floats
-    of shared memory at most 232,448 bytes (D <= 220 at ``chain_tile`` 8);
-    for other shapes it returns cudaErrorInvalidValue and this raises.
+    ``mean`` is (D,) or None for zero.  On the card the chain state stays in
+    registers for the whole run and ``_plan`` picks the kernel variant from
+    D: 2 to 32 lanes per chain (D <= 32, the next power of two), a warp per
+    chain, or, for dense P with 32 < D <= 128, blocks of 16 chains
+    on the tensor cores in 3xTF32.  ``chain_tile`` is a hint: an upper bound
+    on the warps of chains in one block, which the kernel lowers where that
+    spreads the chains over more SMs or is needed to fit a dense P; the
+    draws do not depend on it.  The kernel takes ``1 <= chain_tile <= 32``,
+    D <= 256 for diagonal P and D <= 240 for dense P (beyond the tensor-core
+    range, (D + 1) D floats must fit the 232,448 bytes of shared memory a
+    block may use); for other shapes it returns cudaErrorInvalidValue and
+    this raises.
     ``gaussian_hmc.launches`` counts the runs of the CUDA kernel.
     """
     device = theta0.device
@@ -149,6 +224,7 @@ def gaussian_hmc(seed, theta0, precision, num_samples, num_steps=10, step_size=0
         raise ValueError(f"gaussian_hmc runs on CUDA or CPU tensors, not {device}")
 
     lib = _library()
+    plan = _plan(d, precision.ndim == 2, int(chain_tile), c)
     out = torch.empty((c, num_samples, d), dtype=torch.float32, device=device)
     acc = torch.empty((c,), dtype=torch.float32, device=device)
     momenta, uniforms = (None, None) if _noise is None else _noise
@@ -158,7 +234,7 @@ def gaussian_hmc(seed, theta0, precision, num_samples, num_steps=10, step_size=0
             theta0.data_ptr(), precision.data_ptr(),
             None if mean is None else mean.data_ptr(), out.data_ptr(), acc.data_ptr(),
             c, d, int(precision.ndim == 2), num_samples, num_steps,
-            float(step_size), int(seed) & (2**64 - 1), int(chain_tile),
+            float(step_size), int(seed) & (2**64 - 1), *plan,
             None if momenta is None else momenta.data_ptr(),
             None if uniforms is None else uniforms.data_ptr(),
             stream,

@@ -29,6 +29,7 @@ from hamiltorch_tpu_torch.kernels import (
     gaussian_hmc_reference,
 )
 from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient, _bnn_gradient_reference
+from hamiltorch_tpu_torch.kernels.gaussian_hmc import _energy, _grad
 from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
 from hamiltorch_tpu_torch.samplers.driver import MCMCConfig
 from hamiltorch_tpu_torch.samplers.hmc import run_hmc_chains
@@ -161,23 +162,75 @@ def _dense_precision(d, seed):
     return (a @ a.T / d + np.eye(d)).astype(np.float32)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("d,dense", [(3, False), (40, False), (200, False), (2, True), (5, True),
-                                     (128, True)])
-def test_gaussian_hmc_kernel_matches_plain_version(cuda_device, d, dense):
-    c, draws, steps, eps = 37, 10, 6, 0.3
-    rng = np.random.RandomState(d)
-    prec = _dense_precision(d, d) if dense else rng.uniform(0.25, 4.0, d).astype(np.float32)
+def _min_accept_margin(theta0, prec, draws, steps, eps, mean, noise):
+    """The plain version's draw loop once more, returning its draws and the
+    least |(h0 - h1) - log u| over every chain and draw: how far the closest
+    Metropolis decision is from the other outcome."""
+    theta, g_cur, least, out = theta0, _grad(theta0, mean, prec), float("inf"), []
+    for z, u in zip(*noise):
+        h0 = _energy(theta, mean, g_cur, z)
+        p = z + (0.5 * eps) * g_cur
+        th, g = theta, g_cur
+        for _ in range(steps):
+            th = th + eps * p
+            g = _grad(th, mean, prec)
+            p = p + eps * g
+        p = p - (0.5 * eps) * g
+        margin = (h0 - _energy(th, mean, g, p)) - torch.log(u.double())
+        least = min(least, float(margin.abs().min()))
+        theta = torch.where((margin >= 0)[:, None], th, theta)
+        g_cur = torch.where((margin >= 0)[:, None], g, g_cur)
+        out.append(theta)
+    return least, torch.stack(out, dim=1)
+
+
+# The data of a case comes from RandomState(D), except where that seed puts a
+# Metropolis decision on a knife edge: dense D=9 at seed 9 has a draw with
+# margin 3e-7, within the float32 rounding of the state, so that kernel and
+# plain version may rightly decide it differently.
+_CASE_SEED = {(9, True): 1009}
+
+
+GAUSSIAN_CASES = [
+    (3, False), (40, False), (200, False), (2, True), (5, True), (128, True),
+    # the edges of the variants: 2 to 32 lanes per chain, a warp per chain; dense
+    # on the tensor cores up to D=128 and by float32 FMA beyond, up to D=240
+    (1, False), (4, False), (5, False), (8, False), (9, False), (16, False), (17, False),
+    (32, False), (33, False), (256, False),
+    (1, True), (4, True), (8, True), (9, True), (10, True), (20, True), (32, True), (33, True),
+    (70, True), (100, True), (129, True), (160, True), (240, True)]
+GAUSSIAN_RUN = dict(draws=10, steps=6, eps=0.3)
+
+
+def gaussian_case(d, dense, device):
+    """(theta0, precision, mean, (momenta, uniforms)) of a case, 37 chains."""
+    c, draws = 37, GAUSSIAN_RUN["draws"]
+    seed = _CASE_SEED.get((d, dense), d)
+    rng = np.random.RandomState(seed)
+    prec = _dense_precision(d, seed) if dense else rng.uniform(0.25, 4.0, d).astype(np.float32)
     mean = rng.randn(d).astype(np.float32)
-    noise = (torch.as_tensor(rng.randn(draws, c, d).astype(np.float32)).to(cuda_device),
-             torch.as_tensor(rng.rand(draws, c).astype(np.float32)).to(cuda_device))
-    args = [torch.as_tensor(a).to(cuda_device) for a in (rng.randn(c, d).astype(np.float32), prec)]
-    kw = dict(mean=torch.as_tensor(mean).to(cuda_device), _noise=noise)
+    noise = (torch.as_tensor(rng.randn(draws, c, d).astype(np.float32)).to(device),
+             torch.as_tensor(rng.rand(draws, c).astype(np.float32)).to(device))
+    theta0 = rng.randn(c, d).astype(np.float32)
+    return tuple(torch.as_tensor(a).to(device) for a in (theta0, prec, mean)) + (noise,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dense", GAUSSIAN_CASES)
+def test_gaussian_hmc_kernel_matches_plain_version(cuda_device, d, dense):
+    draws, steps, eps = GAUSSIAN_RUN.values()
+    *args, mean, noise = gaussian_case(d, dense, cuda_device)
+    kw = dict(mean=mean, _noise=noise)
     before = gaussian_hmc.launches
     got, got_acc = gaussian_hmc(0, *args, draws, steps, eps, **kw)
     want, want_acc = gaussian_hmc_reference(0, *args, draws, steps, eps, **kw)
     torch.cuda.synchronize()
     assert gaussian_hmc.launches == before + 1
+    # no decision of this case is a knife edge (float32 rounding moves h0 - h1 by
+    # ~1e-6), so the accept counts below are compared on firm ground
+    margin, replay = _min_accept_margin(*args, draws, steps, eps, mean, noise)
+    assert torch.equal(replay, want)
+    assert margin >= 1e-4
     # identical accept counts (the rates may differ in the last bit: PyTorch
     # divides by a scalar on the card through its reciprocal)
     assert torch.equal(torch.round(got_acc * draws), torch.round(want_acc * draws))
@@ -195,7 +248,21 @@ def test_gaussian_hmc_kernel_philox_is_deterministic(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,dense,tile", [(300, False, 8), (240, True, 8), (3, False, 33)])
+@pytest.mark.parametrize("d,dense", [(3, False), (20, True), (128, True), (200, False), (200, True)])
+def test_gaussian_hmc_kernel_draws_do_not_depend_on_chain_tile(cuda_device, d, dense):
+    prec = torch.as_tensor(_dense_precision(d, 1) if dense else np.linspace(0.5, 2.0, d,
+                           dtype=np.float32)).to(cuda_device)
+    theta0 = torch.zeros(37, d, device=cuda_device)
+    runs = [gaussian_hmc(11, theta0, prec, 40, 4, 0.2, chain_tile=tile) for tile in (1, 8, 32, 8)]
+    for samples, acc in runs[1:]:
+        assert torch.equal(samples, runs[0][0]) and torch.equal(acc, runs[0][1])
+    assert bool(torch.isfinite(runs[0][0]).all())
+    assert 0.0 < float(runs[0][1].mean()) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dense,tile", [(300, False, 8), (241, True, 8), (3, False, 33),
+                                          (3, False, 0)])
 def test_gaussian_hmc_kernel_raises_on_shapes_it_does_not_take(cuda_device, d, dense, tile):
     prec = torch.eye(d, device=cuda_device) if dense else torch.ones(d, device=cuda_device)
     before = gaussian_hmc.launches

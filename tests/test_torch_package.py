@@ -34,7 +34,8 @@ def test_imports_with_jax_blocked():
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
                          + ["chip_smoke.py", "scripts/profile_bnn_hmc_torch.py",
-                            "scripts/profile_mclmc_torch.py", "scripts/bnn_gemm_variants_torch.py"])
+                            "scripts/profile_mclmc_torch.py", "scripts/bnn_gemm_variants_torch.py",
+                            "scripts/gaussian_hmc_variants_torch.py"])
 def test_no_jax_import(path):
     src = (REPO / path).read_text()
     assert not re.search(r"^\s*(import jax|from jax\b|import hamiltorch_tpu\b|from hamiltorch_tpu\b)",
