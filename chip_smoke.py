@@ -24,8 +24,15 @@ the kernels are built for sm_90a).  It
    per chain (D=3 diagonal, also at a ragged chain count), 32 lanes (D=20
    diagonal and dense), a warp per chain (D=200 diagonal), the tensor
    cores (dense D=128 and D=64) and dense P beyond their range (D=192),
-   and at every shape its main path launches (D=2 dense and diagonal at
-   256 chains, D=3 at 16 chains, dense D=64 at 256 chains);
+   the any-D variant (diagonal D=257, 300, 512, 1000, 4096, 4099; dense
+   D=241, 256, 512, 513, 1000, 2048, 4096, 4099; at chain counts that give
+   blocks of 1, 2, 4 and 8 chains, the last one partial), and at every
+   shape its main path launches (D=2 dense and
+   diagonal at 256 chains, D=3 at 16 chains, dense D=64 at 256 chains,
+   diagonal D=1000 at 64 chains); and the any-D variant forced on shapes
+   that a warp per chain runs (diagonal D=200, dense D=192) must give the
+   same draws and accepts, the noise being a function of (element, draw,
+   chain) alone;
 4. times each kernel and its plain version (CUDA events, median of 3, in
    turns), the GEMM pair of one flagship gradient beside cuBLAS's pair
    (``torch.matmul``) on the same shapes, and the cuBLAS GEMMs of the
@@ -41,7 +48,8 @@ the kernels are built for sm_90a).  It
    reports, beside the chains of a step-by-step leapfrog (2 L + 6) and of
    this kernel (4 L + 6), and beside the dense shape's tensor-core bound the
    time its ``mma.sync`` instructions take at the rate a second probe kernel
-   measures;
+   measures; the any-D variant at diagonal and dense D=1024 (1024 chains x
+   100 draws x L=10) beside cuBLAS's (C, D) x (D, D) matvec of every step;
 5. drives the main paths, each with the launch counts set to 0 just before
    it and read just after, and fails if its kernel was not launched:
    - HMC: the fused flagship sampler ``kernels.bnn_hmc`` and
@@ -55,10 +63,22 @@ the kernels are built for sm_90a).  It
      potential in float64 (at that step dE is below the float32 rounding
      of the flagship's logp);
    - Gaussian: ``kernels.gaussian_hmc`` recovers the moments of the 3-D
-     diagonal, 2-D dense and shifted-mean Gaussians of
-     ``tests/test_kernels.py`` (256 chains x 600 draws, L=6, eps=0.2) and the
-     covariance of a dense 64-D one (the tensor-core variant), the same seed
-     gives the same trace, and chains differ;
+     diagonal (4000 draws), 2-D dense and shifted-mean Gaussians of
+     ``tests/test_kernels.py`` (256 chains x 600 draws, L=6, eps=0.2), the
+     covariance of a dense 64-D one (the tensor-core variant) and the stds
+     of a diagonal 1000-D one (the any-D variant), the same seed gives the
+     same trace, and chains differ; ``diagnostics.summary`` of the 3-D
+     draws on the card equals the CPU's (float64) within 1e-4 relative,
+     with R-hat < 1.01;
+   - MAMS: ``run_mams_chains`` on the flagship tree (64 chains, mclachlan,
+     10 steps a draw, burn 50, 100 draws): post-burn acceptance within
+     0.15 of the target 0.9, no chain divergent on every draw;
+   - windowed mass warmup: ``run_hmc_chains`` with ``adapt_mass="diag"`` on
+     the flagship tree (64 chains, L=10, burn 300: three slow windows, 50
+     draws after), a finite, positive metric; with ``adapt_mass="dense"``
+     on a correlated 64-D Gaussian (64 chains, burn 1000) at three seeds,
+     the chains' mean adapted inverse mass within 0.1 of the true
+     covariance entrywise;
 6. checks the tiny flagship on the card against the CPU;
 7. prints one JSON line with every kernel's summary and, last, the device
    line.
@@ -113,6 +133,26 @@ GRAD_RTOL = 1e-5
 LOGP_RTOL = 1e-6
 MCLMC_TUNE_STEPS = 1000  # bench.py:446
 MCLMC_CHUNK = 200  # frozen steps per chunk (every 10th kept)
+# gaussian_hmc's any-D variant against its plain version: (seed, D, dense,
+# chains, chains per block).  Past 132 chains a block shares 2, 4 or 8
+# chains (``_wide_plan``), here with a partial last block; D = 4096 and the
+# ragged 4099 reach blocks above 48 KB and, dense, a P that streams from
+# device memory.  Every seed leaves the closest Metropolis decision at least
+# 1.7e-4 from the other outcome in the plain version on the CPU (float32
+# rounding moves it by ~1e-6).
+WIDE_SHAPES = ((20, 257, False, 37, 1), (21, 512, False, 64, 1), (22, 1000, False, 16, 1),
+               (23, 4096, False, 8, 1), (28, 4099, False, 5, 1), (29, 300, False, 201, 2),
+               (30, 257, False, 270, 4), (42, 1000, False, 1061, 8),
+               (24, 241, True, 37, 1), (25, 256, True, 16, 1), (26, 512, True, 16, 1),
+               (27, 1000, True, 8, 1), (32, 4096, True, 5, 1), (33, 4099, True, 3, 1),
+               (34, 2048, True, 201, 2), (35, 512, True, 270, 4), (44, 513, True, 530, 8))
+# the same draws whichever variant runs: diagonal and dense shapes of variant 3
+FORCED_SHAPES = ((200, False), (192, True))
+# The chains' mean adapted dense inverse mass against the true covariance of
+# the 64-D Gaussian: a 500-draw last window per chain, shrunk by 500/505
+# toward a small identity; the entries of the covariance reach 0.75
+DENSE_WARMUP_ATOL = 0.1
+DIAG_RTOL = 1e-4  # summary() on the card against the CPU, both float64
 
 
 class SmokeError(RuntimeError):
@@ -268,6 +308,26 @@ def compare_gaussian_hmc(torch, d, dense, chains, draws, steps, eps, seed, devic
           f"{draws}x{steps} eps={eps}: max_abs_err={err:.3e} acc_mean={float(want_acc.mean()):.4f} "
           f"move of a 1%-wrong precision={signal:.3e}")
     check_close("gaussian_hmc", err, signal)
+    return err
+
+
+def compare_forced_wide(torch, d, dense, device):
+    """gaussian_hmc's any-D variant forced on a shape that a warp per chain
+    runs, both on Philox: the draws are a function of (element, draw,
+    chain) alone, so samples agree within ATOL and accepts are identical."""
+    from hamiltorch_tpu_torch.kernels.gaussian_hmc import gaussian_hmc
+
+    prec = (dense_precision(torch, d, 1) if dense else torch.linspace(0.25, 4.0, d)).to(device)
+    theta0 = torch.randn(64, d, generator=torch.Generator().manual_seed(3)).to(device)
+    wide, wide_acc = gaussian_hmc(5, theta0, prec, 30, 6, 0.2, _variant=5)
+    warp, warp_acc = gaussian_hmc(5, theta0, prec, 30, 6, 0.2)
+    torch.cuda.synchronize()
+    err = float((wide - warp).abs().max())
+    print(f"gaussian_hmc any-D variant forced at D={d} {'dense' if dense else 'diagonal'} "
+          f"against a warp per chain (Philox): max_abs_err={err:.3e} "
+          f"acc_mean={float(warp_acc.mean()):.4f}")
+    if not (torch.equal(wide_acc, warp_acc) and err <= ATOL):
+        raise SmokeError(f"gaussian_hmc variants draw differently at D={d}: {err:.3e}")
     return err
 
 
@@ -498,6 +558,9 @@ def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card, 
     stepwise_ms = draws * (2 * steps + 6) * fma_ns * 1e-6
     as_built_ms = draws * (4 * steps + 6) * fma_ns * 1e-6
     b_ms, b_by = bound(flops, nbytes, latency_ms)
+    from hamiltorch_tpu_torch.kernels.gaussian_hmc import MMA_MAX_D, _plan
+
+    plan = _plan(d, dense, 8, chains)
     lib_ms = tc_ms = None
     if dense:  # cuBLAS: the (C, D) x (D, D) gradient product of every step
         x = torch.randn(chains, d, device=device)
@@ -509,7 +572,7 @@ def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card, 
     # the tensor-core bound assumes all 132 SMs busy: these chains are
     # chains / 16 blocks of 16-row mma tiles (64 at 1024 chains)
     tc = ""
-    if dense:
+    if dense and d <= MMA_MAX_D:
         # the tensor-core variant as built: a block of 16 chains issues 3 mma.sync per
         # 16 x 8 x 8 product, a quarter of them on each of its SM's four sub-cores
         dp = 32 * -(-d // 32)
@@ -517,7 +580,8 @@ def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card, 
         tc = (f", {tc_ms:.4g} ms (3xTF32 tensor cores, were the card full: {-(-chains // 16)} "
               f"blocks of 16 chains for 132 SMs), {sync_ms:.4g} ms (a block's mma.sync at the "
               f"probed rate)")
-    print(f"gaussian_hmc D={d} {kind} {chains} chains {draws}x{steps}: kernel {k_ms:.3f} ms "
+    print(f"gaussian_hmc D={d} {kind} {chains} chains {draws}x{steps} (variant {plan.variant}): "
+          f"kernel {k_ms:.3f} ms "
           f"({chains * draws / k_ms * 1e3:.4g} chain-draws/s), plain {p_ms:.3f} ms "
           f"({chains * draws / p_ms * 1e3:.4g} chain-draws/s); runs kernel {k_all} plain {p_all}; "
           f"bound {b_ms:.4g} ms ({b_by}; operations {flops / PEAK_FLOPS * 1e3:.4g}, bytes "
@@ -669,8 +733,12 @@ def gaussian_main_path(torch, device):
     def zeros(d):
         return torch.zeros(256, d, device=device)
 
-    samples, acc = gaussian_hmc(0, zeros(3), torch.tensor([4.0, 1.0, 0.25], device=device), **kw)
-    s = samples[:, 150:].reshape(-1, 3)
+    # 4000 draws, not 600: the summary below wants R-hat < 1.01, and the std-2
+    # dim decorrelates over ~10 draws, so 600 draws leave its split-R-hat ~1.02
+    samples, acc = gaussian_hmc(0, zeros(3), torch.tensor([4.0, 1.0, 0.25], device=device),
+                                **dict(kw, num_samples=4000))
+    draws_3d = samples[:, 150:]
+    s = draws_3d.reshape(-1, 3)
     mean, std = s.mean(0).cpu(), s.std(0).cpu()
     print(f"gaussian_hmc diagonal: mean {mean.tolist()} std {std.tolist()} (target [0.5, 1, 2]) "
           f"acceptance {float(acc.mean()):.4f}")
@@ -704,12 +772,109 @@ def gaussian_main_path(torch, device):
     if not (bool(((emp - cov).abs() < 0.05).all()) and float(acc.mean()) > 0.8):
         raise SmokeError("gaussian_hmc: dense 64-D covariance or acceptance off")
 
+    # diagonal 1000-D: the any-D variant.  Its stds over 64 x 450 draws: the
+    # slowest dims (std 2, a 1.2 trajectory) decorrelate in tens of draws,
+    # so each std carries ~1% of noise and the largest of 1000 ~3%
+    stds = torch.linspace(0.5, 2.0, 1000, device=device)
+    samples, acc = gaussian_hmc(9, torch.zeros(64, 1000, device=device), 1 / stds**2, **kw)
+    rel = (samples[:, 150:].reshape(-1, 1000).std(0) / stds - 1).abs()
+    print(f"gaussian_hmc diagonal 1000-D (stds 0.5-2): max relative std error {float(rel.max()):.4f} "
+          f"(median {float(rel.median()):.4f}), acceptance {float(acc.mean()):.4f}")
+    if not (float(rel.max()) < 0.1 and float(acc.mean()) > 0.6):
+        raise SmokeError("gaussian_hmc: the 1000-D stds or acceptance are off")
+
     prec = torch.ones(3, device=device)
     s1, _ = gaussian_hmc(7, torch.zeros(16, 3, device=device), prec, 50, 5, 0.3)
     s2, _ = gaussian_hmc(7, torch.zeros(16, 3, device=device), prec, 50, 5, 0.3)
     if not torch.equal(s1, s2) or torch.allclose(s1[0], s1[1]):
         raise SmokeError("gaussian_hmc: the same seed must give the same trace, chains must differ")
-    return gaussian_hmc.launches
+    return gaussian_hmc.launches, draws_3d
+
+
+def diagnostics_on_card(torch, draws):
+    """diagnostics.summary of the 3-D Gaussian's draws on the card against
+    the same call on the CPU (both float64), and R-hat below 1.01."""
+    from hamiltorch_tpu_torch.diagnostics import summary
+
+    on_card = summary(draws)
+    on_host = summary(draws.cpu())
+    worst = max(float(((on_card[k].cpu() - v) / v).abs().max()) for k, v in on_host.items())
+    r_hat = max(float(on_card["r_hat"].max()), float(on_card["r_hat_rank"].max()))
+    print(f"diagnostics.summary of the 3-D draws {tuple(draws.shape)} on the card: "
+          f"ess_bulk {on_card['ess_bulk'].tolist()}, ess_tail {on_card['ess_tail'].tolist()}, "
+          f"mcse_mean {on_card['mcse_mean'].tolist()}, max R-hat {r_hat:.5f}; "
+          f"card vs CPU max relative difference {worst:.3e}")
+    if not (worst <= DIAG_RTOL and r_hat < 1.01):
+        raise SmokeError(f"diagnostics on the card: card vs CPU {worst:.3e}, R-hat {r_hat}")
+
+
+def mams_main_path(torch, device, card):
+    """run_mams_chains on the flagship tree: 64 chains, mclachlan, 10 steps a
+    draw (2 gradients a step), burn 50, 100 draws."""
+    from hamiltorch_tpu_torch import MAMSConfig, run_mams_chains
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
+
+    log_prob_fn, params0 = make_flagship_potential_tree(device=device)
+    config = MAMSConfig(num_samples=100, num_steps_per_sample=10, burn=50)
+    c = FLAGSHIP["c"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_mams_chains(21, log_prob_fn, params0, config, c)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    acc = float(res.acc_rate.mean())
+    stuck = int(res.stats.divergent.all(dim=1).sum())
+    print(f"run_mams_chains flagship tree {c} chains x 100 draws x 10 steps (burn 50): {dt:.3f} s, "
+          f"{c * 100 * 10 * 2 / dt:.1f} grad-steps/s; post-burn acceptance {acc:.4f} (target "
+          f"{config.desired_accept_rate}), adapted eps median {float(res.step_size.median()):.5g} "
+          f"(range {float(res.step_size.min()):.5g}-{float(res.step_size.max()):.5g}), divergent "
+          f"draws {int(res.stats.divergent.sum())}, chains divergent on every draw {stuck} [{card}]")
+    finite = all(bool(torch.all(torch.isfinite(leaf))) for leaf in res.samples.values())
+    if not (finite and abs(acc - config.desired_accept_rate) <= 0.15 and stuck == 0):
+        raise SmokeError(f"MAMS: acceptance {acc:.4f}, {stuck} stuck chains, finite {finite}")
+
+
+def warmup_main_path(torch, device, card):
+    """Windowed mass warmup: diagonal on the flagship tree, dense on a
+    correlated 64-D Gaussian (three seeds)."""
+    from hamiltorch_tpu_torch import MCMCConfig, run_hmc_chains
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
+
+    log_prob_fn, params0 = make_flagship_potential_tree(device=device)
+    c = FLAGSHIP["c"]
+    config = MCMCConfig(num_samples=350, num_steps_per_sample=10, step_size=2e-4, burn=300,
+                        adapt_step_size=True, adapt_mass="diag")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_hmc_chains(22, log_prob_fn, params0, config, c)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    metric = res.final_warm[1]
+    print(f"run_hmc_chains flagship tree {c} chains, adapt_mass='diag', burn 300 (windows [75, 100), "
+          f"[100, 150), [150, 250)) + 50 draws x L=10: {dt:.3f} s, {c * 350 * 10 / dt:.1f} "
+          f"grad-steps/s; adapted inverse mass min {float(metric.min()):.4g} median "
+          f"{float(metric.median()):.4g} max {float(metric.max()):.4g}, step size median "
+          f"{float(res.final_step_size.median()):.4g}, post-burn acceptance "
+          f"{float(res.stats.accepted[:, 300:].float().mean()):.4f} [{card}]")
+    if not (bool(torch.all(torch.isfinite(metric))) and bool(torch.all(metric > 0))):
+        raise SmokeError("windowed warmup: the adapted inverse mass is not finite and positive")
+
+    prec = dense_precision(torch, 64, 2).to(device)
+    cov = torch.linalg.inv(prec.double()).float()
+    dense = MCMCConfig(num_samples=1050, num_steps_per_sample=10, step_size=0.1, burn=1000,
+                       adapt_step_size=True, adapt_mass="dense")
+    for seed in (0, 1, 2):
+        t0 = time.perf_counter()
+        res = run_hmc_chains(seed, lambda t: -0.5 * t @ prec @ t, torch.zeros(64, device=device),
+                             dense, c)
+        torch.cuda.synchronize()
+        err = float((res.final_warm[1][0].mean(0) - cov).abs().max())
+        print(f"run_hmc_chains 64-D Gaussian {c} chains, adapt_mass='dense', burn 1000, seed {seed}: "
+              f"{time.perf_counter() - t0:.3f} s; chains' mean adapted inverse mass vs the "
+              f"covariance: max_abs_err {err:.4f} (entries up to {float(cov.abs().max()):.3f}, "
+              f"tolerance {DENSE_WARMUP_ATOL}) [{card}]")
+        if not err <= DENSE_WARMUP_ATOL:
+            raise SmokeError(f"dense warmup: adapted inverse mass off by {err:.4f}")
 
 
 def tiny_card_vs_cpu(torch, device):
@@ -796,7 +961,22 @@ def main() -> int:
             (128, True, 64),  # tensor cores, 3xTF32
             (192, True, 37),  # beyond the tensor-core variant's range: float32 FMA
             (2, True, 256), (2, False, 256), (3, False, 16), (64, True, 256),  # the main path's
+            (1000, False, 64),
         ), start=3))
+    # the any-D variant (5): beyond 256 diagonal and 240 dense, ragged D included
+    from hamiltorch_tpu_torch.kernels.gaussian_hmc import _plan
+
+    for seed, d, dense, chains, per_block in WIDE_SHAPES:
+        plan = _plan(d, dense, 8, chains)
+        if (plan.variant, plan.group) != (5, per_block):
+            raise SmokeError(f"D={d} dense={dense} at {chains} chains plans {plan}, "
+                             f"not variant 5 with {per_block} chains a block")
+    wide_err = max(compare_gaussian_hmc(torch, d, dense, chains, 20, 6, 0.2, seed=seed, device=device)
+                   for seed, d, dense, chains, _ in WIDE_SHAPES)
+    wide_err = max([wide_err] + [compare_forced_wide(torch, d, dense, device)
+                                 for d, dense in FORCED_SHAPES])
+    errs["gaussian_hmc"] = max(errs["gaussian_hmc"], wide_err)
+    print(f"gaussian_hmc any-D variant: worst max_abs_err {wide_err:.3e}")
 
     # 4. kernels alone on Philox, their plain versions and cuBLAS, timed
     pair_ms, gemm_ms = bnn_gemm_ms(torch, device)
@@ -826,17 +1006,26 @@ def main() -> int:
     time_gaussian_hmc(torch, device, 3, False, 65536, 100, 6, 0.2, card, fma_ns, mma_ns)
     times["gaussian_hmc"] = time_gaussian_hmc(torch, device, 128, True, 1024, 200, 10, 0.2, card,
                                               fma_ns, mma_ns)
+    # the any-D variant at D=1024
+    wide_times = {dense: time_gaussian_hmc(torch, device, 1024, dense, 1024, 100, 10, 0.2, card,
+                                           fma_ns, mma_ns) for dense in (False, True)}
 
     # 5. the main paths, each counted from 0
+    t_paths = time.perf_counter()
     launches = {
         "bnn_hmc": hmc_main_path(torch, device, draws, steps, eps, card),
         "bnn_mclmc": mclmc_main_path(torch, device, card),
-        "gaussian_hmc": gaussian_main_path(torch, device),
     }
+    launches["gaussian_hmc"], draws_3d = gaussian_main_path(torch, device)
     print(f"main-path launches: {launches}")
     for name, count in launches.items():
         if count < 1:
             raise SmokeError(f"kernel {name} was not launched on its main path")
+    # the paths of this slice run no kernel of their own (no TPU kernel is on them)
+    diagnostics_on_card(torch, draws_3d)
+    mams_main_path(torch, device, card)
+    warmup_main_path(torch, device, card)
+    print(f"main paths: {time.perf_counter() - t_paths:.1f} s")
 
     # 6. the tiny flagship, card vs CPU
     tiny_card_vs_cpu(torch, device)
@@ -845,6 +1034,11 @@ def main() -> int:
     summary = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], "max_abs_err": errs[name], **times[name]}
                for name, route, source, replaces in KERNELS]
+    gauss = summary[-1]
+    gauss["max_abs_err_variant5"] = wide_err
+    for dense, t in wide_times.items():
+        gauss[f"variant5_d1024_{'dense' if dense else 'diagonal'}"] = {
+            k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

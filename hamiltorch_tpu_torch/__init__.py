@@ -6,9 +6,11 @@ found under the same name.  This package imports ``torch`` and never
 ``jax``.
 
 Ported so far: the HMC chain sampler (``sample`` for ``Sampler.HMC`` /
-``HMC_NUTS``, ``run_hmc``, ``run_hmc_chains``) with its potential, mass,
-leapfrog, dual-averaging and driver layers; MCLMC (``run_mclmc``,
-``run_mclmc_chains``); the flagship BNN models; and the fused samplers
+``HMC_NUTS``, ``run_hmc``, ``run_hmc_chains``) with its potential, mass
+(block-diagonal included), leapfrog, dual-averaging, windowed mass warmup
+and driver layers; MCLMC (``run_mclmc``, ``run_mclmc_chains``); MAMS
+(``run_mams``, ``run_mams_chains``); the diagnostics (``diagnostics``:
+ESS, R-hat, ``summary``); the flagship BNN models; and the fused samplers
 ``kernels.bnn_hmc``, ``kernels.bnn_mclmc`` and ``kernels.gaussian_hmc`` as
 CUDA kernels for Hopper.  ROADMAP.md lists what is still to port.
 """
@@ -19,7 +21,8 @@ from .api import sample
 from .enums import Integrator, Metric, Sampler
 from .samplers.driver import MCMCConfig, MCMCResult, MCMCStats
 from .samplers.hmc import run_hmc, run_hmc_chains
-from .samplers.mclmc import MCLMCConfig, MCLMCResult, MCLMCStats, run_mclmc, run_mclmc_chains
+from .samplers.mams import MAMSConfig, MAMSResult, run_mams, run_mams_chains
+from .samplers.mclmc import MCLMCConfig, MCLMCResult, run_mclmc, run_mclmc_chains
 from .utils.rng import next_key, set_random_seed
 
 __all__ = [
@@ -38,5 +41,8 @@ __all__ = [
     "run_mclmc_chains",
     "MCLMCConfig",
     "MCLMCResult",
-    "MCLMCStats",
+    "MAMSConfig",
+    "MAMSResult",
+    "run_mams",
+    "run_mams_chains",
 ]

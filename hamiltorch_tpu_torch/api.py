@@ -7,10 +7,11 @@ state after each draw ``n > burn``, as one (num_kept, D) tensor;
 ``(samples, acc_rate)`` otherwise.  ``key`` is an integer seed; without it
 the module-level generator set by ``set_random_seed`` supplies one.
 
-This slice ports the ``Sampler.HMC`` / ``Sampler.HMC_NUTS`` branch with the
-leapfrog integrator.  The other samplers, the splitting integrators,
-``store_on_GPU=False``, windowed mass warmup and progress lines raise
-``NotImplementedError`` until they are ported (ROADMAP.md, queue 1).
+The port has the ``Sampler.HMC`` / ``Sampler.HMC_NUTS`` branch with the
+leapfrog integrator and windowed mass warmup (``adapt_mass``).  The other
+samplers, the splitting integrators, ``store_on_GPU=False`` and progress
+lines raise ``NotImplementedError`` until they are ported (ROADMAP.md,
+queue 1).
 """
 
 from __future__ import annotations
@@ -97,8 +98,8 @@ def sample(
         raise _not_ported("split HMC (the splitting integrators)")
     if not store_on_GPU:
         raise _not_ported("store_on_GPU=False (host offload of the trace)")
-    if adapt_mass:
-        raise _not_ported("adapt_mass (windowed mass warmup)")
+    if adapt_mass and burn <= 0:
+        raise RuntimeError("adapt_mass requires burn > 0 (the warmup phase).")
     if progress_every:
         raise _not_ported("progress_every (progress lines)")
     if key is None:
@@ -120,6 +121,7 @@ def sample(
         adapt_step_size=adapt,
         desired_accept_rate=desired_accept_rate,
         thin=thin,
+        adapt_mass=adapt_mass,
     )
     result = run_hmc(key, log_prob_func, params_init, config,
                      inv_mass=inv_mass, pass_grad=pass_grad)

@@ -31,7 +31,7 @@
 // 1/2 (p^2 - (theta - mean) g) before less after, reduced once in a fixed
 // order, so a run is deterministic.  One Philox draw gives the normals of
 // four neighbouring elements (both outputs of two Box-Muller transforms).
-// Four variants (templates of gaussian_hmc.cuh), chosen by the wrapper's
+// Five variants (templates of gaussian_hmc.cuh), chosen by the wrapper's
 // plan from D (kernels/gaussian_hmc.py::_plan); only what the plan can choose
 // is instantiated here:
 //   1. D <= 8: 2, 4 or 8 lanes per chain, one element each, as in 2.  (One
@@ -71,12 +71,28 @@
 //      log-uniforms into shared memory meanwhile.  Beyond D=128 the split P
 //      (8 Dp^2 bytes, Dp = D rounded up to 32), the tiles and the noise no
 //      longer fit a block's 232,448 bytes together.
+//   5. Any other D (diagonal D > 256, dense D > 240), up to what a block's
+//      shared memory holds: one block of 8 warps per 1-8 chains, the state
+//      (theta, its gradient, and the trajectory's theta, p and gradient) in
+//      shared memory, each thread owning 4 neighbouring elements of every
+//      chain of its block (the four normals of one Philox draw).  Dense P
+//      stays in device memory: each thread takes 4 columns of the matvec in
+//      16-byte loads (where the rows are 16-byte aligned) for all the
+//      block's chains, whose theta - mean sits in shared memory element-major,
+//      so each element of P read serves every chain of the block.  P is 4 MB
+//      at D=1024 and stays in L2; from D ~ 3,500 (50 MB) on it streams from
+//      HBM.  A simple design, not yet a fast one.
 
 #include "gaussian_hmc.cuh"
 
 namespace {
 
 // variants 1 and 2: G lanes per chain, one element each, with the noise ring
+template <int CB>
+int launch_wide_dense(const Args& a, bool dense, size_t shared, cudaStream_t stream) {
+  return dense ? launch_wide<CB, true>(a, shared, stream) : launch_wide<CB, false>(a, shared, stream);
+}
+
 template <int G>
 int launch_ring(const Args& a, bool dense, int warps, int consumers, int cpw, size_t shared,
                 cudaStream_t stream) {
@@ -105,10 +121,12 @@ const char* gaussian_hmc_error_string(int err) { return cudaGetErrorString((cuda
 //     row of D per warp;
 //   variant 4 (dense P, 32 < D <= 128): 4 or 8 consumer warps by D rounded
 //     up to 32 (64: 8, 96: 4, 128: 8) and 2 producer warps; `shared` holds
-//     the layout above MmaShape.
+//     the layout above MmaShape;
+//   variant 5 (any D): `group` chains per block (1, 2, 4 or 8) of
+//     `consumers` = 8 warps; `shared` holds the layout above WideShape.
 // Returns cudaErrorInvalidValue for any other plan (variant 0: the wrapper
-// found none, which is how D > 256, dense D > 240 and chain_tile outside
-// 1..32 are refused).  Launches on the stream without synchronising and
+// found none, which is how a D whose state does not fit a block's shared
+// memory and a chain_tile below 1 are refused).  Launches on the stream without synchronising and
 // returns the first launch error as a cudaError_t (0 on success).
 int gaussian_hmc_run(const float* theta0, const float* prec, const float* mean, float* out,
                      float* acc, int chains, int d, int dense, int num_samples, int num_steps,
@@ -116,7 +134,8 @@ int gaussian_hmc_run(const float* theta0, const float* prec, const float* mean, 
                      int consumers, int cpw, int shared, const float* momenta,
                      const float* uniforms, void* stream_ptr) {
   const int invalid = (int)cudaErrorInvalidValue;
-  if (d < 1 || d > MAX_D || chains < 1 || (variant < 3 && group < d)) return invalid;
+  if (d < 1 || (variant < 5 && d > MAX_D) || chains < 1 || (variant < 3 && group < d))
+    return invalid;
   if (shared < 0 || shared > MAX_SHARED) return invalid;
   const Args a = {theta0, prec, mean, out, acc, chains, d, num_samples, num_steps, step_size,
                   seed_key(seed), momenta, uniforms};
@@ -143,6 +162,13 @@ int gaussian_hmc_run(const float* theta0, const float* prec, const float* mean, 
     if (d <= 64) return consumers == 8 ? launch_mma<1, 8, 2>(a, shared, s) : invalid;
     if (d <= 96) return consumers == 4 ? launch_mma<3, 4, 2>(a, shared, s) : invalid;
     return consumers == 8 ? launch_mma<2, 8, 2>(a, shared, s) : invalid;
+  } else if (variant == 5 && consumers == WIDE_WARPS) {
+    switch (group) {
+      case 1: return launch_wide_dense<1>(a, dense, shared, s);
+      case 2: return launch_wide_dense<2>(a, dense, shared, s);
+      case 4: return launch_wide_dense<4>(a, dense, shared, s);
+      case 8: return launch_wide_dense<8>(a, dense, shared, s);
+    }
   }
   return invalid;
 }

@@ -1,7 +1,9 @@
 // The kernels of gaussian_hmc.cu (its head note says what bounds them and
 // what the design does): chain_kernel, G lanes per chain of EPL elements
 // each, with or without a shared-memory ring of noise that producer warps
-// fill, and mma_kernel, 16 chains per block on the tensor cores in 3xTF32.
+// fill, mma_kernel, 16 chains per block on the tensor cores in 3xTF32, and
+// wide_kernel, 1-8 chains per block of 8 warps with the state in shared
+// memory, for any D.
 // They are templates; a source that includes this header instantiates the
 // ones it launches (gaussian_hmc.cu: those the wrapper's plan can choose).
 #pragma once
@@ -10,7 +12,7 @@
 
 namespace {
 
-constexpr int MAX_D = 256;
+constexpr int MAX_D = 256;  // largest D of variants 1-4
 constexpr int MAX_SHARED = 232448;  // bytes of shared memory a block may use
 constexpr int RING_DRAWS = 16;      // draws per buffer of the noise ring
 constexpr int MAX_WARPS = 8;        // warps per block of variants 1-3
@@ -520,6 +522,255 @@ __global__ void __launch_bounds__(32 * (W + PW)) mma_kernel(Args a) {
   }
 }
 
+// ---- variant 5: any D, CB chains per block ----
+
+constexpr int WIDE_WARPS = 8;
+constexpr int WIDE_THREADS = 32 * WIDE_WARPS;
+
+// Shared memory of a block of CB chains at Dq = D rounded up to 4, in this
+// order:
+//   double part[2][WIDE_WARPS][CB]  the warps' partial energy sums (of this
+//                                   draw and the next: no barrier between
+//                                   two draws' sums for diagonal P)
+//   double log_u[2][CB]             the chains' log-uniforms, likewise
+//   float theta[CB][Dq], gc[CB][Dq] the chain state and its gradient
+//   float th[CB][Dq], p[CB][Dq], g[CB][Dq]  the trajectory
+//   float delta[Dq][CB]             dense P only: th - mean, element-major, so
+//                                   that one element of P meets all CB chains
+// Thread t owns elements 4 q .. 4 q + 3 for q = t, t + WIDE_THREADS, ... of
+// every chain of its block: it alone touches them in theta, gc, th, p and g.
+template <int CB>
+struct WideShape {
+  const int dq;
+  double* part;
+  double* log_u;
+  float *theta, *gc, *th, *p, *g, *delta;
+  __device__ WideShape(double* smem, int d) : dq((d + 3) & ~3) {
+    part = smem;
+    log_u = part + 2 * WIDE_WARPS * CB;
+    theta = reinterpret_cast<float*>(log_u + 2 * CB);
+    gc = theta + CB * dq;
+    th = gc + CB * dq;
+    p = th + CB * dq;
+    g = p + CB * dq;
+    delta = g + CB * dq;
+  }
+};
+
+__device__ __forceinline__ float mean_at(const Args& a, int k) { return a.mean ? a.mean[k] : 0.f; }
+
+// Rows of P summed into one partial before it is added to the total.  One
+// float32 sum over all D rows drifts from float64 about 3x further than
+// torch.matmul's product does at D in the thousands; blocks of 64 rows drift
+// less than it (scripts/gaussian_sum_order_torch.py emulates the orders).
+constexpr int WIDE_ROW_BLOCK = 64;
+
+// acc[c][e] = sum over i of delta[i][c] P[i][4 q + e]: columns 4 q .. 4 q + 3
+// of P for the block's CB chains, each WIDE_ROW_BLOCK rows summed ascending
+// into a partial, the partials added in order.  VEC: 16-byte loads of P's
+// rows (D a multiple of 4, P 16-byte aligned).  Four rows a turn, so that
+// their loads are in flight together (the SM holds one block of 8 warps).
+template <int CB, bool VEC>
+__device__ __forceinline__ void wide_columns(const float* __restrict__ P, const float* delta,
+                                             int d, int q, float (&acc)[CB][4]) {
+#pragma unroll
+  for (int c = 0; c < CB; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  const float* col = P + 4 * q;
+  for (int i0 = 0; i0 < d; i0 += WIDE_ROW_BLOCK) {
+    float part[CB][4];
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[c][e] = 0.f;
+    const int i1 = min(i0 + WIDE_ROW_BLOCK, d);
+#pragma unroll 4
+    for (int i = i0; i < i1; ++i, col += d) {
+      float pv[4];
+      if (VEC) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(col));
+        pv[0] = v.x, pv[1] = v.y, pv[2] = v.z, pv[3] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[e] = 4 * q + e < d ? __ldg(col + e) : 0.f;
+      }
+      const float* dv = delta + i * CB;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        const float di = dv[c];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[c][e] = fmaf(di, pv[e], part[c][e]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] += part[c][e];
+  }
+}
+
+// out = -(x - mean) P (dense) or -(x - mean) * P (diagonal) for the block's
+// CB chains; x and out are [CB][Dq] arrays of shared memory.  Dense P is read
+// from device memory, each thread taking 4 columns (16-byte loads where rows
+// are aligned) for all CB chains, so every element of P read serves CB
+// chains.  Every thread of the block must call it.
+template <int CB, bool DENSE>
+__device__ __forceinline__ void wide_gradient(const Args& a, const WideShape<CB>& sh,
+                                              const float* x, float* out) {
+  const int d = a.d, dq = sh.dq, nq = dq / 4;
+  if (!DENSE) {
+    for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * q + e;
+        const float mu = k < d ? mean_at(a, k) : 0.f, pr = k < d ? a.prec[k] : 0.f;
+#pragma unroll
+        for (int c = 0; c < CB; ++c) out[c * dq + k] = k < d ? -(x[c * dq + k] - mu) * pr : 0.f;
+      }
+    return;
+  }
+  for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * q + e;
+      const float mu = k < d ? mean_at(a, k) : 0.f;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) sh.delta[k * CB + c] = k < d ? x[c * dq + k] - mu : 0.f;
+    }
+  __syncthreads();
+  const bool vec = (d & 3) == 0 && (reinterpret_cast<uintptr_t>(a.prec) & 15) == 0;
+  for (int q = threadIdx.x; q < nq; q += WIDE_THREADS) {
+    float acc[CB][4];
+    if (vec)
+      wide_columns<CB, true>(a.prec, sh.delta, d, q, acc);
+    else
+      wide_columns<CB, false>(a.prec, sh.delta, d, q, acc);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int c = 0; c < CB; ++c) out[c * dq + 4 * q + e] = -acc[c][e];
+  }
+  __syncthreads();  // delta is written again by the next call
+}
+
+// One block of WIDE_THREADS threads per CB chains; the state lives in shared
+// memory (the layout above WideShape).
+template <int CB, bool DENSE>
+__global__ void __launch_bounds__(WIDE_THREADS) wide_kernel(Args a) {
+  extern __shared__ double smem[];
+  const WideShape<CB> sh(smem, a.d);
+  const int d = a.d, dq = sh.dq, nq = dq / 4, S = a.num_samples;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * CB;
+  const float eps = a.eps;
+
+  for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * q + e;
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        sh.theta[c * dq + k] =
+            (k < d && c0 + c < a.chains) ? a.theta0[(long long)(c0 + c) * d + k] : 0.f;
+    }
+  __syncthreads();
+  wide_gradient<CB, DENSE>(a, sh, sh.theta, sh.gc);
+  int accepted[CB];
+#pragma unroll
+  for (int c = 0; c < CB; ++c) accepted[c] = 0;
+
+  for (int n = 0; n < S; ++n) {
+    double e[CB];  // this thread's part of each chain's h0 - h1
+#pragma unroll
+    for (int c = 0; c < CB; ++c) e[c] = 0.0;
+    for (int q = threadIdx.x; q < nq; q += WIDE_THREADS) {
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        float z[4] = {0.f, 0.f, 0.f, 0.f};
+        if (c0 + c < a.chains) normals4(a, q, n, c0 + c, z);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 4 * q + j, i = c * dq + k;
+          const float theta = sh.theta[i], gc = sh.gc[i], zj = k < d ? z[j] : 0.f;  // 0 beyond d
+          if (k < d) e[c] += half_energy(theta - mean_at(a, k), gc, zj);
+          sh.p[i] = fmaf(0.5f * eps, gc, zj);
+          sh.th[i] = theta;
+          sh.g[i] = gc;
+        }
+      }
+    }
+    for (int s = 0; s < a.num_steps; ++s) {
+      for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i = c * dq + 4 * q + j;
+            sh.th[i] = fmaf(eps, sh.p[i], sh.th[i]);
+          }
+      wide_gradient<CB, DENSE>(a, sh, sh.th, sh.g);
+      for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i = c * dq + 4 * q + j;
+            sh.p[i] = fmaf(eps, sh.g[i], sh.p[i]);
+          }
+    }
+    for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 4 * q + j, i = c * dq + k;
+          if (k >= d) continue;
+          const float pe = fmaf(-0.5f * eps, sh.g[i], sh.p[i]);
+          sh.p[i] = pe;
+          e[c] -= half_energy(sh.th[i] - mean_at(a, k), sh.g[i], pe);
+        }
+    // each chain's sum: over the warp by shuffles, then over the warps
+    double* part = sh.part + (n & 1) * WIDE_WARPS * CB;
+    double* log_u = sh.log_u + (n & 1) * CB;
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      const double v = warp_sum(e[c]);
+      if (lane == 0) part[warp * CB + c] = v;
+    }
+    if (threadIdx.x < CB)
+      log_u[threadIdx.x] = c0 + threadIdx.x < a.chains ? log_uniform_at(a, n, c0 + threadIdx.x) : 0.0;
+    __syncthreads();
+    bool ok[CB];
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      double dh = 0.0;
+#pragma unroll
+      for (int w = 0; w < WIDE_WARPS; ++w) dh += part[w * CB + c];
+      ok[c] = dh >= log_u[c];
+      accepted[c] += ok[c];
+    }
+    for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        if (c0 + c >= a.chains) continue;
+        float* o = a.out + ((long long)(c0 + c) * S + n) * d;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 4 * q + j, i = c * dq + k;
+          if (k >= d) continue;
+          if (ok[c]) {
+            sh.theta[i] = sh.th[i];
+            sh.gc[i] = sh.g[i];
+          }
+          o[k] = sh.theta[i];
+        }
+      }
+  }
+  if (threadIdx.x < CB && c0 + threadIdx.x < a.chains)
+    a.acc[c0 + threadIdx.x] = (float)accepted[threadIdx.x] / (float)S;
+}
+
 // ---- launches ----
 
 template <typename Kernel>
@@ -540,6 +791,17 @@ int launch_chain(const Args& a, int warps, int consumers, int cpw, size_t shared
   if (const int e = allow_shared(kernel, shared)) return e;
   const int cb = consumers * cpw;
   kernel<<<(a.chains + cb - 1) / cb, 32 * warps, shared, stream>>>(a, consumers, cpw);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// one block of WIDE_THREADS threads per CB chains; `shared` must hold the
+// layout above WideShape
+template <int CB, bool DENSE>
+int launch_wide(const Args& a, size_t shared, cudaStream_t stream) {
+  auto kernel = wide_kernel<CB, DENSE>;
+  if (const int e = allow_shared(kernel, shared)) return e;
+  kernel<<<(a.chains + CB - 1) / CB, WIDE_THREADS, shared, stream>>>(a);
   LAUNCH_CHECK();
   return 0;
 }

@@ -100,13 +100,39 @@ MAX_SHARED = 232448  # bytes of shared memory one block may use on Hopper
 MMA_MAX_D = 128  # largest dense D of the tensor-core variant
 RING_DRAWS = 16  # draws of noise per buffer of the small-D variants' ring
 
-# What the wrapper asks of csrc/gaussian_hmc.cu: ``variant`` 1-4 (0: no
-# variant takes the shape), ``group`` lanes per chain, ``consumers`` warps of
-# a block that run ``chains_per_warp`` chains each (variants 1, 2 and 4 add
-# warps that produce noise), ``shared`` bytes.
+# What the wrapper asks of csrc/gaussian_hmc.cu: ``variant`` 1-5 (0: no
+# variant takes the shape), ``group`` lanes per chain (variant 5: chains per
+# block), ``consumers`` warps of a block that run ``chains_per_warp`` chains
+# each (variants 1, 2 and 4 add warps that produce noise; variant 5's 8 warps
+# share its chains, ``chains_per_warp`` 0), ``shared`` bytes.
 Plan = collections.namedtuple("Plan", "variant group consumers chains_per_warp shared")
 _NO_PLAN = Plan(0, 0, 0, 0, 0)
 _SMS = 132  # streaming multiprocessors of an H100
+WIDE_WARPS = 8  # warps per block of variant 5
+WIDE_MAX_CHAINS = 8  # chains per block of variant 5, at most (16 spills registers)
+
+
+def _wide_shared(d, dense, chains_per_block):
+    """Variant 5's shared bytes: two draws' float64 partial sums of 8 warps
+    and log-uniforms, then theta, its gradient, the trajectory's theta, p and
+    gradient (and, for dense P, theta - mean) at D rounded up to 4."""
+    dq = 4 * -(-d // 4)
+    cb = chains_per_block
+    return 8 * (2 * WIDE_WARPS * cb + 2 * cb) + 4 * dq * cb * (6 if dense else 5)
+
+
+def _wide_plan(d, dense, chains):
+    """Variant 5 for any D whose state fits a block: the fewest chains per
+    block (a power of two up to 8) that still give every SM a block, fewer
+    where that is needed to fit."""
+    cb = 1
+    while cb < WIDE_MAX_CHAINS and cb * _SMS < chains:
+        cb *= 2
+    while cb > 1 and _wide_shared(d, dense, cb) > MAX_SHARED:
+        cb //= 2
+    if _wide_shared(d, dense, cb) > MAX_SHARED:
+        return _NO_PLAN
+    return Plan(5, cb, WIDE_WARPS, 0, _wide_shared(d, dense, cb))
 
 
 def _ring_bytes(chains_per_block, d):
@@ -133,11 +159,20 @@ def _plan(d, dense, chain_tile, chains):
        D=128 the split P, theta - mean and the noise no longer fit a block
        together.)
 
+    5. Any other D: diagonal P with D > 256, dense P beyond the reach of
+       variant 3 (D > 240).  Blocks of 8 warps that share 1-8 chains, the
+       state in shared memory, dense P read from device memory
+       (``_wide_plan``); up to D = 11,612 diagonal and 9,676 dense.
+
     In 1-3 a block takes fewer chains than it could where that spreads the
     chains over the card's SMs: each chain's time is its own latency.
+    ``chain_tile`` above 32 counts as 32.
     """
-    if not (1 <= d <= 256 and 1 <= chain_tile <= 32 and chains >= 1):
+    if not (d >= 1 and chain_tile >= 1 and chains >= 1):
         return _NO_PLAN
+    if d > 256:
+        return _wide_plan(d, dense, chains)
+    chain_tile = min(chain_tile, 32)
     p_bytes = 4 * d * d if dense else 0
     if d <= 8:
         group = 2 if d <= 2 else 4 if d <= 4 else 8
@@ -160,7 +195,7 @@ def _plan(d, dense, chain_tile, chains):
     if dense:
         warps = min(warps, MAX_SHARED // (4 * d) - d)
         if warps < 1:
-            return _NO_PLAN
+            return _wide_plan(d, dense, chains)
     return Plan(3, 32, warps, 1, (d + warps) * d * 4 if dense else 0)
 
 
@@ -183,22 +218,23 @@ def _library():
 
 
 def gaussian_hmc(seed, theta0, precision, num_samples, num_steps=10, step_size=0.1,
-                 chain_tile=8, mean=None, _noise=None):
+                 chain_tile=8, mean=None, _noise=None, _variant=None):
     """Sample C chains from N(mean, P^-1); returns (samples (C, N, D), acc (C,)).
 
     ``precision`` is (D,) for a diagonal P or (D, D) for a dense SPD one;
-    ``mean`` is (D,) or None for zero.  On the card the chain state stays in
-    registers for the whole run and ``_plan`` picks the kernel variant from
-    D: 2 to 32 lanes per chain (D <= 32, the next power of two), a warp per
-    chain, or, for dense P with 32 < D <= 128, blocks of 16 chains
-    on the tensor cores in 3xTF32.  ``chain_tile`` is a hint: an upper bound
-    on the warps of chains in one block, which the kernel lowers where that
-    spreads the chains over more SMs or is needed to fit a dense P; the
-    draws do not depend on it.  The kernel takes ``1 <= chain_tile <= 32``,
-    D <= 256 for diagonal P and D <= 240 for dense P (beyond the tensor-core
-    range, (D + 1) D floats must fit the 232,448 bytes of shared memory a
-    block may use); for other shapes it returns cudaErrorInvalidValue and
-    this raises.
+    ``mean`` is (D,) or None for zero.  On the card ``_plan`` picks the
+    kernel variant from D: 2 to 32 lanes per chain (D <= 32, the next power
+    of two), a warp per chain (diagonal D <= 256, dense D <= 240), blocks of
+    16 chains on the tensor cores in 3xTF32 (dense 32 < D <= 128), all with
+    the chain state in registers, or, for any larger D, blocks of 8 warps
+    that share 1-8 chains with the state in shared memory (up to D = 11,612
+    diagonal and 9,676 dense, where one chain's state fills a block's
+    232,448 bytes; beyond that the kernel returns cudaErrorInvalidValue and
+    this raises).  ``chain_tile`` is a hint: an upper bound on the warps of
+    chains in one block, which the kernel lowers where that spreads the
+    chains over more SMs or is needed to fit a dense P; the draws do not
+    depend on it, nor on the variant.  ``_variant=5`` runs the any-D variant
+    whatever D is (a test hook: it must draw what the others draw).
     ``gaussian_hmc.launches`` counts the runs of the CUDA kernel.
     """
     device = theta0.device
@@ -213,6 +249,10 @@ def gaussian_hmc(seed, theta0, precision, num_samples, num_steps=10, step_size=0
         _check("mean", mean, (d,), device)
     if num_samples < 1 or num_steps < 1:
         raise ValueError("num_samples and num_steps must be >= 1")
+    if int(chain_tile) < 1:
+        raise ValueError(f"chain_tile must be >= 1, got {chain_tile}")
+    if _variant not in (None, 5):
+        raise ValueError(f"_variant must be None or 5, got {_variant}")
     if _noise is not None:
         _check("momenta", _noise[0], (num_samples, c, d), device)
         _check("uniforms", _noise[1], (num_samples, c), device)
@@ -224,7 +264,8 @@ def gaussian_hmc(seed, theta0, precision, num_samples, num_steps=10, step_size=0
         raise ValueError(f"gaussian_hmc runs on CUDA or CPU tensors, not {device}")
 
     lib = _library()
-    plan = _plan(d, precision.ndim == 2, int(chain_tile), c)
+    dense = precision.ndim == 2
+    plan = _plan(d, dense, int(chain_tile), c) if _variant is None else _wide_plan(d, dense, c)
     out = torch.empty((c, num_samples, d), dtype=torch.float32, device=device)
     acc = torch.empty((c,), dtype=torch.float32, device=device)
     momenta, uniforms = (None, None) if _noise is None else _noise
@@ -233,7 +274,7 @@ def gaussian_hmc(seed, theta0, precision, num_samples, num_steps=10, step_size=0
         err = lib.gaussian_hmc_run(
             theta0.data_ptr(), precision.data_ptr(),
             None if mean is None else mean.data_ptr(), out.data_ptr(), acc.data_ptr(),
-            c, d, int(precision.ndim == 2), num_samples, num_steps,
+            c, d, int(dense), num_samples, num_steps,
             float(step_size), int(seed) & (2**64 - 1), *plan,
             None if momenta is None else momenta.data_ptr(),
             None if uniforms is None else uniforms.data_ptr(),

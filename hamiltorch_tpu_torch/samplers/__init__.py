@@ -1,4 +1,31 @@
 from .adaptation import DualAveragingState, da_init, da_update
 from .driver import ChainState, MCMCConfig, MCMCResult, MCMCStats, run_mcmc
 from .hmc import hmc_transition, run_hmc, run_hmc_chains
+from .mams import MAMSConfig, MAMSResult, MAMSStats, run_mams, run_mams_chains
 from .mclmc import MCLMCConfig, MCLMCResult, MCLMCStats, run_mclmc, run_mclmc_chains
+
+# the JAX package's list (hamiltorch_tpu/samplers/__init__.py), in its order,
+# for the samplers ported so far
+__all__ = [
+    "ChainState",
+    "MCMCConfig",
+    "MCMCResult",
+    "MCMCStats",
+    "run_mcmc",
+    "run_hmc",
+    "run_hmc_chains",
+    "hmc_transition",
+    "MCLMCConfig",
+    "MCLMCResult",
+    "MCLMCStats",
+    "run_mclmc",
+    "run_mclmc_chains",
+    "MAMSConfig",
+    "MAMSResult",
+    "MAMSStats",
+    "run_mams",
+    "run_mams_chains",
+    "DualAveragingState",
+    "da_init",
+    "da_update",
+]

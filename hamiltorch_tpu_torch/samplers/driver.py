@@ -16,6 +16,14 @@ Where the JAX driver is one chain ``vmap``-ed over many, this one runs every
 chain at once: the state carries a leading chain axis, and the transition
 it is given is already batched (``samplers/hmc.py`` builds it with
 ``torch.func.vmap``).  The trace goes into a tensor allocated once.
+
+Windowed mass warmup (``samplers/warmup.py``) rides the same loop: each
+chain carries its own Welford moments and metric, and the transition is
+rebuilt from the metric every draw.  Its schedule is static and shared by
+every chain, so the collect and window-end flags are numpy booleans that
+the loop branches on in Python: the metric estimate (for a dense metric a
+batched inverse and Cholesky) is computed only at window ends, where the
+JAX driver selects with ``where`` and ``lax.cond``.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 from ..utils.pytree import tree_leaves, tree_map
 from ..utils.rng import draw_noise
 from .adaptation import DualAveragingState, da_init, da_update
+from .warmup import schedule_flags, welford_cov_update, welford_update, windowed_step
 
 
 class ChainState(NamedTuple):
@@ -47,6 +56,10 @@ class MCMCStats(NamedTuple):
     energy_old: torch.Tensor
     energy_new: torch.Tensor
     step_size: torch.Tensor  # step size used for this draw
+    # the generalized leapfrog's fixed-point diagnostics (implicit RMHMC
+    # only, not ported yet; zero for plain HMC, as in the JAX package)
+    fp_iters: torch.Tensor  # int32
+    fp_residual: torch.Tensor
 
 
 class MCMCResult(NamedTuple):
@@ -56,6 +69,9 @@ class MCMCResult(NamedTuple):
     acc_rate: torch.Tensor
     final_state: ChainState  # carry for chunked sampling
     final_da: DualAveragingState
+    # windowed-warmup carry (Welford state, metric, window-relative DA
+    # counter) with adapt_mass; None otherwise
+    final_warm: object = None
 
 
 def validate_common_config(config) -> None:
@@ -81,16 +97,25 @@ class MCMCConfig:
     burn: int = 0
     adapt_step_size: bool = False  # the reference's "HMC_NUTS" mode
     desired_accept_rate: float = 0.8
+    # > 0: a progress line every N draws; not ported yet, and refused here
+    # (ROADMAP.md, queue 1)
+    progress_every: int = 0
     # thin > 1: keep every thin-th draw; num_samples counts ALL transitions
     # and must divide by thin.  Kept stats: bools are any-within-window,
     # accept_prob the window mean, energies and step size the kept draw's.
     thin: int = 1
-    # Stan-style windowed mass warmup; the samplers raise NotImplementedError
-    # for it with burn > 0 until it is ported (ROADMAP.md, queue 1)
+    # Stan-style windowed mass warmup (samplers/warmup.py) over burn > 0:
+    # False, True / "diag" (a diagonal inverse mass) or "dense"; honoured
+    # by run_hmc and run_hmc_chains
     adapt_mass: bool | str = False
 
     def __post_init__(self):
         validate_common_config(self)
+        if self.progress_every > 0:
+            raise NotImplementedError(
+                "progress_every (progress lines) is not ported to "
+                "hamiltorch_tpu_torch yet; see ROADMAP.md, queue 1"
+            )
         if self.adapt_mass not in (False, True, "diag", "dense"):
             raise ValueError(
                 f"adapt_mass={self.adapt_mass!r}; expected False, True, "
@@ -103,6 +128,8 @@ class MCMCConfig:
 # A transition proposes new states for every chain and returns the two
 # Hamiltonians the Metropolis test needs:
 # (z (C, D), state, step_size (C,)) -> (proposal, H0 (C,), H1 (C,)).
+# With windowed warmup the caller passes make_transition(metric) -> such a
+# transition instead, for the per-chain metric of the current draw.
 TransitionFn = Callable[
     [torch.Tensor, ChainState, torch.Tensor],
     Tuple[ChainState, torch.Tensor, torch.Tensor],
@@ -116,6 +143,14 @@ def _tree_where(pred, a, b):
     return tree_map(where, a, b)
 
 
+def _flat_chains(theta) -> torch.Tensor:
+    """(C, D): every chain's state, a tree's leaves concatenated in leaf order."""
+    leaves = tree_leaves(theta)
+    if len(leaves) == 1 and leaves[0].ndim == 2:
+        return leaves[0]
+    return torch.cat([leaf.reshape(leaf.shape[0], -1) for leaf in leaves], dim=1)
+
+
 def run_mcmc(
     key: int,
     init_state: ChainState,
@@ -123,6 +158,10 @@ def run_mcmc(
     config: MCMCConfig,
     init_da: DualAveragingState | None = None,
     start_iter: int = 0,
+    make_transition=None,
+    init_warm=None,
+    collect_flags=None,
+    end_flags=None,
     _noise=None,
 ) -> MCMCResult:
     """Run ``config.num_samples`` draws of ``transition`` from ``init_state``.
@@ -133,6 +172,15 @@ def run_mcmc(
     random stream exactly.  ``_noise = (z, log_u)``, of shapes
     ``(num_samples, C, D)`` and ``(num_samples, C)``, replaces the drawn
     noise (a test hook).
+
+    Windowed mass warmup (``config.adapt_mass`` with ``burn > 0``): the
+    caller passes ``make_transition(metric) -> TransitionFn`` (``transition``
+    is then ignored), the ``(welford, metric, da_t)`` carry as ``init_warm``
+    (each with a leading chain axis), and may pass this run's slice of the
+    schedule as numpy ``collect_flags`` / ``end_flags`` (length
+    ``num_samples``; by default the draws' slice of the global schedule).
+    Dual averaging then counts draws from the last window end (``da_t``)
+    and restarts at each, as in the JAX driver.
     """
     leaves = tree_leaves(init_state.theta)
     dtype, device = leaves[0].dtype, leaves[0].device
@@ -140,11 +188,21 @@ def run_mcmc(
     dim = sum(leaf[0].numel() for leaf in leaves)
     if init_da is None:
         init_da = da_init(
-            torch.full((num_chains,), config.step_size, dtype=dtype, device=device)
+            torch.full((num_chains,), config.step_size, dtype=dtype, device=device),
+            dtype=dtype, device=device,
         )
     da = init_da
     thin = config.thin
     kept = config.num_samples // thin
+
+    windowed = make_transition is not None
+    dense = windowed and config.adapt_mass == "dense"
+    if windowed:
+        if init_warm is None:
+            raise ValueError("make_transition requires an init_warm carry seed")
+        if collect_flags is None:
+            collect_flags, end_flags = schedule_flags(config.burn, start_iter, config.num_samples)
+        wf, metric, da_t = init_warm
 
     samples = tree_map(
         lambda leaf: torch.empty(
@@ -152,12 +210,9 @@ def run_mcmc(
         ),
         init_state.theta,
     )
+    stat_dtype = dict(accepted=torch.bool, divergent=torch.bool, fp_iters=torch.int32)
     stat_buf = {
-        name: torch.empty(
-            (num_chains, kept),
-            dtype=torch.bool if name in ("accepted", "divergent") else dtype,
-            device=device,
-        )
+        name: torch.zeros((num_chains, kept), dtype=stat_dtype.get(name, dtype), device=device)
         for name in MCMCStats._fields
     }
     acc_frac_sum = torch.zeros(num_chains, dtype=dtype, device=device)
@@ -175,7 +230,8 @@ def run_mcmc(
             else:
                 z, log_u = _noise[0][n - start_iter], _noise[1][n - start_iter]
             step_size = da.step_size
-            proposal, h0, h1 = transition(z, state, step_size)
+            trans = make_transition(metric) if windowed else transition
+            proposal, h0, h1 = trans(z, state, step_size)
             log_ratio = h0 - h1
             finite = torch.isfinite(log_ratio)
             rho = torch.clamp(
@@ -194,16 +250,26 @@ def run_mcmc(
 
             if adapt:
                 # adapt while n < burn; at n == burn freeze to the averaged
-                # step size; afterwards hold
+                # step size; afterwards hold.  Windowed warmup counts from
+                # the last window end.
                 if n < config.burn:
                     da = da_update(
                         da,
                         torch.where(finite, log_ratio, torch.full_like(log_ratio, torch.nan)),
-                        n,
+                        da_t if windowed else n,
                         desired_accept_rate=config.desired_accept_rate,
                     )
                 elif n == config.burn:
                     da = dataclasses.replace(da, step_size=torch.exp(da.log_eps_bar))
+
+            if windowed:
+                collect = bool(collect_flags[n - start_iter])
+                window_end = bool(end_flags[n - start_iter])
+                if collect:
+                    wf = (welford_cov_update if dense else welford_update)(
+                        wf, _flat_chains(state.theta))
+                wf, metric, da = windowed_step(wf, metric, da, window_end, dense)
+                da_t = torch.zeros_like(da_t) if window_end else da_t + 1
 
         tree_map(lambda buf, t: buf[:, k].copy_(t), samples, state.theta)
         stat_buf["accept_prob"][:, k] = alpha_sum / thin
@@ -221,4 +287,5 @@ def run_mcmc(
         acc_rate=acc_frac_sum / kept,
         final_state=state,
         final_da=da,
+        final_warm=(wf, metric, da_t) if windowed else None,
     )

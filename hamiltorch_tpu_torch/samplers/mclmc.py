@@ -174,8 +174,9 @@ def _make_step(vg, dims, integrator: str):
 
     The trailing velocity update of step k happens at the same x as the
     leading one of step k+1, so its gradient rides the carry: 2
-    (mclachlan) or 1 (leapfrog) fresh gradients per step.  dE is summed in
-    float64 and returned in float32.
+    (mclachlan) or 1 (leapfrog) fresh gradients per step.  dE is summed and
+    returned in float64: MAMS accumulates it over a trajectory, MCLMC casts
+    each step's to float32.
     """
 
     if integrator == "mclachlan":
@@ -190,7 +191,7 @@ def _make_step(vg, dims, integrator: str):
             logp2, g2 = vg(x)
             u, dk = _velocity_update(u, g2, _B1 * eps, dims)
             de = de + dk + (logp - logp2).double()  # potential change
-            return x, u, logp2, g2, de.float()
+            return x, u, logp2, g2, de
 
     else:  # leapfrog
 
@@ -199,7 +200,7 @@ def _make_step(vg, dims, integrator: str):
             x = x + eps * u
             logp1, g1 = vg(x)
             u, dk2 = _velocity_update(u, g1, 0.5 * eps, dims)
-            return x, u, logp1, g1, (dk1 + dk2 + (logp - logp1).double()).float()
+            return x, u, logp1, g1, dk1 + dk2 + (logp - logp1).double()
 
     return step
 
@@ -235,6 +236,7 @@ def _run_chains(key, theta0, eps0, length0, lp, config: MCLMCConfig, init_u=None
 
     def guarded_step(x, u, logp, g, eps):
         xn, un, logpn, gn, de = step(x, u, logp, g, eps)
+        de = de.float()
         ok = (torch.isfinite(de) & torch.all(torch.isfinite(xn), dim=1)
               & torch.all(torch.isfinite(un), dim=1))
         return (_where(ok, xn, x), _where(ok, un, u), _where(ok, logpn, logp),

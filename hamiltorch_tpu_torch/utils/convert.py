@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .pytree import is_param_tree, tree_map
+
 
 def resolve_device(device=None) -> torch.device:
     """``device``, or the CUDA card when it is None (raises without one)."""
@@ -39,13 +41,13 @@ def _tensor(a, device, dtype):
 def from_jax_params(theta, x=None, y=None, device=None, dtype=torch.float32):
     """``(theta, x, y)`` as tensors on ``device`` (the card when None).
 
-    ``theta`` is a flat (D,) array or a dict of arrays (a nested dict
-    converts leafwise); ``x`` (N, I) and ``y`` (N, 1) are optional and come
-    back as None when not given.
+    ``theta`` is a flat (D,) array or a parameter tree of arrays (dicts,
+    lists and tuples convert leafwise); ``x`` (N, I) and ``y`` (N, 1) are
+    optional and come back as None when not given.
     """
     device = resolve_device(device)
-    if isinstance(theta, dict):
-        theta_t = {k: from_jax_params(v, device=device, dtype=dtype)[0] for k, v in theta.items()}
+    if is_param_tree(theta):
+        theta_t = tree_map(lambda a: _tensor(a, device, dtype), theta)
     else:
         theta_t = _tensor(theta, device, dtype)
     x_t = None if x is None else _tensor(x, device, dtype)

@@ -1,11 +1,14 @@
-"""Parameter trees: dicts of tensors.
+"""Parameter trees: nested dicts, lists and tuples of tensors.
 
 Counterpart of ``hamiltorch_tpu/utils/pytree.py``.  A parameter tree here
-is a dict whose values are tensors or nested dicts of the same kind.  Leaf
-order follows JAX's order for dicts, which is sorted keys: the flagship's
-``{w1, b1, w2, b2}`` ravels as ``b1, b2, w1, w2``.  Mass operators draw one
-flat normal and split it in this order, so a tree chain and the JAX
-package's tree chain see the same momentum for the same flat draw.
+is what JAX calls a pytree: dicts, lists and tuples (named tuples
+included), nested in any mix, whose leaves are tensors; ``None`` is an
+empty subtree.  Leaf order is JAX's: sequences in order, dicts by sorted
+key, so the flagship's ``{w1, b1, w2, b2}`` ravels as ``b1, b2, w1, w2``.
+Mass operators draw one flat normal and split it in this order, so a tree
+chain and the JAX package's tree chain see the same momentum for the same
+flat draw.  Rebuilt trees keep each container's type (a tuple stays a
+tuple); dicts come back with their keys in sorted order, as in JAX.
 """
 
 from __future__ import annotations
@@ -17,37 +20,75 @@ from typing import Any, Callable, Tuple
 import torch
 
 
+def _children(node):
+    """(kind, keys or None, children) of a container node, or None for a leaf."""
+    if isinstance(node, Mapping):
+        keys = sorted(node)
+        return dict, keys, [node[k] for k in keys]
+    if isinstance(node, (list, tuple)):
+        return type(node), None, list(node)
+    return None
+
+
+def _rebuild(kind, keys, children):
+    if keys is not None:
+        return dict(zip(keys, children))
+    if hasattr(kind, "_fields"):  # a named tuple takes its fields as arguments
+        return kind(*children)
+    return kind(children)
+
+
 def tree_leaves(tree) -> list:
-    """Leaves of ``tree`` in sorted-key order (a bare tensor is one leaf)."""
-    if isinstance(tree, Mapping):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
+    """Leaves of ``tree`` in JAX's order (a bare tensor is one leaf; None has none)."""
+    if tree is None:
+        return []
+    node = _children(tree)
+    if node is None:
+        return [tree]
+    return [leaf for child in node[2] for leaf in tree_leaves(child)]
+
+
+def tree_structure(tree):
+    """A hashable description of ``tree``'s containers (leaves as ``"*"``):
+    two trees have equal structures exactly when JAX's treedefs are equal."""
+    if tree is None:
+        return None
+    node = _children(tree)
+    if node is None:
+        return "*"
+    kind, keys, children = node
+    return (kind, None if keys is None else tuple(keys), tuple(tree_structure(c) for c in children))
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """Apply ``fn`` leafwise over trees of the same structure."""
-    if isinstance(tree, Mapping):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    return fn(tree, *rest)
+    """Apply ``fn`` leafwise over trees of the same structure; containers
+    keep their type."""
+    if tree is None:
+        return None
+    node = _children(tree)
+    if node is None:
+        return fn(tree, *rest)
+    kind, keys, children = node
+    if keys is not None:
+        others = [[r[k] for k in keys] for r in rest]
+    else:
+        others = [list(r) for r in rest]
+    return _rebuild(kind, keys, [
+        tree_map(fn, child, *(o[i] for o in others)) for i, child in enumerate(children)
+    ])
 
 
 def tree_unflatten_like(template, leaves) -> Any:
     """Build a tree shaped like ``template`` from leaves in its leaf order."""
     it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, Mapping):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-
-    return build(template)
+    return tree_map(lambda _: next(it), template)
 
 
 def ravel_pytree_fn(params) -> Tuple[torch.Tensor, Callable[[torch.Tensor], Any]]:
     """Ravel ``params`` to a flat vector; returns (flat, unravel_fn).
 
-    Leaves are flattened row-major and concatenated in sorted-key order,
-    the order of the JAX package's ``ravel_pytree`` for dicts.
+    Leaves are flattened row-major and concatenated in leaf order, the
+    order of the JAX package's ``ravel_pytree``.
     """
     flat = torch.cat([torch.as_tensor(leaf).reshape(-1) for leaf in tree_leaves(params)])
     return flat, unravel_last_axis_fn(params)
@@ -72,10 +113,18 @@ def unravel_last_axis_fn(template) -> Callable[[torch.Tensor], Any]:
 
 
 def is_param_tree(theta: Any) -> bool:
-    """True when ``theta`` is a parameter tree, not a flat vector."""
-    return isinstance(theta, Mapping) and any(
-        isinstance(leaf, torch.Tensor) for leaf in tree_leaves(theta)
-    )
+    """True when ``theta`` is a parameter tree, not a flat vector.
+
+    As in the JAX package: tensors, arrays and plain sequences of Python
+    scalars are flat (``torch.as_tensor`` takes them); a container holding
+    an array leaf, 0-d included, is a tree.
+    """
+    if isinstance(theta, torch.Tensor) or hasattr(theta, "__array_interface__"):
+        return False
+    leaves = tree_leaves(theta)
+    if len(leaves) == 1 and leaves[0] is theta:
+        return False
+    return any(hasattr(leaf, "ndim") for leaf in leaves)
 
 
 def stack_param_tree(theta0, n: int, stacked: bool | None = None):

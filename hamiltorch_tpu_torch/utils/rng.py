@@ -21,6 +21,11 @@ import torch
 
 _MASK64 = (1 << 64) - 1
 
+# Stream namespaces: a sampler adds its namespace to the draw index, so that
+# two samplers run with one key do not share a stream.  HMC uses the draw
+# index itself, MCLMC [0, 2**32) (samplers/mclmc.py), MAMS this offset.
+MAMS_STREAM = 2**40
+
 _global_gen: torch.Generator | None = None
 
 

@@ -1,0 +1,190 @@
+"""Port vs JAX package: convergence diagnostics (``diagnostics.py``).
+
+Every function runs on the same numpy traces in both packages: AR(1)
+chains (C=4, N=301, D=3, one chain shifted so that R-hat sees it, every
+third draw a repeat so that ranks have ties), single-chain (N, D) traces,
+and parameter-tree traces.  The port computes in float64, the JAX code in
+float32; the results agree within rtol 1e-5 (ESS, MCSE, R-hat, means)
+and the structures (tree splits, ArviZ dicts) are identical.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import hamiltorch_tpu as jht
+import hamiltorch_tpu.diagnostics as jdiag
+import hamiltorch_tpu_torch as tht
+import hamiltorch_tpu_torch.diagnostics as tdiag
+
+RTOL = 1e-5
+
+
+def ar1_trace(c=4, n=301, d=3, seed=0, rho=(0.2, 0.6, 0.9)):
+    rng = np.random.default_rng(seed)
+    x = np.zeros((c, n, d))
+    x[:, 0] = rng.standard_normal((c, d))
+    for t in range(1, n):
+        x[:, t] = np.asarray(rho) * x[:, t - 1] + rng.standard_normal((c, d))
+    x[:, 2::3] = x[:, 1:-1:3]  # rejected draws repeat the last state: ties
+    x[-1] += 0.3
+    return x.astype(np.float32)
+
+
+TRACE = ar1_trace()
+FUNCS = ["effective_sample_size", "potential_scale_reduction", "rank_normalized_rhat",
+         "bulk_ess", "tail_ess", "mcse_mean"]
+
+
+def close(got, want, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol, atol=1e-7)
+
+
+@pytest.mark.parametrize("shape", ["chains", "single"])
+@pytest.mark.parametrize("name", FUNCS)
+def test_statistic_matches_jax(name, shape):
+    trace = TRACE if shape == "chains" else TRACE[0]
+    got = getattr(tdiag, name)(torch.as_tensor(trace))
+    want = getattr(jdiag, name)(jnp.asarray(trace))
+    assert got.dtype == torch.float64 and got.shape == tuple(want.shape)
+    close(got, want)
+
+
+def test_rank_normalize_matches_jax_with_ties():
+    x = torch.as_tensor(TRACE).double()
+    close(tdiag._rank_normalize(x), jdiag._rank_normalize(jnp.asarray(TRACE)), rtol=1e-5)
+
+
+def test_autocovariance_matches_jax():
+    """Lags near zero sit at the float32 FFT's rounding (~1e-7 of the lag-0
+    value ~4): atol 1e-6 there."""
+    x = TRACE[0, :, 2]
+    np.testing.assert_allclose(tdiag._autocovariance(torch.as_tensor(x).double()).numpy(),
+                               np.asarray(jdiag._autocovariance(jnp.asarray(x))),
+                               rtol=RTOL, atol=1e-6)
+
+
+def test_e_bfmi_matches_jax():
+    energies = TRACE[..., 0] * 3 + 10.0  # (C, N)
+    close(tdiag.e_bfmi(torch.as_tensor(energies)), jdiag.e_bfmi(jnp.asarray(energies)))
+    close(tdiag.e_bfmi(torch.as_tensor(energies[0])), jdiag.e_bfmi(jnp.asarray(energies[0])))
+
+
+def test_summary_matches_jax():
+    energies = TRACE[..., 0] * 3 + 10.0
+    got = tdiag.summary(torch.as_tensor(TRACE), energies=torch.as_tensor(energies))
+    want = jdiag.summary(jnp.asarray(TRACE), energies=jnp.asarray(energies))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        close(got[k], want[k])
+    assert float(got["r_hat"].max()) > 1.01  # the shifted chain shows
+
+
+def tree_trace(chains=True):
+    """{"a": (C, N, 2), "b": (C, N, 1, 1)} cut from TRACE (no leading chain
+    axis when chains=False)."""
+    t = TRACE if chains else TRACE[0]
+    return {"a": t[..., :2], "b": t[..., 2:].reshape(t.shape[:-1] + (1, 1))}
+
+
+TEMPLATE = {"a": np.zeros(2, np.float32), "b": np.zeros((1, 1), np.float32)}
+
+
+@pytest.mark.parametrize("chains", [True, False])
+def test_tree_traces_match_jax(chains):
+    tr = tree_trace(chains)
+    t_tree = {k: torch.as_tensor(v) for k, v in tr.items()}
+    j_tree = {k: jnp.asarray(v) for k, v in tr.items()}
+    t_like = {k: torch.as_tensor(v) for k, v in TEMPLATE.items()}
+    j_like = {k: jnp.asarray(v) for k, v in TEMPLATE.items()}
+    flat = tdiag.as_flat_samples(t_tree, like=t_like)
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(jdiag.as_flat_samples(j_tree, like=j_like)))
+    got = tdiag.summary_by_leaf(t_tree, t_like)
+    want = jdiag.summary_by_leaf(j_tree, j_like)
+    for stat in want:
+        for leaf in ("a", "b"):
+            assert tuple(got[stat][leaf].shape) == tuple(want[stat][leaf].shape)
+            close(got[stat][leaf], want[stat][leaf])
+    for name in FUNCS:
+        close(getattr(tdiag, name)(t_tree, like=t_like), getattr(jdiag, name)(j_tree, like=j_like))
+
+
+def test_tree_trace_axes_ambiguity_as_in_jax():
+    square = {"a": TRACE[..., :2], "b": TRACE[..., 2:]}  # every leaf (C, N, ...)
+    with pytest.raises(ValueError, match="ambiguous"):
+        tdiag.as_flat_samples({k: torch.as_tensor(v) for k, v in square.items()})
+    with pytest.raises(ValueError, match="ambiguous"):
+        jdiag.as_flat_samples({k: jnp.asarray(v) for k, v in square.items()})
+    # a 1-d leaf forces the single-chain reading in both
+    single = {"a": TRACE[0, :, 0], "b": TRACE[0, :, 1:]}
+    np.testing.assert_array_equal(
+        tdiag.as_flat_samples({k: torch.as_tensor(v) for k, v in single.items()}).numpy(),
+        np.asarray(jdiag.as_flat_samples({k: jnp.asarray(v) for k, v in single.items()})))
+    with pytest.raises(ValueError, match="extra leading dims"):
+        tdiag.as_flat_samples({"a": torch.zeros(5)}, like={"a": torch.zeros(5)})
+
+
+def test_half_precision_trace_upcasts_to_float32():
+    x = torch.as_tensor(TRACE).to(torch.bfloat16)
+    assert tdiag.as_flat_samples(x).dtype == torch.float32
+    assert tdiag.effective_sample_size(x).dtype == torch.float64
+
+
+def _runs(form):
+    """(port result, JAX result) of one small run of each family."""
+    scale = np.array([0.5, 1.0, 2.0], np.float32)
+    j_lp = lambda t: -0.5 * jnp.sum((t["w"] / scale) ** 2) if form == "tree" else \
+        -0.5 * jnp.sum((t / scale) ** 2)  # noqa: E731
+    ts = torch.as_tensor(scale)
+    t_lp = lambda t: -0.5 * torch.sum((t["w"] / ts) ** 2) if form == "tree" else \
+        -0.5 * torch.sum((t / ts) ** 2)  # noqa: E731
+    j0 = {"w": jnp.ones(3)} if form == "tree" else jnp.ones(3)
+    t0 = {"w": torch.ones(3)} if form == "tree" else torch.ones(3)
+    key = jax.random.key(0)
+    hmc = dict(num_samples=6, num_steps_per_sample=3, step_size=0.3)
+    mclmc = dict(num_samples=6, tune_steps=0, trajectory_length=2.0)
+    mams = dict(num_samples=6, num_steps_per_sample=3, adapt_step_size=False)
+    return {
+        "hmc": (tht.run_hmc_chains(0, t_lp, t0, tht.MCMCConfig(**hmc), 2),
+                jht.run_hmc_chains(key, j_lp, j0, jht.MCMCConfig(**hmc), 2)),
+        "hmc_single": (tht.run_hmc(0, t_lp, t0, tht.MCMCConfig(**hmc)),
+                       jht.run_hmc(key, j_lp, j0, jht.MCMCConfig(**hmc))),
+        "mclmc": (tht.run_mclmc_chains(0, t_lp, t0, tht.MCLMCConfig(**mclmc), 2),
+                  jht.run_mclmc_chains(key, j_lp, j0, jht.MCLMCConfig(**mclmc), 2)),
+        "mams": (tht.run_mams_chains(0, t_lp, t0, tht.MAMSConfig(**mams), 2),
+                 jht.run_mams_chains(key, j_lp, j0, jht.MAMSConfig(**mams), 2)),
+        "mams_single": (tht.run_mams(0, t_lp, t0, tht.MAMSConfig(**mams)),
+                        jht.run_mams(key, j_lp, j0, jht.MAMSConfig(**mams))),
+    }
+
+
+@pytest.mark.parametrize("form", ["flat", "tree"])
+def test_inference_dict_layout_matches_jax(form):
+    for family, (t_res, j_res) in _runs(form).items():
+        got, want = tdiag.to_inference_dict(t_res), jdiag.to_inference_dict(j_res)
+        for part in ("posterior", "sample_stats"):
+            assert sorted(got[part]) == sorted(want[part]), (family, part)
+            for name in want[part]:
+                g, w = got[part][name], np.asarray(want[part][name])
+                assert isinstance(g, np.ndarray)
+                assert g.shape == w.shape and g.dtype == w.dtype, (family, name)
+
+
+def test_inference_dict_refuses_families_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdiag.to_inference_dict(("result", "info"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdiag.to_inference_dict(type("ChEESResult", (), {"samples": 0, "stats": 0})())
+
+
+def test_to_arviz_needs_arviz():
+    try:
+        import arviz  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError, match="arviz"):
+            tdiag.to_arviz(_runs("flat")["hmc"][0])
+        pytest.skip("arviz is not installed")
+    data = tdiag.to_arviz(_runs("flat")["hmc"][0])
+    assert data.posterior["theta"].shape[:2] == (2, 6)

@@ -29,17 +29,21 @@ from test_torch_bnn_hmc import interpret_prng_constants
 ATOL = 1e-5
 
 
-def _dense5():
-    a = np.random.RandomState(0).randn(5, 5)
-    return (a @ a.T / 5 + np.eye(5)).astype(np.float32)
+def _dense(d):
+    a = np.random.RandomState(0).randn(d, d)
+    return (a @ a.T / d + np.eye(d)).astype(np.float32)
 
 
 CASES = {
     # name: (precision, mean, chains)
     "diag_d3": (np.array([4.0, 1.0, 0.25], np.float32), None, 16),
     "dense_d2": (np.linalg.inv(np.array([[1.0, 0.6], [0.6, 1.0]])).astype(np.float32), None, 8),
-    "dense_d5": (_dense5(), None, 8),
+    "dense_d5": (_dense(5), None, 8),
     "diag_mean_d2": (np.array([1.0, 4.0], np.float32), np.array([3.0, -2.0], np.float32), 8),
+    # beyond the register-resident variants: the card runs these on the
+    # any-D variant (5); the JAX kernel pads D to 384
+    "diag_d300": (np.linspace(0.25, 4.0, 300).astype(np.float32), None, 4),
+    "dense_d260": (_dense(260), np.linspace(-1, 1, 260).astype(np.float32), 4),
 }
 
 
@@ -86,7 +90,8 @@ def test_cpu_wrapper_routes_to_plain_version():
     assert bool(torch.isfinite(got[0]).all()) and got[0].shape == (6, 30, 3)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "theta_shape", "prec_shape", "mean", "device", "steps", "noise"])
+@pytest.mark.parametrize("bad", ["dtype", "theta_shape", "prec_shape", "mean", "device", "steps", "noise",
+                                 "chain_tile", "variant"])
 def test_wrapper_rejects_what_it_does_not_take(bad):
     theta0, prec, mean = torch.zeros(4, 3), torch.ones(3), None
     kw = dict(num_samples=2, num_steps=3)
@@ -102,6 +107,10 @@ def test_wrapper_rejects_what_it_does_not_take(bad):
         theta0, prec = theta0.to("meta"), prec.to("meta")
     elif bad == "steps":
         kw["num_steps"] = 0
+    elif bad == "chain_tile":
+        kw["chain_tile"] = 0
+    elif bad == "variant":
+        kw["_variant"] = 3
     else:
         kw["_noise"] = (torch.zeros(2, 4, 2), torch.zeros(2, 4))
     with pytest.raises((TypeError, ValueError)):

@@ -16,8 +16,10 @@
     counts; here, without a card, each case's closest Metropolis decision is
     shown to be far from a knife edge that float32 rounding could tip.
 (c) ``_plan`` (the wrapper's choice of kernel variant, block shape and
-    shared-memory bytes) over every D = 1..256, diagonal and dense: a variant
-    within the 232,448 bytes a block may use, or the documented refusal.
+    shared-memory bytes) over every D = 1..4096, diagonal and dense: a
+    variant within the 232,448 bytes a block may use; only a D whose state
+    no longer fits one block (beyond 9,676 dense, 11,612 diagonal) and a
+    chain_tile below 1 are refused.
 """
 
 import numpy as np
@@ -27,10 +29,13 @@ import torch
 from hamiltorch_tpu_torch.kernels.gaussian_hmc import (
     MAX_SHARED,
     MMA_MAX_D,
+    WIDE_WARPS,
     _plan,
+    _wide_shared,
     gaussian_hmc_reference,
 )
-from test_torch_gpu import GAUSSIAN_CASES, GAUSSIAN_RUN, _min_accept_margin, gaussian_case
+from test_torch_gpu import (GAUSSIAN_CASES, GAUSSIAN_RUN, WIDE_BLOCK_CASES, WIDE_CASES,
+                            _min_accept_margin, gaussian_case)
 from test_torch_tf32_split import split, tf32_rna
 
 ATOL = 1e-5
@@ -150,7 +155,7 @@ def test_emulated_split_matches_tf32_rounding():
     assert np.abs((big.astype(np.float64) + small) - a).max() <= np.abs(a).max() * 2.0**-21
 
 
-@pytest.mark.parametrize("d,dense", GAUSSIAN_CASES)
+@pytest.mark.parametrize("d,dense", GAUSSIAN_CASES + WIDE_CASES)
 def test_card_cases_have_no_knife_edge_decision(d, dense):
     draws, steps, eps = GAUSSIAN_RUN.values()
     theta0, prec, mean, noise = gaussian_case(d, dense, "cpu")
@@ -160,38 +165,87 @@ def test_card_cases_have_no_knife_edge_decision(d, dense):
     assert margin >= 1e-4
 
 
+@pytest.mark.parametrize("d,dense,chains,per_block", WIDE_BLOCK_CASES)
+def test_wide_block_cases_have_no_knife_edge_decision(d, dense, chains, per_block):
+    draws, steps, eps = GAUSSIAN_RUN.values()
+    theta0, prec, mean, noise = gaussian_case(d, dense, "cpu", chains)
+    margin, replay = _min_accept_margin(theta0, prec, draws, steps, eps, mean, noise)
+    want, acc = gaussian_hmc_reference(0, theta0, prec, draws, steps, eps, mean=mean, _noise=noise)
+    assert torch.equal(replay, want)
+    assert margin >= 1e-4
+    if per_block > 1:  # some chains of a block accept where others reject
+        assert 0.0 < float(acc.mean()) < 1.0
+
+
+@pytest.mark.parametrize("d,dense,chains,per_block", WIDE_BLOCK_CASES)
+def test_wide_block_cases_run_the_block_size_they_name(d, dense, chains, per_block):
+    plan = _plan(d, dense, 8, chains)
+    assert (plan.variant, plan.group) == (5, per_block)
+    _check_plan(plan, d, dense)
+    assert per_block == 1 or chains % per_block != 0  # a partial last block
+
+
+def _check_plan(plan, d, dense):
+    assert 0 <= plan.shared <= MAX_SHARED
+    assert 1 <= plan.consumers <= 8
+    if plan.variant == 5:  # any D: chains per block in `group`, the state in shared memory
+        assert d > 256 or (dense and d > 240)
+        assert plan.group in (1, 2, 4, 8) and plan.consumers == WIDE_WARPS
+        assert plan.chains_per_warp == 0 and plan.shared == _wide_shared(d, dense, plan.group)
+        return
+    assert plan.variant == 4 or 1 <= plan.chains_per_warp <= 32 // plan.group
+    if plan.variant == 1:
+        assert d <= 8 and d <= plan.group <= 8 and plan.consumers == 1
+    elif plan.variant == 2:
+        assert 8 < d <= 32 and plan.group >= d and plan.consumers <= 4
+    elif plan.variant == 4:
+        assert dense and 32 < d <= MMA_MAX_D and plan.consumers in (4, 8)
+    else:
+        assert plan.variant == 3
+        assert d > 32 and plan.group == 32 and plan.chains_per_warp == 1
+        assert not dense or d > MMA_MAX_D
+
+
 @pytest.mark.parametrize("dense", [False, True], ids=["diagonal", "dense"])
 @pytest.mark.parametrize("d", range(1, 257))
 def test_plan_fits_shared_memory_or_refuses(d, dense):
     for chain_tile in (1, 8, 32):
         plan = _plan(d, dense, chain_tile, chains=1024 if chain_tile < 32 else 10**6)
         if dense and d > 240:
-            assert plan.variant == 0  # (D + 1) D floats no longer fit one block
-            continue
-        assert plan.variant in (1, 2, 3, 4)
-        assert 0 <= plan.shared <= MAX_SHARED
-        assert 1 <= plan.consumers <= 8
-        assert plan.variant == 4 or 1 <= plan.chains_per_warp <= 32 // plan.group
-        if plan.variant == 1:
-            assert d <= 8 and d <= plan.group <= 8 and plan.consumers == 1
-        elif plan.variant == 2:
-            assert 8 < d <= 32 and plan.group >= d and plan.consumers <= 4
-        elif plan.variant == 4:
-            assert dense and 32 < d <= MMA_MAX_D and plan.consumers in (4, 8)
-        else:
-            assert d > 32 and plan.group == 32 and plan.chains_per_warp == 1
-            assert not dense or d > MMA_MAX_D
+            assert plan.variant == 5  # (D + 1) D floats no longer fit variant 3's block
+        _check_plan(plan, d, dense)
 
 
-@pytest.mark.parametrize("d,dense,chain_tile", [(0, False, 8), (257, False, 8), (300, False, 8),
-                                                (241, True, 8), (241, True, 1), (3, False, 0),
-                                                (3, False, 33)])
+@pytest.mark.parametrize("dense", [False, True], ids=["diagonal", "dense"])
+@pytest.mark.parametrize("first", range(257, 4097, 256))
+def test_plan_takes_every_wide_d(first, dense):
+    """D = 257..4096 in 15 slices of 256: every D gets variant 5, whatever
+    the chain count and chain_tile, and never the refusal."""
+    for d in range(first, first + 256):
+        for chains, chain_tile in ((1, 1), (37, 8), (1024, 8), (10**6, 33)):
+            plan = _plan(d, dense, chain_tile, chains)
+            assert plan.variant == 5, (d, chains)
+            _check_plan(plan, d, dense)
+
+
+@pytest.mark.parametrize("d,dense,chain_tile", [(0, False, 8), (3, False, 0), (241, True, 0),
+                                                (9677, True, 8), (11613, False, 8)])
 def test_plan_refuses_what_the_kernel_does_not_take(d, dense, chain_tile):
     assert _plan(d, dense, chain_tile, chains=4).variant == 0
 
 
 def test_plan_does_not_depend_on_chain_tile_where_it_is_a_hint():
-    # the tensor-core variant fixes its block; the others only bound their warps
+    # the tensor-core and any-D variants fix their blocks; the others only bound their warps
     assert _plan(128, True, 1, 1024) == _plan(128, True, 32, 1024)
+    assert _plan(300, False, 1, 1024) == _plan(300, False, 32, 1024)
+    assert _plan(3, False, 33, 4) == _plan(3, False, 32, 4)
     assert _plan(238, True, 8, 1024).consumers == 6  # shrunk so that P and the rows fit
     assert _plan(200, False, 32, 10**6).consumers == 8
+
+
+def test_wide_plan_spreads_chains_and_fits_shared_memory():
+    assert _plan(1024, True, 8, 64).group == 1  # 64 blocks for 132 SMs
+    assert _plan(1024, True, 8, 1024).group == 8  # 128 blocks: P read once serves 8 chains
+    assert _plan(1024, True, 8, 10**6).group == 8  # at most 8 chains a block
+    assert _plan(4096, True, 8, 1024).group == 2
+    assert _plan(9676, True, 8, 1024).group == 1

@@ -29,7 +29,7 @@ from hamiltorch_tpu_torch.kernels import (
     gaussian_hmc_reference,
 )
 from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient, _bnn_gradient_reference
-from hamiltorch_tpu_torch.kernels.gaussian_hmc import _energy, _grad
+from hamiltorch_tpu_torch.kernels.gaussian_hmc import _energy, _grad, _plan
 from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
 from hamiltorch_tpu_torch.samplers.driver import MCMCConfig
 from hamiltorch_tpu_torch.samplers.hmc import run_hmc_chains
@@ -202,9 +202,9 @@ GAUSSIAN_CASES = [
 GAUSSIAN_RUN = dict(draws=10, steps=6, eps=0.3)
 
 
-def gaussian_case(d, dense, device):
-    """(theta0, precision, mean, (momenta, uniforms)) of a case, 37 chains."""
-    c, draws = 37, GAUSSIAN_RUN["draws"]
+def gaussian_case(d, dense, device, chains=37):
+    """(theta0, precision, mean, (momenta, uniforms)) of a case."""
+    c, draws = chains, GAUSSIAN_RUN["draws"]
     seed = _CASE_SEED.get((d, dense), d)
     rng = np.random.RandomState(seed)
     prec = _dense_precision(d, seed) if dense else rng.uniform(0.25, 4.0, d).astype(np.float32)
@@ -215,11 +215,9 @@ def gaussian_case(d, dense, device):
     return tuple(torch.as_tensor(a).to(device) for a in (theta0, prec, mean)) + (noise,)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("d,dense", GAUSSIAN_CASES)
-def test_gaussian_hmc_kernel_matches_plain_version(cuda_device, d, dense):
+def hold_against_plain_version(device, d, dense, chains=37):
     draws, steps, eps = GAUSSIAN_RUN.values()
-    *args, mean, noise = gaussian_case(d, dense, cuda_device)
+    *args, mean, noise = gaussian_case(d, dense, device, chains)
     kw = dict(mean=mean, _noise=noise)
     before = gaussian_hmc.launches
     got, got_acc = gaussian_hmc(0, *args, draws, steps, eps, **kw)
@@ -235,6 +233,12 @@ def test_gaussian_hmc_kernel_matches_plain_version(cuda_device, d, dense):
     # divides by a scalar on the card through its reciprocal)
     assert torch.equal(torch.round(got_acc * draws), torch.round(want_acc * draws))
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dense", GAUSSIAN_CASES)
+def test_gaussian_hmc_kernel_matches_plain_version(cuda_device, d, dense):
+    hold_against_plain_version(cuda_device, d, dense)
 
 
 @pytest.mark.gpu
@@ -261,11 +265,99 @@ def test_gaussian_hmc_kernel_draws_do_not_depend_on_chain_tile(cuda_device, d, d
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,dense,tile", [(300, False, 8), (241, True, 8), (3, False, 33),
-                                          (3, False, 0)])
+@pytest.mark.parametrize("d,dense,tile", [(9677, True, 8), (11613, False, 8)])
 def test_gaussian_hmc_kernel_raises_on_shapes_it_does_not_take(cuda_device, d, dense, tile):
+    """Only a D whose state no longer fits one block's shared memory is
+    refused (by the kernel), and a chain_tile below 1 (by the wrapper)."""
     prec = torch.eye(d, device=cuda_device) if dense else torch.ones(d, device=cuda_device)
     before = gaussian_hmc.launches
     with pytest.raises(RuntimeError, match="cudaError_t"):
         gaussian_hmc(0, torch.zeros(4, d, device=cuda_device), prec, 2, 2, 0.1, chain_tile=tile)
+    with pytest.raises(ValueError, match="chain_tile"):
+        gaussian_hmc(0, torch.zeros(4, 3, device=cuda_device), torch.ones(3, device=cuda_device),
+                     2, 2, 0.1, chain_tile=0)
     assert gaussian_hmc.launches == before
+
+
+# the any-D variant (5): diagonal D > 256 and dense D > 240, ragged D included
+WIDE_CASES = [(257, False), (512, False), (1000, False), (4096, False),
+              (241, True), (256, True), (512, True), (1000, True)]
+
+
+# (D, dense, chains, chains per block): past 132 chains variant 5 shares a
+# block among 2, 4 or 8 chains, here with a partial last block; D = 4096 and
+# the ragged 4099 (no 16-byte loads of P) at a few chains
+WIDE_BLOCK_CASES = [(300, False, 201, 2), (257, False, 270, 4), (1000, False, 1061, 8),
+                    (4099, False, 5, 1), (2048, True, 201, 2), (512, True, 270, 4),
+                    (513, True, 530, 8), (4096, True, 5, 1), (4099, True, 3, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dense", WIDE_CASES)
+def test_gaussian_hmc_wide_variant_matches_plain_version(cuda_device, d, dense):
+    hold_against_plain_version(cuda_device, d, dense)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dense,chains,per_block", WIDE_BLOCK_CASES)
+def test_gaussian_hmc_wide_blocks_match_plain_version(cuda_device, d, dense, chains, per_block):
+    assert _plan(d, dense, 8, chains)[:2] == (5, per_block)
+    hold_against_plain_version(cuda_device, d, dense, chains)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dense", [(200, False), (192, True)])
+def test_gaussian_hmc_forced_wide_variant_draws_what_variant_3_draws(cuda_device, d, dense):
+    """At a shape that variant 3 runs, the any-D variant forced on it takes
+    the same Philox normals and uniforms: the same samples and accepts."""
+    prec = torch.as_tensor(_dense_precision(d, 1) if dense else np.linspace(0.25, 4.0, d,
+                           dtype=np.float32)).to(cuda_device)
+    theta0 = torch.as_tensor(np.random.RandomState(3).randn(64, d).astype(np.float32)).to(cuda_device)
+    got, got_acc = gaussian_hmc(5, theta0, prec, 30, 6, 0.2, _variant=5)
+    want, want_acc = gaussian_hmc(5, theta0, prec, 30, 6, 0.2)
+    assert torch.equal(got_acc, want_acc) and 0.0 < float(want_acc.mean()) < 1.0
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_run_mams_chunked_equals_unchunked_on_card(cuda_device):
+    from hamiltorch_tpu_torch.samplers.mams import MAMSConfig, run_mams
+
+    prec = torch.as_tensor(_dense_precision(6, 2)).to(cuda_device)
+
+    def lp(t):
+        return -0.5 * t @ prec @ t
+
+    cfg = dict(num_steps_per_sample=4, burn=5, step_size=0.3)
+    theta0 = torch.ones(6, device=cuda_device)
+    whole = run_mams(3, lp, theta0, MAMSConfig(num_samples=14, **cfg))
+    first = run_mams(3, lp, theta0, MAMSConfig(num_samples=6, **cfg))
+    second = run_mams(3, lp, first.final_theta, MAMSConfig(num_samples=8, **cfg),
+                      init_da=first.final_da, start_step=int(first.final_step))
+    assert whole.samples.is_cuda
+    assert torch.equal(torch.cat([first.samples, second.samples]), whole.samples)
+    assert torch.equal(second.step_size, whole.step_size)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["diag", "dense"])
+def test_windowed_warmup_on_card_matches_cpu(cuda_device, mode):
+    """run_hmc_chains with adapt_mass on a correlated 4-D Gaussian (one slow
+    window, fixed step): the card's run equals the CPU's within 1e-5."""
+    prec = torch.as_tensor(np.linalg.inv(_dense_precision(4, 7)).astype(np.float32))
+    gen = torch.Generator().manual_seed(4)
+    z, log_u = torch.randn(170, 3, 4, generator=gen), torch.rand(170, 3, generator=gen).log()
+    cfg = MCMCConfig(num_samples=170, num_steps_per_sample=4, step_size=0.35, burn=160,
+                     adapt_mass=mode)
+
+    def run(device):
+        p = prec.to(device)
+        return run_hmc_chains(0, lambda t: -0.5 * t @ p @ t, torch.full((4,), 0.5, device=device),
+                              cfg, 3, _noise=(z.to(device), log_u.to(device)))
+
+    on_card, on_host = run(cuda_device), run("cpu")
+    assert torch.equal(on_card.stats.accepted.cpu(), on_host.stats.accepted)
+    torch.testing.assert_close(on_card.samples.cpu(), on_host.samples, atol=1e-5, rtol=0)
+    metric = on_host.final_warm[1][0] if mode == "dense" else on_host.final_warm[1]
+    card_metric = on_card.final_warm[1][0] if mode == "dense" else on_card.final_warm[1]
+    torch.testing.assert_close(card_metric.cpu(), metric, atol=1e-5, rtol=1e-5)

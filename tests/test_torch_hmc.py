@@ -219,14 +219,15 @@ def test_sample_error_probes():
         tht.sample(_gauss_t, torch.zeros(3), num_samples=5, burn=5, verbose=False)
     with pytest.raises(RuntimeError, match="non-finite"):
         tht.sample(_gauss_t, torch.tensor([0.0, float("nan"), 0.0]), verbose=False)
+    with pytest.raises(RuntimeError, match="adapt_mass requires burn"):
+        tht.sample(_gauss_t, torch.zeros(3), num_samples=5, adapt_mass=True, verbose=False)
     for kw in (dict(sampler=tht.Sampler.RMHMC), dict(sampler=tht.Sampler.NUTS),
                dict(store_on_GPU=False), dict(integrator=tht.Integrator.SPLITTING),
-               dict(adapt_mass=True, burn=2), dict(progress_every=2)):
+               dict(progress_every=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tht.sample(_gauss_t, torch.zeros(3), num_samples=5, verbose=False, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tht.run_hmc(0, _gauss_t, torch.zeros(3),
-                    MCMCConfig(num_samples=5, burn=2, adapt_mass=True))
+        MCMCConfig(num_samples=5, progress_every=50)
 
 
 def test_nan_cliff_does_not_crash():

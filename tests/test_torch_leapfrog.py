@@ -179,5 +179,12 @@ def test_leapfrog_matches(kind):
 
 
 def test_block_diagonal_mass_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmass.make_mass([torch.eye(2), torch.eye(3)], 5)
+    """A list of blocks was refused until BlockDiagMass was ported; it now
+    builds the block operator, which acts as the JAX package's does
+    (tests/test_torch_mass_block.py holds it against JAX in full)."""
+    blocks = [2.0 * np.eye(2, dtype=np.float32), np.eye(3, dtype=np.float32)]
+    op = tmass.make_mass([torch.as_tensor(b) for b in blocks], 5)
+    assert isinstance(op, tmass.BlockDiagMass)
+    p = np.arange(5, dtype=np.float32)
+    want = jmass.make_mass([jnp.asarray(b) for b in blocks], 5).velocity(jnp.asarray(p))
+    np.testing.assert_allclose(op.velocity(torch.as_tensor(p)).numpy(), np.asarray(want))

@@ -35,7 +35,8 @@ def test_imports_with_jax_blocked():
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
                          + ["chip_smoke.py", "scripts/profile_bnn_hmc_torch.py",
                             "scripts/profile_mclmc_torch.py", "scripts/bnn_gemm_variants_torch.py",
-                            "scripts/gaussian_hmc_variants_torch.py"])
+                            "scripts/gaussian_hmc_variants_torch.py",
+                            "scripts/gaussian_sum_order_torch.py"])
 def test_no_jax_import(path):
     src = (REPO / path).read_text()
     assert not re.search(r"^\s*(import jax|from jax\b|import hamiltorch_tpu\b|from hamiltorch_tpu\b)",
@@ -92,3 +93,26 @@ def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
     assert _build.library_path("k") == before
     (tmp_path / "b.cuh").write_text("int b = 2;\n")  # a header included through another
     assert _build.library_path("k") != before
+
+
+@pytest.mark.parametrize("module", ["samplers", ""])
+def test_exports_mirror_the_jax_package(module):
+    """``__all__`` of ``samplers`` lists the JAX package's names that the
+    port has, in the JAX package's order, and nothing else; the top level
+    exports MAMS as the JAX package does.  Every name resolves."""
+    import importlib
+
+    suffix = f".{module}" if module else ""
+    jax_mod = importlib.import_module(f"hamiltorch_tpu{suffix}")
+    port = importlib.import_module(f"hamiltorch_tpu_torch{suffix}")
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+    if module == "samplers":
+        assert port.__all__ == [n for n in jax_mod.__all__ if n in set(port.__all__)]
+        assert set(port.__all__) >= {"ChainState", "run_mcmc", "hmc_transition",
+                                     "DualAveragingState", "da_init", "da_update",
+                                     "MAMSConfig", "MAMSResult", "MAMSStats", "run_mams",
+                                     "run_mams_chains"}
+    else:
+        assert {"MAMSConfig", "MAMSResult", "run_mams", "run_mams_chains"} <= set(port.__all__)
+    assert set(port.__all__) <= set(jax_mod.__all__) | {"next_key"}
