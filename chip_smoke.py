@@ -153,6 +153,14 @@ FORCED_SHAPES = ((200, False), (192, True))
 # toward a small identity; the entries of the covariance reach 0.75
 DENSE_WARMUP_ATOL = 0.1
 DIAG_RTOL = 1e-4  # summary() on the card against the CPU, both float64
+# the BNN layer on an nn.Module against the flagship potential at the same
+# weights: logp within 1e-6 of the module's own float32 value (which holds
+# the prior's constant, ~9.2e4, so its rounding is ~4e-3), the gradient
+# within 1e-5 of its largest entry; the module's potential and predictions
+# on the card against the CPU 1e-5; WAIC / PSIS-LOO (float64) card vs CPU 1e-6
+MODEL_LOGP_RTOL = 1e-6
+MODEL_CARD_RTOL = 1e-5
+COMPARISON_RTOL = 1e-6
 
 
 class SmokeError(RuntimeError):
@@ -877,6 +885,179 @@ def warmup_main_path(torch, device, card):
             raise SmokeError(f"dense warmup: adapted inverse mass off by {err:.4f}")
 
 
+def bnn_model_path(torch, device, card):
+    """The BNN layer on a torch.nn.Module (``sample_model``, ``predict_model``,
+    ``define_model_log_prob``, ``waic`` / ``psis_loo``) at the flagship's
+    width: the 784-128-1 tanh MLP as a user writes it, N = 1024 rows made
+    from a seed, regression with tau_out 10, an N(0, 1) prior on every leaf."""
+    import math
+
+    from torch import nn
+
+    from hamiltorch_tpu_torch import (
+        MCMCConfig,
+        predict_model,
+        psis_loo,
+        run_hmc,
+        run_hmc_host_offload,
+        sample_model,
+        waic,
+    )
+    from hamiltorch_tpu_torch.model_comparison import pointwise_log_lik_from_predictions
+    from hamiltorch_tpu_torch.models.bnn import define_model_log_prob
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential
+
+    n, i_dim, h = FLAGSHIP["n"], FLAGSHIP["i"], FLAGSHIP["h"]
+    x, y, *_ = bnn_inputs(torch, n, i_dim, h, 1, seed=31, device=device)
+    torch.manual_seed(31)
+    net = nn.Sequential(nn.Linear(i_dim, h), nn.Tanh(), nn.Linear(h, 1))
+    kw = dict(model_loss="regression", tau_out=10.0, tau_list=1.0)
+
+    # 1. the module's potential against the flagship's at the same weights:
+    # the flagship keeps W1 as (in, hidden) and W2 as (hidden, 1), nn.Linear
+    # as (out, in), and the flagship's prior drops -D/2 log(2 pi)
+    lp_mod, theta, _ = define_model_log_prob(net, kw["model_loss"], x, y, tau_out=10.0,
+                                             tau_list=1.0, device=device)
+    dims = theta.numel()
+    s0, s1 = i_dim * h, i_dim * h + h
+
+    def to_flagship(v):
+        return torch.cat([v[:s0].reshape(h, i_dim).T.reshape(-1), v[s0:s1],
+                          v[s1:s1 + h], v[s1 + h:]])
+
+    lp_flag, _ = make_flagship_potential(i_dim, h, n, tau_out=10.0, x=x, y=y,
+                                         theta0=to_flagship(theta), device=device)
+    g_mod, v_mod = torch.func.grad_and_value(lp_mod)(theta)
+    g_flag, v_flag = torch.func.grad_and_value(lp_flag)(to_flagship(theta))
+    const = -0.5 * dims * math.log(2 * math.pi)
+    lp_err = abs(float(v_mod) - const - float(v_flag))
+    g_err = float((to_flagship(g_mod) - g_flag).abs().max())
+    g_scale = float(g_flag.abs().max())
+    print(f"bnn_model: nn.Sequential {i_dim}-{h}-1 tanh ({dims} parameters) through "
+          f"define_model_log_prob vs the flagship potential: logp {float(v_mod):.6f} - "
+          f"({const:.6f}) vs {float(v_flag):.6f}, diff {lp_err:.3e} ({lp_err / abs(float(v_mod)):.3e} "
+          f"of the module's logp, {lp_err / abs(float(v_flag)):.3e} of the flagship's); gradient "
+          f"max_abs_err {g_err:.3e} (max |g| {g_scale:.4g})")
+    if not (lp_err <= MODEL_LOGP_RTOL * abs(float(v_mod)) and g_err <= GRAD_RTOL * g_scale):
+        raise SmokeError(f"bnn_model: the module's potential is not the flagship's: logp "
+                         f"{lp_err:.3e}, gradient {g_err:.3e}")
+
+    # 2. sample_model, the trace on the card and offloaded to the host
+    draws, steps, eps = 10, 50, 2e-4
+    run = dict(num_samples=draws, num_steps_per_sample=steps, step_size=eps, key=41,
+               verbose=False, device=device, **kw)
+    config = MCMCConfig(num_samples=draws, num_steps_per_sample=steps, step_size=eps)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # one chain, host-bound: each run once, in this order, and run_hmc on the
+    # module's potential first and last, to show the host's drift in the call
+    direct, dt_mod = timed(lambda: run_hmc(41, lp_mod, theta, config))
+    (on_card, acc), dt = timed(lambda: sample_model(net, x, y, debug=2, **run))
+    offloaded, dt_off = timed(lambda: sample_model(net, x, y, store_on_GPU=False, **run))
+    chunked, dt_chunk = timed(lambda: run_hmc_host_offload(41, lp_mod, theta, config,
+                                                           chunk_size=4))
+    _, dt_flag = timed(lambda: run_hmc(41, lp_flag, to_flagship(theta), config))
+    _, dt_mod2 = timed(lambda: run_hmc(41, lp_mod, theta, config))
+    rate = draws * steps
+    print(f"sample_model {draws} draws x {steps} steps at {eps}, one chain: acceptance {acc:.4f}; "
+          f"grad-steps/s: sample_model {rate / dt:.1f}, with store_on_GPU=False {rate / dt_off:.1f}, "
+          f"run_hmc_host_offload chunks of 4 {rate / dt_chunk:.1f}; run_hmc on the module's "
+          f"potential {rate / dt_mod:.1f} then {rate / dt_mod2:.1f}, on the flagship potential "
+          f"{rate / dt_flag:.1f} [{card}]")
+    same = (torch.equal(offloaded, on_card.cpu())
+            and torch.equal(chunked.samples, direct.samples.cpu())
+            and torch.equal(on_card[1:], direct.samples[1:]))
+    if not (same and offloaded.device.type == "cpu" and tuple(on_card.shape) == (draws, dims)
+            and bool(torch.all(torch.isfinite(on_card)))):
+        raise SmokeError("bnn_model: store_on_GPU=False (one chunk, chunks of 4) does not "
+                         "return the trace of store_on_GPU=True")
+
+    # 3. predict_model over the kept draws: on x, through a loader of ragged
+    # batches (300, 300, 300, 124), and streamed two batches at a time
+    predict_model(net, on_card, x=x, y=y, device=device, **kw)  # first use loads kernels
+    (preds, lps), dt_pred = timed(lambda: predict_model(net, on_card, x=x, y=y, device=device,
+                                                        **kw))
+    loader = torch.utils.data.DataLoader(
+        torch.utils.data.TensorDataset(x.cpu(), y.cpu()), batch_size=300)
+    via_loader = predict_model(net, on_card, test_loader=loader, device=device, **kw)
+    streamed = predict_model(net, on_card, test_loader=loader, stream_batches=2,
+                             device=device, **kw)
+    pred_err = max(float((got[0].to(device) - preds).abs().max()) for got in (via_loader, streamed))
+    lp_rel = max(float(((got[1].to(device) - lps) / lps).abs().max())
+                 for got in (via_loader, streamed))
+    print(f"predict_model over {on_card.shape[0]} draws x {n} rows: {1e3 * dt_pred:.3f} ms on x; "
+          f"a loader of ragged batches and its stream (2 batches at a time, on the host: "
+          f"{streamed[0].device.type}) against x: predictions max_abs_err {pred_err:.3e}, "
+          f"log-probs max relative difference {lp_rel:.3e} [{card}]")
+    if not (pred_err <= MODEL_CARD_RTOL and lp_rel <= MODEL_CARD_RTOL
+            and streamed[0].device.type == "cpu" and tuple(preds.shape) == (draws, n, 1)
+            and bool(torch.all(torch.isfinite(preds)))):
+        raise SmokeError(f"bnn_model: predict_model paths disagree: {pred_err:.3e}, {lp_rel:.3e}")
+
+    # 4. a classifier with BatchNorm (batch statistics) on the card vs the CPU
+    torch.manual_seed(32)
+    clf = nn.Sequential(nn.Linear(i_dim, h), nn.BatchNorm1d(h), nn.Tanh(), nn.Linear(h, 10))
+    labels = torch.randint(0, 10, (n,), generator=torch.Generator().manual_seed(33)).float()
+
+    def clf_grad(dev):
+        lp, flat0, _ = define_model_log_prob(clf, "multi_class_linear_output", x.to(dev),
+                                             labels.to(dev), device=dev)
+        return torch.func.grad_and_value(lp)(flat0)
+
+    (g_card, v_card), (g_host, v_host) = clf_grad(device), clf_grad("cpu")
+    v_rel = abs(float(v_card) - float(v_host)) / abs(float(v_host))
+    g_rel = float((g_card.cpu() - g_host).abs().max()) / float(g_host.abs().max())
+    print(f"{i_dim}-{h}-10 classifier with BatchNorm1d: define_model_log_prob card vs CPU, logp "
+          f"relative difference {v_rel:.3e}, gradient {g_rel:.3e} of max |g|")
+    if not (v_rel <= MODEL_CARD_RTOL and g_rel <= MODEL_CARD_RTOL):
+        raise SmokeError(f"bnn_model: BatchNorm classifier card vs CPU {v_rel:.3e}, {g_rel:.3e}")
+
+    # 5. WAIC and PSIS-LOO on predict_model's log-likelihoods, card vs CPU:
+    # the kept draws, then 1000 draws around the last (PSIS smooths a tail
+    # of min(0.2 S, 3 sqrt(S)) >= 5 draws only from S = 25)
+    ll = pointwise_log_lik_from_predictions(preds, y, "regression", 10.0)
+    cloud = on_card[-1] + 1e-3 * torch.randn(1000, dims, generator=torch.Generator(
+        device=device).manual_seed(34), device=device)
+    predict_model(net, cloud, x=x, y=y, device=device, **kw)
+    (big_preds, _), dt_big = timed(lambda: predict_model(net, cloud, x=x, y=y, device=device, **kw))
+    ll_big = pointwise_log_lik_from_predictions(big_preds, y, "regression", 10.0)
+    def rel_max(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    worst = 0.0
+    for name, mat in (("kept draws", ll), ("1000 draws", ll_big)):
+        for fn in (waic, psis_loo):
+            fn(mat)  # first use loads the float64 kernels
+            (got, dt_fn), want = timed(lambda: fn(mat)), fn(mat.cpu())
+            rel = max(abs(getattr(got, f) - getattr(want, f)) / abs(getattr(want, f))
+                      for f in ("elpd", "p_eff", "se"))
+            # per-point values (and Pareto k) relative to their largest
+            rel = max(rel, rel_max(got.pointwise.cpu(), want.pointwise))
+            if fn is psis_loo:
+                k_card, k_host = got.pareto_k.cpu(), want.pareto_k
+                if not torch.equal(torch.isinf(k_card), torch.isinf(k_host)):
+                    raise SmokeError("bnn_model: PSIS smooths other columns on the card")
+                fin = torch.isfinite(k_host)
+                if bool(fin.any()):
+                    rel = max(rel, rel_max(k_card[fin], k_host[fin]))
+            worst = max(worst, rel)
+            print(f"{fn.__name__} on {name} {tuple(mat.shape)}: elpd {got.elpd:.6f}, p_eff "
+                  f"{got.p_eff:.6f}, se {got.se:.6f}; card vs CPU max relative difference "
+                  f"{rel:.3e}; {1e3 * dt_fn:.3f} ms on the card"
+                  + (f"; pareto_k > 0.7 at {int((got.pareto_k > 0.7).sum())} of {mat.shape[1]} "
+                     f"(inf where S < 25 leaves no tail to smooth)" if fn is psis_loo else "")
+                  + f" [{card}]")
+    print(f"predict_model over 1000 draws x {n} rows: {1e3 * dt_big:.3f} ms [{card}]")
+    if not worst <= COMPARISON_RTOL:
+        raise SmokeError(f"bnn_model: WAIC / PSIS-LOO card vs CPU {worst:.3e}")
+
+
 def tiny_card_vs_cpu(torch, device):
     """The port's tensor path is the same on the card as on the CPU."""
     from hamiltorch_tpu_torch import MCMCConfig, run_hmc_chains
@@ -1025,6 +1206,17 @@ def main() -> int:
     diagnostics_on_card(torch, draws_3d)
     mams_main_path(torch, device, card)
     warmup_main_path(torch, device, card)
+    # the BNN layer on an nn.Module: sample_model runs the unfused run_hmc,
+    # as the JAX package's does, so no kernel of the port is on it
+    from hamiltorch_tpu_torch.kernels import bnn_hmc, bnn_mclmc, gaussian_hmc
+
+    kernel_fns = (bnn_hmc, bnn_mclmc, gaussian_hmc)
+    for kernel in kernel_fns:
+        kernel.launches = 0
+    t_model = time.perf_counter()
+    bnn_model_path(torch, device, card)
+    print(f"bnn_model phase: {time.perf_counter() - t_model:.1f} s, kernel launches "
+          f"{ {kernel.__name__: kernel.launches for kernel in kernel_fns} }")
     print(f"main paths: {time.perf_counter() - t_paths:.1f} s")
 
     # 6. the tiny flagship, card vs CPU

@@ -6,27 +6,42 @@ found under the same name.  This package imports ``torch`` and never
 ``jax``.
 
 Ported so far: the HMC chain sampler (``sample`` for ``Sampler.HMC`` /
-``HMC_NUTS``, ``run_hmc``, ``run_hmc_chains``) with its potential, mass
+``HMC_NUTS`` with progress lines and ``store_on_GPU=False``, ``run_hmc``,
+``run_hmc_chains``, ``run_hmc_host_offload``) with its potential, mass
 (block-diagonal included), leapfrog, dual-averaging, windowed mass warmup
 and driver layers; MCLMC (``run_mclmc``, ``run_mclmc_chains``); MAMS
 (``run_mams``, ``run_mams_chains``); the diagnostics (``diagnostics``:
-ESS, R-hat, ``summary``); the flagship BNN models; and the fused samplers
+ESS, R-hat, ``summary``); model comparison (``waic``, ``psis_loo``,
+``compare``); the BNN layer on ``torch.nn.Module``s (``sample_model``,
+``predict_model``, ``models.bnn``); the ``hamiltorch.util`` namespace
+(``util``); the flagship BNN models; and the fused samplers
 ``kernels.bnn_hmc``, ``kernels.bnn_mclmc`` and ``kernels.gaussian_hmc`` as
 CUDA kernels for Hopper.  ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.6.0"
 
+from . import util
 from .api import sample
 from .enums import Integrator, Metric, Sampler
+from .model_comparison import (
+    compare,
+    pointwise_log_lik,
+    pointwise_log_lik_from_predictions,
+    psis_loo,
+    waic,
+)
 from .samplers.driver import MCMCConfig, MCMCResult, MCMCStats
-from .samplers.hmc import run_hmc, run_hmc_chains
+from .samplers.hmc import run_hmc, run_hmc_chains, run_hmc_host_offload
 from .samplers.mams import MAMSConfig, MAMSResult, run_mams, run_mams_chains
 from .samplers.mclmc import MCLMCConfig, MCLMCResult, run_mclmc, run_mclmc_chains
 from .utils.rng import next_key, set_random_seed
 
 __all__ = [
     "sample",
+    "sample_model",
+    "sample_split_model",
+    "predict_model",
     "Sampler",
     "Integrator",
     "Metric",
@@ -34,6 +49,7 @@ __all__ = [
     "next_key",
     "run_hmc",
     "run_hmc_chains",
+    "run_hmc_host_offload",
     "MCMCConfig",
     "MCMCResult",
     "MCMCStats",
@@ -45,4 +61,18 @@ __all__ = [
     "MAMSResult",
     "run_mams",
     "run_mams_chains",
+    "waic",
+    "psis_loo",
+    "compare",
+    "pointwise_log_lik",
+    "pointwise_log_lik_from_predictions",
 ]
+
+
+def __getattr__(name):
+    # imported on first use, as in the JAX package
+    if name in ("sample_model", "sample_split_model", "predict_model"):
+        from . import models
+
+        return getattr(models, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

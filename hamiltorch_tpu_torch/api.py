@@ -8,10 +8,13 @@ state after each draw ``n > burn``, as one (num_kept, D) tensor;
 the module-level generator set by ``set_random_seed`` supplies one.
 
 The port has the ``Sampler.HMC`` / ``Sampler.HMC_NUTS`` branch with the
-leapfrog integrator and windowed mass warmup (``adapt_mass``).  The other
-samplers, the splitting integrators, ``store_on_GPU=False`` and progress
-lines raise ``NotImplementedError`` until they are ported (ROADMAP.md,
-queue 1).
+leapfrog integrator and windowed mass warmup (``adapt_mass``), progress
+lines (``progress_every``) and ``store_on_GPU=False``, which runs the chain
+in chunks and moves each chunk's trace to the host
+(``run_hmc_host_offload``): the samples then come back as a CPU tensor,
+the same numbers as with ``store_on_GPU=True``.  The other samplers and the
+splitting integrators raise ``NotImplementedError`` until they are ported
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from .enums import Integrator, Metric, Sampler
 from .samplers.driver import MCMCConfig, MCMCResult
-from .samplers.hmc import run_hmc
+from .samplers.hmc import run_hmc, run_hmc_host_offload
 from .utils.rng import next_key
 
 _SPLITTING = (Integrator.SPLITTING, Integrator.SPLITTING_RAND, Integrator.SPLITTING_KMID)
@@ -44,6 +47,8 @@ def _kept_samples(params_init: torch.Tensor, result: MCMCResult, burn: int,
     """
     thin = max(thin, 1)
     keep_from = max(0, -(-(burn + 2) // thin) - 1)  # burn=-1: keep all
+    # a host-offloaded trace stays on the host
+    params_init = params_init.to(result.samples.device)
     return torch.cat([params_init[None, :], result.samples[keep_from:]], dim=0)
 
 
@@ -96,12 +101,8 @@ def sample(
         raise _not_ported(f"sampler={sampler}")
     if integrator in _SPLITTING or isinstance(log_prob_func, (list, tuple)):
         raise _not_ported("split HMC (the splitting integrators)")
-    if not store_on_GPU:
-        raise _not_ported("store_on_GPU=False (host offload of the trace)")
     if adapt_mass and burn <= 0:
         raise RuntimeError("adapt_mass requires burn > 0 (the warmup phase).")
-    if progress_every:
-        raise _not_ported("progress_every (progress lines)")
     if key is None:
         key = next_key()
     if isinstance(log_prob_func(params_init), (tuple, list)):
@@ -121,10 +122,14 @@ def sample(
         adapt_step_size=adapt,
         desired_accept_rate=desired_accept_rate,
         thin=thin,
+        progress_every=progress_every,
         adapt_mass=adapt_mass,
     )
-    result = run_hmc(key, log_prob_func, params_init, config,
-                     inv_mass=inv_mass, pass_grad=pass_grad)
+    # the reference's store_on_GPU=False moves the trace to the host per
+    # draw (samplers.py:956-959); here per chunk
+    runner = run_hmc if store_on_GPU else run_hmc_host_offload
+    result = runner(key, log_prob_func, params_init, config,
+                    inv_mass=inv_mass, pass_grad=pass_grad)
 
     samples = _kept_samples(params_init, result, burn, thin=thin)
     if debug == 1:

@@ -1,0 +1,25 @@
+from .bnn import (
+    build_model,
+    define_model_log_prob,
+    define_model_prior_and_lik,
+    define_model_tree_log_prob,
+    gaussian_prior_log_prob,
+    log_likelihood,
+    predict_model,
+    sample_model,
+    sample_split_model,
+)
+
+# the JAX package's list, in its order, less define_split_model_log_prob
+# (the splitting integrator is not ported yet)
+__all__ = [
+    "build_model",
+    "define_model_log_prob",
+    "define_model_prior_and_lik",
+    "define_model_tree_log_prob",
+    "gaussian_prior_log_prob",
+    "log_likelihood",
+    "predict_model",
+    "sample_model",
+    "sample_split_model",
+]

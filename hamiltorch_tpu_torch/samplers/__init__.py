@@ -1,6 +1,6 @@
 from .adaptation import DualAveragingState, da_init, da_update
 from .driver import ChainState, MCMCConfig, MCMCResult, MCMCStats, run_mcmc
-from .hmc import hmc_transition, run_hmc, run_hmc_chains
+from .hmc import hmc_transition, run_hmc, run_hmc_chains, run_hmc_host_offload
 from .mams import MAMSConfig, MAMSResult, MAMSStats, run_mams, run_mams_chains
 from .mclmc import MCLMCConfig, MCLMCResult, MCLMCStats, run_mclmc, run_mclmc_chains
 
@@ -15,6 +15,7 @@ __all__ = [
     "run_hmc",
     "run_hmc_chains",
     "hmc_transition",
+    "run_hmc_host_offload",
     "MCLMCConfig",
     "MCLMCResult",
     "MCLMCStats",

@@ -33,6 +33,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
+from ..utils.progress import scan_progress
 from ..utils.pytree import tree_leaves, tree_map
 from ..utils.rng import draw_noise
 from .adaptation import DualAveragingState, da_init, da_update
@@ -97,8 +98,7 @@ class MCMCConfig:
     burn: int = 0
     adapt_step_size: bool = False  # the reference's "HMC_NUTS" mode
     desired_accept_rate: float = 0.8
-    # > 0: a progress line every N draws; not ported yet, and refused here
-    # (ROADMAP.md, queue 1)
+    # > 0: a progress line on the host's stdout every N draws
     progress_every: int = 0
     # thin > 1: keep every thin-th draw; num_samples counts ALL transitions
     # and must divide by thin.  Kept stats: bools are any-within-window,
@@ -111,11 +111,6 @@ class MCMCConfig:
 
     def __post_init__(self):
         validate_common_config(self)
-        if self.progress_every > 0:
-            raise NotImplementedError(
-                "progress_every (progress lines) is not ported to "
-                "hamiltorch_tpu_torch yet; see ROADMAP.md, queue 1"
-            )
         if self.adapt_mass not in (False, True, "diag", "dense"):
             raise ValueError(
                 f"adapt_mass={self.adapt_mass!r}; expected False, True, "
@@ -217,6 +212,9 @@ def run_mcmc(
     }
     acc_frac_sum = torch.zeros(num_chains, dtype=dtype, device=device)
     adapt = config.adapt_step_size and config.burn > 0
+    # the bar reads the draw index and the host clock, never a device value
+    progress = (scan_progress(config.num_samples, config.progress_every)
+                if config.progress_every > 0 else None)
 
     state = init_state
     for k in range(kept):
@@ -225,6 +223,8 @@ def run_mcmc(
         acc_cnt = torch.zeros(num_chains, dtype=dtype, device=device)
         for j in range(thin):
             n = start_iter + k * thin + j
+            if progress is not None:
+                progress(n - start_iter)  # the bar is sized per run, not global
             if _noise is None:
                 z, log_u = draw_noise(key, n, num_chains, dim, dtype, device)
             else:
@@ -280,6 +280,8 @@ def run_mcmc(
         stat_buf["step_size"][:, k] = step_size
         acc_frac_sum += acc_cnt / thin
 
+    if progress is not None:
+        progress.end()
     return MCMCResult(
         samples=samples,
         stats=MCMCStats(**stat_buf),

@@ -31,7 +31,8 @@ from ..ops.mass import (
 from ..ops.potential import resolve_potential, value_and_grad
 from ..utils.pytree import is_param_tree, stack_param_tree, tree_leaves, tree_map
 from .driver import ChainState, MCMCConfig, MCMCResult, TransitionFn, run_mcmc
-from .warmup import init_metric_seed, validate_adapt_mass
+from .offload import host_offload_loop
+from .warmup import init_metric_seed, schedule_flags, validate_adapt_mass
 
 
 def hmc_transition(value_and_grad_fn, mass: MassOperator, num_steps: int) -> TransitionFn:
@@ -156,18 +157,27 @@ def run_hmc(
     ``key`` is an integer seed.  ``_noise = (z (S, D), log_u (S,))``
     replaces the drawn noise (a test hook).
     """
+    lp, stacked, mass = _one_chain(log_prob_fn, theta0, config, inv_mass, pass_grad)
+    if _noise is not None:
+        _noise = (_noise[0][:, None], _noise[1][:, None])
+    return _first_chain(_run_hmc_batched(key, stacked, lp, config, mass, _noise=_noise))
+
+
+def _one_chain(log_prob_fn, theta0, config, inv_mass, pass_grad):
+    """(potential, theta0 with a chain axis of 1, mass) of a single-chain entry."""
     lp = resolve_potential(log_prob_fn, pass_grad)
     if is_param_tree(theta0):
         template, stacked = stack_param_tree(theta0, 1, stacked=False)
     else:
         template, theta0 = None, torch.as_tensor(theta0)
         stacked = theta0[None]
-    mass = _mass_for(theta0, template, inv_mass, config)
-    if _noise is not None:
-        _noise = (_noise[0][:, None], _noise[1][:, None])
-    res = _run_hmc_batched(key, stacked, lp, config, mass, _noise=_noise)
+    return lp, stacked, _mass_for(theta0, template, inv_mass, config)
 
-    def first(t):  # drop the chain axis
+
+def _first_chain(res: MCMCResult) -> MCMCResult:
+    """``res`` of a one-chain batch without its chain axis."""
+
+    def first(t):
         return t[0]
 
     return MCMCResult(
@@ -181,6 +191,46 @@ def run_hmc(
         ),
         final_warm=tree_map(first, res.final_warm),
     )
+
+
+def run_hmc_host_offload(
+    key: int,
+    log_prob_fn: Callable[[torch.Tensor], torch.Tensor],
+    theta0,
+    config: MCMCConfig,
+    inv_mass=None,
+    pass_grad=None,
+    chunk_size: int = 256,
+) -> MCMCResult:
+    """HMC whose trace streams to host memory chunk by chunk.
+
+    The reference's ``store_on_GPU=False`` moves each sample to the CPU per
+    draw (reference: hamiltorch/samplers.py:956-959,1008-1012).  Here the
+    chain runs ``chunk_size`` draws at a time and each chunk's trace moves
+    to the host (``samplers/offload.py``), so the card holds O(chunk) draws.
+    Each chunk continues the last one's state, adaptation and, with
+    ``adapt_mass``, its windowed-warmup carry with its slice of the global
+    schedule; the draws' noise is keyed on the global draw index.  So the
+    trace is ``run_hmc``'s, bit for bit, at any chunking.
+
+    Returns an MCMCResult whose ``samples`` and ``stats`` are CPU tensors.
+    """
+    lp, stacked, mass = _one_chain(log_prob_fn, theta0, config, inv_mass, pass_grad)
+    dtype = tree_leaves(stacked)[0].dtype
+    windowed = bool(config.adapt_mass) and config.burn > 0
+
+    def run_chunk(cfg, n_done, carry):
+        state, da, warm = carry
+        cf = ef = None
+        if windowed:
+            # each chunk takes its slice of the global warmup schedule
+            cf, ef = schedule_flags(config.burn, n_done, cfg.num_samples)
+        res = _run_hmc_batched(key, stacked, lp, cfg, mass, init_state=state, init_da=da,
+                               start_iter=n_done, init_warm=warm, collect_flags=cf,
+                               end_flags=ef)
+        return _first_chain(res), (res.final_state, res.final_da, res.final_warm)
+
+    return host_offload_loop(run_chunk, config, (None, None, None), dtype, chunk_size)
 
 
 def run_hmc_chains(

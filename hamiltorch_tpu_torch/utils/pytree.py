@@ -145,3 +145,23 @@ def stack_param_tree(theta0, n: int, stacked: bool | None = None):
         lambda leaf: leaf.unsqueeze(0).expand((n,) + tuple(leaf.shape)).clone(),
         theta0,
     )
+
+
+def param_sizes(params) -> list[int]:
+    """Number of elements per leaf, in leaf order."""
+    return [leaf.numel() for leaf in tree_leaves(params)]
+
+
+def param_shapes(params) -> list[tuple]:
+    """Shape of each leaf, in leaf order."""
+    return [tuple(leaf.shape) for leaf in tree_leaves(params)]
+
+
+def reject_param_tree(theta, entry_point: str, why: str, alternative: str) -> None:
+    """Raise a uniform TypeError when a flat-layout-only entry point
+    receives a parameter tree."""
+    if is_param_tree(theta):
+        raise TypeError(
+            f"{entry_point} takes a flat (D,) theta0 — {why}.  Ravel the "
+            f"tree (utils.pytree.ravel_pytree_fn) or {alternative}."
+        )

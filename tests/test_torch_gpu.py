@@ -361,3 +361,115 @@ def test_windowed_warmup_on_card_matches_cpu(cuda_device, mode):
     metric = on_host.final_warm[1][0] if mode == "dense" else on_host.final_warm[1]
     card_metric = on_card.final_warm[1][0] if mode == "dense" else on_card.final_warm[1]
     torch.testing.assert_close(card_metric.cpu(), metric, atol=1e-5, rtol=1e-5)
+
+
+# The BNN layer on torch.nn.Modules.  A module's potential on the card and
+# on the CPU sum float32 terms in other orders (cuBLAS / cuDNN, TF32 off):
+# log-probs within 1e-5 relative, gradients within 1e-5 of the largest
+# entry, HMC states after a few draws within 1e-5, identical accepts.
+
+
+def bnn_module(batch_norm):
+    torch.manual_seed(0)
+    mid = [torch.nn.BatchNorm1d(16)] if batch_norm else []
+    return torch.nn.Sequential(torch.nn.Linear(6, 16), *mid, torch.nn.Tanh(),
+                               torch.nn.Linear(16, 3))
+
+
+def bnn_data(seed=0):
+    rng = np.random.RandomState(seed)
+    return rng.randn(40, 6).astype(np.float32), rng.randint(0, 3, 40).astype(np.float32)
+
+
+def test_model_entry_points_raise_without_a_card(monkeypatch):
+    """With no device given and no card, the BNN layer's entry points raise
+    instead of falling back to the CPU (here with CUDA masked)."""
+    from hamiltorch_tpu_torch.models import bnn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = bnn_module(False)
+    x, y = bnn_data()
+    flat = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+    calls = [
+        lambda: bnn.build_model(net),
+        lambda: bnn.define_model_log_prob(net, "multi_class_linear_output", x, y),
+        lambda: bnn.define_model_tree_log_prob(net, "multi_class_linear_output", x, y),
+        lambda: bnn.define_model_prior_and_lik(net, "multi_class_linear_output", x, y),
+        lambda: bnn.sample_model(net, x, y, num_samples=2, verbose=False),
+        lambda: bnn.predict_model(net, flat[None], x=x, y=y),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_bnn_module_hmc_on_card_matches_cpu(cuda_device, batch_norm):
+    """run_hmc on a module's potential, card against CPU on injected noise;
+    then sample_model on the card draws what run_hmc draws with its key,
+    and store_on_GPU=False returns the same trace on the host."""
+    from hamiltorch_tpu_torch import run_hmc, sample_model
+    from hamiltorch_tpu_torch.models.bnn import define_model_log_prob
+
+    net, (x, y) = bnn_module(batch_norm), bnn_data()
+    gen = torch.Generator().manual_seed(3)
+    d = sum(p.numel() for p in net.parameters())
+    z, log_u = torch.randn(8, d, generator=gen), torch.rand(8, generator=gen).log()
+    cfg = MCMCConfig(num_samples=8, num_steps_per_sample=5, step_size=0.1)
+
+    def run(device):
+        lp, flat, _ = define_model_log_prob(net, "multi_class_linear_output", x, y, tau_out=2.0,
+                                            device=device)
+        return run_hmc(0, lp, flat, cfg, _noise=(z.to(device), log_u.to(device)))
+
+    on_card, on_host = run(cuda_device), run("cpu")
+    assert torch.equal(on_card.stats.accepted.cpu(), on_host.stats.accepted)
+    assert 0 < float(on_host.stats.accepted.float().mean()) < 1
+    torch.testing.assert_close(on_card.samples.cpu(), on_host.samples, atol=1e-5, rtol=0)
+
+    kw = dict(model_loss="multi_class_linear_output", num_samples=8, num_steps_per_sample=5,
+              step_size=0.1, tau_out=2.0, key=7, verbose=False, device=cuda_device)
+    drawn = sample_model(net, x, y, **kw)
+    lp, flat, _ = define_model_log_prob(net, "multi_class_linear_output", x, y, tau_out=2.0,
+                                        device=cuda_device)
+    direct = run_hmc(7, lp, flat, cfg)
+    assert drawn.is_cuda and torch.equal(drawn[1:], direct.samples[1:])
+    offloaded = sample_model(net, x, y, store_on_GPU=False, **kw)
+    assert offloaded.device.type == "cpu" and torch.equal(offloaded, drawn.cpu())
+
+
+@pytest.mark.gpu
+def test_batchnorm_under_vmap_on_card_matches_cpu(cuda_device):
+    """BatchNorm on batch statistics under torch.func.vmap over chains:
+    value and gradient of 4 chains on the card against the CPU."""
+    from hamiltorch_tpu_torch.models.bnn import define_model_log_prob
+
+    net, (x, y) = bnn_module(True), bnn_data(1)
+    d = sum(p.numel() for p in net.parameters())
+    shift = torch.as_tensor(0.1 * np.random.RandomState(2).randn(4, d).astype(np.float32))
+
+    def grads(device):
+        lp, flat, _ = define_model_log_prob(net, "multi_class_linear_output", x, y, device=device)
+        return torch.func.vmap(torch.func.grad_and_value(lp))(flat[None] + shift.to(device))
+
+    (g_card, v_card), (g_host, v_host) = grads(cuda_device), grads("cpu")
+    torch.testing.assert_close(v_card.cpu(), v_host, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g_card.cpu(), g_host, rtol=0, atol=1e-5 * float(g_host.abs().max()))
+
+
+@pytest.mark.gpu
+def test_predict_model_on_card_matches_cpu(cuda_device):
+    from hamiltorch_tpu_torch.models.bnn import predict_model
+
+    net, (x, y) = bnn_module(True), bnn_data(2)
+    flat = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+    samples = flat[None] + 0.05 * torch.randn(5, flat.numel(), generator=torch.Generator().manual_seed(4))
+    loader = [(x[i:i + 16], y[i:i + 16]) for i in range(0, 40, 16)]  # 16, 16, 8
+    host = predict_model(net, samples, test_loader=loader, device="cpu")
+    card = predict_model(net, samples, test_loader=loader, device=cuda_device)
+    streamed = predict_model(net, samples, test_loader=loader, stream_batches=2, device=cuda_device)
+    assert card[0].is_cuda and streamed[0].device.type == "cpu"
+    for got in (card, streamed):
+        torch.testing.assert_close(got[0].cpu(), host[0], atol=1e-5, rtol=0)
+        torch.testing.assert_close(got[1].cpu(), host[1], rtol=1e-5, atol=0)

@@ -222,12 +222,15 @@ def test_sample_error_probes():
     with pytest.raises(RuntimeError, match="adapt_mass requires burn"):
         tht.sample(_gauss_t, torch.zeros(3), num_samples=5, adapt_mass=True, verbose=False)
     for kw in (dict(sampler=tht.Sampler.RMHMC), dict(sampler=tht.Sampler.NUTS),
-               dict(store_on_GPU=False), dict(integrator=tht.Integrator.SPLITTING),
-               dict(progress_every=2)):
+               dict(integrator=tht.Integrator.SPLITTING)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tht.sample(_gauss_t, torch.zeros(3), num_samples=5, verbose=False, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MCMCConfig(num_samples=5, progress_every=50)
+    # host offload and progress lines are ported: the same draws as the plain call
+    plain = tht.sample(_gauss_t, torch.zeros(3), num_samples=5, key=1, verbose=False)
+    for kw in (dict(store_on_GPU=False), dict(progress_every=2)):
+        got = tht.sample(_gauss_t, torch.zeros(3), num_samples=5, key=1, verbose=False, **kw)
+        assert torch.equal(got, plain), kw
+    assert MCMCConfig(num_samples=5, progress_every=50).progress_every == 50
 
 
 def test_nan_cliff_does_not_crash():
