@@ -79,6 +79,21 @@ the kernels are built for sm_90a).  It
      on a correlated 64-D Gaussian (64 chains, burn 1000) at three seeds,
      the chains' mean adapted inverse mass within 0.1 of the true
      covariance entrywise;
+   then the paths without a kernel of their own, each printing the kernels'
+   launch counts (0): the ``bnn_model`` phase (the flagship as an
+   ``nn.Module`` through ``sample_model`` / ``predict_model``), the ``nuts``
+   phase (``nuts_path``: ``run_nuts_chains`` on the flagship in float64,
+   card against CPU on the same injected noise, identical trees and
+   positions within 1e-8 of max |theta|; 16 float32 chains with step-size
+   adaptation, timed in used and computed grad-steps/s, ms a leaf, the
+   sync's share, peak memory, gated on finite draws, no chain divergent on
+   every post-burn draw and a post-burn accept_prob in [0.5, 1]; the 2-D
+   correlated Gaussian's moments; ``run_nuts_ensemble``'s pooled dense
+   metric on the 64-D Gaussian within 0.1; ``store_on_GPU=False`` equal to
+   the on-card trace) and the ``checkpoint`` phase (``checkpoint_path``:
+   ``run_hmc_chains_checkpointed`` on the flagship at 64 chains, and the
+   NUTS, NUTS-ensemble, MCLMC and MAMS runners on a small Gaussian, each
+   stopped part-way and resumed, bit for bit their straight runs);
 6. checks the tiny flagship on the card against the CPU;
 7. prints one JSON line with every kernel's summary and, last, the device
    line.
@@ -1058,6 +1073,251 @@ def bnn_model_path(torch, device, card):
         raise SmokeError(f"bnn_model: WAIC / PSIS-LOO card vs CPU {worst:.3e}")
 
 
+def same_tensors(torch, a, b) -> bool:
+    """True when two results hold equal tensors everywhere (named tuples,
+    dataclasses, dicts, sequences), bit for bit."""
+    import dataclasses
+
+    if isinstance(b, torch.Tensor):
+        return isinstance(a, torch.Tensor) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if dataclasses.is_dataclass(b):
+        return all(same_tensors(torch, getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(b))
+    if isinstance(b, dict):
+        return a.keys() == b.keys() and all(same_tensors(torch, a[k], b[k]) for k in b)
+    if isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(same_tensors(torch, x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def nuts_path(torch, device, card):
+    """Tree-doubling NUTS (no kernel of its own: it evaluates the generic
+    potential, as the JAX package's does) at the flagship's full width: card
+    against CPU in float64 on the same injected noise, float32 chains with
+    step-size adaptation (timed), moment checks on two Gaussians, and the
+    host offload."""
+    from hamiltorch_tpu_torch import (
+        NUTSConfig,
+        Sampler,
+        run_nuts,
+        run_nuts_chains,
+        run_nuts_ensemble,
+        sample,
+    )
+    from hamiltorch_tpu_torch.models.flagship import flagship_dims, make_flagship_potential
+    from hamiltorch_tpu_torch.ops.potential import value_and_grad
+    from hamiltorch_tpu_torch.samplers import nuts
+    from hamiltorch_tpu_torch.samplers.offload import run_nuts_host_offload
+
+    dims = flagship_dims()
+    # 1. card against CPU: float64, 4 chains x 3 draws, depth 6, step 2e-4
+    chains, draws, depth = 4, 3, 6
+    gen = torch.Generator().manual_seed(41)
+    f64 = dict(generator=gen, dtype=torch.float64)
+    noise = {"z": torch.randn(draws, chains, dims, **f64),
+             "u_dir": torch.rand(draws, chains, depth, **f64),
+             "u_merge": torch.rand(draws, chains, depth, **f64),
+             "u_leaf": torch.rand(draws, chains, depth, 1 << (depth - 1), **f64)}
+    cfg = NUTSConfig(num_samples=draws, step_size=2e-4, max_tree_depth=depth)
+
+    def run64(dev):
+        lp, theta0 = make_flagship_potential(dtype=torch.float64, device=dev)
+        return run_nuts_chains(0, lp, theta0, cfg, chains,
+                               _noise={k: v.to(dev) for k, v in noise.items()})
+
+    t0 = time.perf_counter()
+    (card_res, card_info), (host_res, host_info) = run64(device), run64("cpu")
+    same_trees = all(torch.equal(getattr(card_info, f).cpu(), getattr(host_info, f))
+                     for f in ("tree_depth", "num_leapfrogs", "divergent"))
+    err = float((card_res.samples.cpu() - host_res.samples).abs().max())
+    scale = float(host_res.samples.abs().max())
+    print(f"run_nuts_chains flagship float64, {chains} chains x {draws} draws, depth <= {depth}, "
+          f"step 2e-4, card vs CPU on the same noise: tree depths {card_info.tree_depth.tolist()}, "
+          f"leapfrogs {card_info.num_leapfrogs.tolist()}, identical trees {same_trees}; positions "
+          f"max_abs_err {err:.3e} ({err / scale:.3e} of max |theta| {scale:.4g}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not (same_trees and err <= 1e-8 * scale):
+        raise SmokeError(f"NUTS card vs CPU: identical trees {same_trees}, error {err / scale:.3e}")
+
+    # 2. float32 on the card: 16 chains, burn 30 + 20 kept, adapting the step size
+    lp, theta0 = make_flagship_potential(device=device)
+    c, burn = 16, 30
+    cfg = NUTSConfig(num_samples=burn + 20, step_size=2e-4, burn=burn, max_tree_depth=depth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nuts.leaf_steps = 0
+    t0 = time.perf_counter()
+    res, info = run_nuts_chains(23, lp, theta0, cfg, c)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    leaves, peak = nuts.leaf_steps, torch.cuda.max_memory_allocated()
+    used = int(info.num_leapfrogs.sum())
+    # the batched gradient alone, and one device-to-host sync on an idle card
+    vg = torch.func.vmap(value_and_grad(lp))
+    batch = res.final_state.theta.contiguous()
+    vg(batch)
+    grad_ms = statistics.median(cuda_ms(torch, lambda: vg(batch)) for _ in range(10))
+    flag = torch.zeros(1, dtype=torch.bool, device=device)
+    bool(flag.any())
+    sync_us = []
+    for _ in range(200):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bool(flag.any())
+        sync_us.append(1e6 * (time.perf_counter() - t1))
+    sync_us = statistics.median(sync_us)
+    post_acc = float(info.accept_prob[:, burn:].mean())
+    stuck = int(info.divergent[:, burn:].all(dim=1).sum())
+    print(f"run_nuts_chains flagship float32, {c} chains, burn {burn} + 20 kept, depth <= {depth}, "
+          f"step 2e-4 adapting: {dt:.3f} s, {leaves} leaf iterations ({1e3 * dt / leaves:.3f} ms a "
+          f"leaf; the {c}-chain gradient alone {grad_ms:.3f} ms); grad-steps/s used "
+          f"{used / dt:.1f}, computed {leaves * c / dt:.1f}; mean tree depth "
+          f"{float(info.tree_depth.float().mean()):.3f} (post-burn "
+          f"{float(info.tree_depth[:, burn:].float().mean()):.3f}); adapted step median "
+          f"{float(res.final_step_size.median()):.4g}; post-burn mean accept_prob {post_acc:.4f}, "
+          f"divergent draws {int(info.divergent.sum())}, chains divergent on every post-burn "
+          f"draw {stuck}; one sync {sync_us:.1f} us on an idle card, x {leaves} leaves = "
+          f"{1e-6 * sync_us * leaves / dt:.2%} of the wall; peak memory {peak / 2**30:.3f} GiB "
+          f"[{card}]")
+    finite = bool(torch.all(torch.isfinite(res.samples)))
+    if not (finite and stuck == 0 and 0.5 <= post_acc <= 1.0):
+        raise SmokeError(f"NUTS flagship: finite {finite}, {stuck} stuck chains, "
+                         f"post-burn accept_prob {post_acc:.4f}")
+
+    # 3. statistics: the correlated 2-D Gaussian of tests/test_nuts.py (64
+    # chains x 200 kept: with fewer the means' error comes near the 0.1
+    # gate), and the pooled dense warmup on a 64-D Gaussian
+    cov2 = torch.tensor([[1.0, 0.9], [0.9, 1.0]], device=device)
+    prec2 = torch.linalg.inv(cov2)
+    cfg = NUTSConfig(num_samples=250, step_size=0.5, burn=50)
+    t0 = time.perf_counter()
+    res, _ = run_nuts_chains(24, lambda t: -0.5 * t @ prec2 @ t, torch.zeros(2, device=device),
+                             cfg, 64)
+    pooled = res.samples[:, 50:].reshape(-1, 2)
+    mean_err = float(pooled.mean(0).abs().max())
+    cov_err = float((torch.cov(pooled.T) - cov2).abs().max())
+    print(f"run_nuts_chains correlated 2-D Gaussian, 64 chains x 250 draws (burn 50): mean "
+          f"max_abs_err {mean_err:.4f} (tolerance 0.1), covariance {cov_err:.4f} (tolerance 0.12); "
+          f"{time.perf_counter() - t0:.1f} s")
+    prec = dense_precision(torch, 64, 2).to(device)
+    cov = torch.linalg.inv(prec.double()).float()
+    cfg = NUTSConfig(num_samples=310, step_size=0.1, burn=300, max_tree_depth=5,
+                     adapt_mass="dense")
+    t0 = time.perf_counter()
+    res, info = run_nuts_ensemble(25, lambda t: -0.5 * t @ prec @ t,
+                                  torch.zeros(64, device=device), cfg, 64)
+    dense_err = float((res.final_warm[1][0] - cov).abs().max())
+    print(f"run_nuts_ensemble 64-D Gaussian, 64 chains, adapt_mass='dense', burn 300 (pooled "
+          f"windows [75, 100), [100, 150), [150, 250)): adapted inverse mass vs the covariance "
+          f"max_abs_err {dense_err:.4f} (tolerance {DENSE_WARMUP_ATOL}); mean tree depth after "
+          f"burn {float(info.tree_depth[300:].float().mean()):.3f}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if not (mean_err <= 0.1 and cov_err <= 0.12 and dense_err <= DENSE_WARMUP_ATOL):
+        raise SmokeError(f"NUTS statistics: mean {mean_err:.4f}, covariance {cov_err:.4f}, "
+                         f"dense metric {dense_err:.4f}")
+
+    # 4. the host offload: sample(store_on_GPU=False) and chunks of 7
+    def lp3(t):
+        return -0.5 * torch.sum((t / torch.tensor([0.5, 1.0, 2.0], device=t.device)) ** 2)
+
+    kw = dict(num_samples=40, step_size=0.3, burn=10, sampler=Sampler.NUTS, key=26,
+              verbose=False, debug=2)
+    on_card, eps = sample(lp3, torch.zeros(3, device=device), **kw)
+    offloaded, eps_off = sample(lp3, torch.zeros(3, device=device), store_on_GPU=False, **kw)
+    cfg = NUTSConfig(num_samples=40, step_size=0.3, burn=10)
+    chunked = run_nuts_host_offload(26, lp3, torch.zeros(3, device=device), cfg, chunk_size=7)
+    direct, _ = run_nuts(26, lp3, torch.zeros(3, device=device), cfg)
+    same = (torch.equal(offloaded, on_card.cpu()) and eps == eps_off
+            and same_tensors(torch, chunked.samples, direct.samples)
+            and same_tensors(torch, tuple(chunked.stats), tuple(direct.stats)))
+    print(f"sample(sampler=NUTS, store_on_GPU=False) and run_nuts_host_offload in chunks of 7 "
+          f"against the on-card run: identical {same}, offloaded samples on "
+          f"{offloaded.device.type}")
+    if not (same and offloaded.device.type == "cpu"):
+        raise SmokeError("NUTS offload: the host trace is not the on-card trace")
+
+
+def checkpoint_path(torch, device, card):
+    """checkpoint.py on the card: each runner stopped part-way and resumed
+    equals its straight run bit for bit (files in a temporary directory
+    under the git-ignored build/)."""
+    import dataclasses
+    import tempfile
+
+    from hamiltorch_tpu_torch import (
+        MAMSConfig,
+        MCLMCConfig,
+        MCMCConfig,
+        NUTSConfig,
+        run_hmc_chains,
+        run_mams,
+        run_mclmc,
+        run_nuts,
+        run_nuts_ensemble,
+    )
+    from hamiltorch_tpu_torch import checkpoint as ck
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential
+
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        # the flagship: 64 chains x 10 draws x 50 steps at 2e-4, chunks of 4
+        lp, theta0 = make_flagship_potential(device=device)
+        cfg = MCMCConfig(num_samples=10, num_steps_per_sample=50, step_size=2e-4)
+        want = run_hmc_chains(27, lp, theta0, cfg, FLAGSHIP["c"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.run_hmc_chains_checkpointed(27, lp, theta0, dataclasses.replace(cfg, num_samples=4),
+                                       f"{tmp}/hmc", FLAGSHIP["c"], chunk_size=4)
+        got = ck.run_hmc_chains_checkpointed(27, lp, theta0, cfg, f"{tmp}/hmc", FLAGSHIP["c"],
+                                             chunk_size=4)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        size = sum(os.path.getsize(f"{tmp}/hmc/{f}") for f in os.listdir(f"{tmp}/hmc"))
+        same = {"hmc_chains flagship": same_tensors(torch, got.samples, want.samples)
+                and same_tensors(torch, tuple(got.stats), tuple(want.stats))
+                and same_tensors(torch, tuple(got.final_state), tuple(want.final_state))}
+        print(f"run_hmc_chains_checkpointed flagship {FLAGSHIP['c']} chains x 10 draws x 50 steps, "
+              f"chunks of 4, stopped at 4 and resumed: {dt:.2f} s for both calls ({size / 2**20:.1f} "
+              f"MiB of files) against run_hmc_chains; identical {same['hmc_chains flagship']} "
+              f"[{card}]")
+
+        # a small Gaussian with windowed diagonal warmup where the sampler has it
+        scales = torch.tensor([1.0, 2.0, 0.5, 1.5], device=device)
+
+        def lp4(t):
+            return -0.5 * torch.sum((t / scales) ** 2) + 0.1 * torch.sum(torch.sin(t))
+
+        x0 = torch.tensor([0.5, -0.3, 0.2, 0.8], device=device)
+        # burn 160: slow windows end at draws 99 and 109, inside the chunks
+        nuts_cfg = NUTSConfig(num_samples=120, step_size=0.4, burn=160, max_tree_depth=2,
+                              adapt_mass="diag")
+        cases = {
+            "nuts": (lambda c: run_nuts(28, lp4, x0, c)[0],
+                     lambda c, d: ck.run_nuts_checkpointed(28, lp4, x0, c, d, chunk_size=16),
+                     nuts_cfg),
+            "nuts_ensemble": (lambda c: run_nuts_ensemble(28, lp4, x0, c, 8),
+                              lambda c, d: ck.run_nuts_ensemble_checkpointed(
+                                  28, lp4, x0, c, d, 8, chunk_size=16), nuts_cfg),
+            "mclmc": (lambda c: run_mclmc(28, lp4, x0, c),
+                      lambda c, d: ck.run_mclmc_checkpointed(28, lp4, x0, c, d, chunk_size=16),
+                      MCLMCConfig(num_samples=60, tune_steps=50)),
+            "mams": (lambda c: run_mams(28, lp4, x0, c),
+                     lambda c, d: ck.run_mams_checkpointed(28, lp4, x0, c, d, chunk_size=16),
+                     MAMSConfig(num_samples=40, num_steps_per_sample=5, burn=20)),
+        }
+        for name, (straight, resumable, cfg) in cases.items():
+            t0 = time.perf_counter()
+            want = straight(cfg)
+            resumable(dataclasses.replace(cfg, num_samples=cfg.num_samples // 2 + 3),
+                      f"{tmp}/{name}")
+            same[name] = same_tensors(torch, resumable(cfg, f"{tmp}/{name}"), want)
+            print(f"{name}: checkpointed (stopped at {cfg.num_samples // 2 + 3} of "
+                  f"{cfg.num_samples}, chunks of 16) against the straight run: identical "
+                  f"{same[name]}; {time.perf_counter() - t0:.1f} s")
+    if not all(same.values()):
+        raise SmokeError(f"checkpoint: a resumed run differs from its straight run: {same}")
+
+
 def tiny_card_vs_cpu(torch, device):
     """The port's tensor path is the same on the card as on the CPU."""
     from hamiltorch_tpu_torch import MCMCConfig, run_hmc_chains
@@ -1217,6 +1477,14 @@ def main() -> int:
     bnn_model_path(torch, device, card)
     print(f"bnn_model phase: {time.perf_counter() - t_model:.1f} s, kernel launches "
           f"{ {kernel.__name__: kernel.launches for kernel in kernel_fns} }")
+    # tree-doubling NUTS and checkpoint/resume: no kernel of the port on them
+    for phase, fn in (("nuts", nuts_path), ("checkpoint", checkpoint_path)):
+        for kernel in kernel_fns:
+            kernel.launches = 0
+        t_phase = time.perf_counter()
+        fn(torch, device, card)
+        print(f"{phase} phase: {time.perf_counter() - t_phase:.1f} s, kernel launches "
+              f"{ {kernel.__name__: kernel.launches for kernel in kernel_fns} }")
     print(f"main paths: {time.perf_counter() - t_paths:.1f} s")
 
     # 6. the tiny flagship, card vs CPU

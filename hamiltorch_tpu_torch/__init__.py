@@ -9,7 +9,10 @@ Ported so far: the HMC chain sampler (``sample`` for ``Sampler.HMC`` /
 ``HMC_NUTS`` with progress lines and ``store_on_GPU=False``, ``run_hmc``,
 ``run_hmc_chains``, ``run_hmc_host_offload``) with its potential, mass
 (block-diagonal included), leapfrog, dual-averaging, windowed mass warmup
-and driver layers; MCLMC (``run_mclmc``, ``run_mclmc_chains``); MAMS
+and driver layers; tree-doubling NUTS (``sample`` for ``Sampler.NUTS``,
+``run_nuts``, ``run_nuts_chains``, ``run_nuts_ensemble``,
+``samplers.run_nuts_host_offload``); checkpoint/resume for HMC, NUTS,
+MCLMC and MAMS (``checkpoint``); MCLMC (``run_mclmc``, ``run_mclmc_chains``); MAMS
 (``run_mams``, ``run_mams_chains``); the diagnostics (``diagnostics``:
 ESS, R-hat, ``summary``); model comparison (``waic``, ``psis_loo``,
 ``compare``); the BNN layer on ``torch.nn.Module``s (``sample_model``,
@@ -35,6 +38,7 @@ from .samplers.driver import MCMCConfig, MCMCResult, MCMCStats
 from .samplers.hmc import run_hmc, run_hmc_chains, run_hmc_host_offload
 from .samplers.mams import MAMSConfig, MAMSResult, run_mams, run_mams_chains
 from .samplers.mclmc import MCLMCConfig, MCLMCResult, run_mclmc, run_mclmc_chains
+from .samplers.nuts import NUTSConfig, run_nuts, run_nuts_chains, run_nuts_ensemble
 from .utils.rng import next_key, set_random_seed
 
 __all__ = [
@@ -50,6 +54,10 @@ __all__ = [
     "run_hmc",
     "run_hmc_chains",
     "run_hmc_host_offload",
+    "run_nuts",
+    "run_nuts_chains",
+    "run_nuts_ensemble",
+    "NUTSConfig",
     "MCMCConfig",
     "MCMCResult",
     "MCMCStats",

@@ -8,13 +8,16 @@ state after each draw ``n > burn``, as one (num_kept, D) tensor;
 the module-level generator set by ``set_random_seed`` supplies one.
 
 The port has the ``Sampler.HMC`` / ``Sampler.HMC_NUTS`` branch with the
-leapfrog integrator and windowed mass warmup (``adapt_mass``), progress
-lines (``progress_every``) and ``store_on_GPU=False``, which runs the chain
-in chunks and moves each chunk's trace to the host
-(``run_hmc_host_offload``): the samples then come back as a CPU tensor,
-the same numbers as with ``store_on_GPU=True``.  The other samplers and the
-splitting integrators raise ``NotImplementedError`` until they are ported
-(ROADMAP.md, queue 1).
+leapfrog integrator and the ``Sampler.NUTS`` branch (tree-doubling NUTS,
+``samplers/nuts.py``; it adapts the step size when ``burn > 0``), both with
+windowed mass warmup (``adapt_mass``), progress lines (``progress_every``)
+and ``store_on_GPU=False``, which runs the chain in chunks and moves each
+chunk's trace to the host (``run_hmc_host_offload``,
+``run_nuts_host_offload``): the samples then come back as a CPU tensor,
+the same numbers as with ``store_on_GPU=True``.  ``params_init`` that is
+not a tensor goes to the card (raises without one); a tensor keeps its
+device.  RMHMC and the splitting integrators raise ``NotImplementedError``
+until they are ported (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ import torch
 from .enums import Integrator, Metric, Sampler
 from .samplers.driver import MCMCConfig, MCMCResult
 from .samplers.hmc import run_hmc, run_hmc_host_offload
+from .samplers.nuts import NUTSConfig, run_nuts
+from .samplers.offload import run_nuts_host_offload
+from .utils.convert import place_start
 from .utils.rng import next_key
 
 _SPLITTING = (Integrator.SPLITTING, Integrator.SPLITTING_RAND, Integrator.SPLITTING_KMID)
@@ -86,7 +92,7 @@ def sample(
     the reference, the integrator argument is ignored by plain HMC unless
     it names a splitting scheme.
     """
-    params_init = torch.as_tensor(params_init)
+    params_init = place_start(params_init)
     if params_init.ndim != 1:
         raise RuntimeError("params_init must be a 1d array.")
     if not bool(torch.all(torch.isfinite(params_init))):
@@ -97,11 +103,12 @@ def sample(
         raise RuntimeError("burn must be divisible by thin.")
     if sampler == Sampler.HMC_NUTS and burn == 0:
         raise RuntimeError("burn must be greater than 0 for NUTS.")
-    if sampler not in (Sampler.HMC, Sampler.HMC_NUTS):
+    if sampler not in (Sampler.HMC, Sampler.HMC_NUTS, Sampler.NUTS):
         raise _not_ported(f"sampler={sampler}")
     if integrator in _SPLITTING or isinstance(log_prob_func, (list, tuple)):
         raise _not_ported("split HMC (the splitting integrators)")
-    if adapt_mass and burn <= 0:
+    # NUTS ignores adapt_mass without a warmup phase, as in the JAX package
+    if adapt_mass and sampler in (Sampler.HMC, Sampler.HMC_NUTS) and burn <= 0:
         raise RuntimeError("adapt_mass requires burn > 0 (the warmup phase).")
     if key is None:
         key = next_key()
@@ -113,7 +120,7 @@ def sample(
         def log_prob_func(t):
             return orig(t)[0]
 
-    adapt = sampler == Sampler.HMC_NUTS
+    adapt = sampler == Sampler.HMC_NUTS or (sampler == Sampler.NUTS and burn > 0)
     config = MCMCConfig(
         num_samples=num_samples,
         num_steps_per_sample=num_steps_per_sample,
@@ -127,9 +134,27 @@ def sample(
     )
     # the reference's store_on_GPU=False moves the trace to the host per
     # draw (samplers.py:956-959); here per chunk
-    runner = run_hmc if store_on_GPU else run_hmc_host_offload
-    result = runner(key, log_prob_func, params_init, config,
-                    inv_mass=inv_mass, pass_grad=pass_grad)
+    if sampler == Sampler.NUTS:
+        nuts_config = NUTSConfig(
+            num_samples=num_samples,
+            step_size=step_size,
+            burn=max(burn, 0),
+            adapt_step_size=burn > 0,
+            desired_accept_rate=desired_accept_rate,
+            adapt_mass=adapt_mass,
+            progress_every=progress_every,
+            thin=thin,
+        )
+        if store_on_GPU:
+            result, _ = run_nuts(key, log_prob_func, params_init, nuts_config,
+                                 inv_mass=inv_mass, pass_grad=pass_grad)
+        else:
+            result = run_nuts_host_offload(key, log_prob_func, params_init, nuts_config,
+                                           inv_mass=inv_mass, pass_grad=pass_grad)
+    else:
+        runner = run_hmc if store_on_GPU else run_hmc_host_offload
+        result = runner(key, log_prob_func, params_init, config,
+                        inv_mass=inv_mass, pass_grad=pass_grad)
 
     samples = _kept_samples(params_init, result, burn, thin=thin)
     if debug == 1:

@@ -1,0 +1,666 @@
+"""Chunked sampling with checkpoint/resume.
+
+Counterpart of ``hamiltorch_tpu/checkpoint.py`` for the families the port
+has: single-chain and batched HMC (``run_hmc_checkpointed``,
+``run_hmc_chains_checkpointed``), tree-doubling NUTS
+(``run_nuts_checkpointed``) and its pooled ensemble
+(``run_nuts_ensemble_checkpointed``), MCLMC (``run_mclmc_checkpointed``) and
+MAMS (``run_mams_checkpointed``).  Sampling proceeds in chunks; after every
+chunk its trace goes to ``chunk_XXXXXXXX.npz`` and the whole resume carry
+(chain state with its cached potential evaluation, dual averaging, the
+windowed-warmup carry where there is one, MCLMC's tuned (eps, L) and
+velocity) to ``state.npz``, written atomically, with the integer seed and
+the draw counter.  Calling again with the same arguments continues where the
+last completed chunk stopped.
+
+Every draw's noise is keyed on (seed, chain, global draw index)
+(``utils/rng.py``) and the port runs eagerly, so a resumed or chunked run
+equals the straight run bit for bit at ANY chunking (the JAX package
+promises it at the same chunking only: its chunked and straight programs
+compile differently).
+
+Safety: the state file holds a fingerprint of the configuration (the
+fields that change the stream), the chain's shape, dtype and tree
+structure, and this package's name: resuming a directory written under
+other arguments, or by the JAX package, raises ``ValueError`` instead of
+splicing two runs.  The files are the port's own format: numpy archives of
+tensors, bfloat16 stored as its 16-bit pattern (numpy has no bfloat16) and
+restored exactly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .samplers.adaptation import DualAveragingState, da_init
+from .samplers.driver import ChainState, MCMCResult, MCMCStats
+from .utils.convert import place_start
+from .utils.pytree import is_param_tree, tree_leaves, tree_map, tree_structure, tree_unflatten_like
+
+PACKAGE = "hamiltorch_tpu_torch"
+_STATE_FILE = "state.npz"
+# the names of the entries of an archive stored as bfloat16 bit patterns
+_BF16 = "_bfloat16_entries"
+
+# config fields that do not change the sampled stream: changing them
+# between resumes must not invalidate the checkpoint
+_COSMETIC_FIELDS = {"num_samples", "progress_every"}
+
+
+def _fingerprint(config, theta0, extra=None) -> str:
+    """Stable hash of the configuration, the chain's shape, dtype and tree
+    structure, ``extra`` (other stream-changing options, by repr) and this
+    package's name."""
+    if is_param_tree(theta0):
+        leaves = tree_leaves(theta0)
+        shape = [list(leaf.shape) for leaf in leaves]
+        dtype = [str(leaf.dtype) for leaf in leaves]
+        tdef = repr(tree_structure(theta0))
+    else:
+        shape, dtype, tdef = list(theta0.shape), str(theta0.dtype), None
+    payload = {
+        "package": PACKAGE,
+        "config_type": type(config).__name__,
+        "config": {
+            f.name: repr(getattr(config, f.name))
+            for f in dataclasses.fields(config)
+            if f.name not in _COSMETIC_FIELDS
+        },
+        "theta_shape": shape,
+        "theta_dtype": dtype,
+        "extra": repr(extra),
+    }
+    if tdef is not None:
+        payload["theta_treedef"] = tdef
+    return hashlib.sha256(json.dumps(payload, sort_keys=True).encode()).hexdigest()
+
+
+def _np_savable(t: torch.Tensor) -> tuple[np.ndarray, bool]:
+    """(host array, is_bfloat16): a tensor as numpy can store it; a bfloat16
+    tensor as its 16-bit pattern, which ``_tensor_of`` turns back exactly."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy(), True
+    return t.numpy(), False
+
+
+def _archive(entries: dict) -> dict:
+    """``np.savez`` keyword arguments for ``{name: tensor}``."""
+    out, bf16 = {}, []
+    for name, t in entries.items():
+        out[name], is_bf16 = _np_savable(t)
+        if is_bf16:
+            bf16.append(name)
+    out[_BF16] = np.asarray(bf16, dtype=str)
+    return out
+
+
+def _tensor_of(z, name: str) -> torch.Tensor:
+    """Entry ``name`` of an archive written by ``_archive`` as a CPU tensor."""
+    a = z[name]
+    if name in set(z[_BF16].tolist()):
+        return torch.from_numpy(np.array(a, copy=True)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _save_state(path: str, carry, seed: int, n_done: int, fingerprint: str) -> None:
+    tmp = path + ".tmp.npz"  # keep .npz so np.savez appends nothing
+    entries = {f"leaf_{i}": leaf for i, leaf in enumerate(tree_leaves(carry))}
+    np.savez(tmp, n_done=np.asarray(n_done), seed=np.asarray(str(int(seed))),
+             fingerprint=np.asarray(fingerprint), **_archive(entries))
+    os.replace(tmp, path)
+
+
+def _load_state(path: str, carry_template, fingerprint: str):
+    """(carry, seed, n_done) of a state file; each leaf takes the device and
+    dtype of the template's."""
+    z = np.load(path)
+    if "fingerprint" not in z.files or str(z["fingerprint"]) != fingerprint:
+        raise ValueError(
+            f"checkpoint at {path} was written under a different configuration "
+            "(config/shape/dtype/package fingerprint mismatch); pass resume=False "
+            "to start over, or restore the original arguments to continue that run."
+        )
+    template = tree_leaves(carry_template)
+    leaves = [_tensor_of(z, f"leaf_{i}").to(device=t.device, dtype=t.dtype)
+              for i, t in enumerate(template)]
+    return tree_unflatten_like(carry_template, leaves), int(str(z["seed"])), int(z["n_done"])
+
+
+def _flatten_chunk_dict(d: dict) -> dict:
+    """``{name: tensor}`` of a chunk: a tree value (a tree state's trace)
+    becomes per-leaf ``<name>__leaf_<i>`` entries."""
+    out = {}
+    for k, v in d.items():
+        leaves = tree_leaves(v)
+        if len(leaves) == 1 and leaves[0] is v:
+            out[k] = v
+        else:
+            out.update({f"{k}__leaf_{i}": leaf for i, leaf in enumerate(leaves)})
+    return out
+
+
+def _checkpoint_loop(chunk_runner, key: int, carry_template, init_carry_fn, config,
+                     ckpt_dir: str, chunk_size: int, resume: bool, fingerprint: str,
+                     save_chunk):
+    """Run chunks until ``config.num_samples`` draws are done.
+
+    ``chunk_runner(seed, carry, n_done, cfg) -> (result, new_carry)``;
+    ``save_chunk(result) -> {name: tensor or tree}`` for the chunk file.
+    ``carry_template`` has the carry's structure, devices and dtypes (it
+    places a loaded state); ``init_carry_fn()`` computes the real initial
+    carry (it may evaluate the potential, so it runs only when NOT
+    resuming).  Returns the chunk archives (oldest first) and the final
+    carry.
+    """
+    os.makedirs(ckpt_dir, exist_ok=True)
+    state_path = os.path.join(ckpt_dir, _STATE_FILE)
+    if resume and os.path.exists(state_path):
+        carry, seed, n_done = _load_state(state_path, carry_template, fingerprint)
+    else:
+        for f in os.listdir(ckpt_dir):
+            if f.startswith("chunk_") or f == _STATE_FILE:
+                os.remove(os.path.join(ckpt_dir, f))
+        carry, seed, n_done = init_carry_fn(), key, 0
+
+    # chunks hold whole thinning windows
+    thin = max(getattr(config, "thin", 1), 1)
+    chunk_size = max(thin, (chunk_size // thin) * thin)
+    progress = getattr(config, "progress_every", 0)
+    t0, n_start = time.time(), n_done
+    while n_done < config.num_samples:
+        this_chunk = min(chunk_size, config.num_samples - n_done)
+        overrides = {"num_samples": this_chunk}
+        if progress:
+            # the loop reports per completed chunk instead of per draw
+            overrides["progress_every"] = 0
+        cfg = dataclasses.replace(config, **overrides)
+        result, carry = chunk_runner(seed, carry, n_done, cfg)
+        np.savez(os.path.join(ckpt_dir, f"chunk_{n_done:08d}.npz"),
+                 **_archive(_flatten_chunk_dict(save_chunk(result))))
+        n_done += this_chunk
+        _save_state(state_path, carry, seed, n_done, fingerprint)
+        if progress:
+            rate = (n_done - n_start) / max(time.time() - t0, 1e-9)
+            print(f"checkpoint: {n_done}/{config.num_samples} draws saved "
+                  f"({rate:,.1f} draws/sec)")
+
+    chunks = sorted(f for f in os.listdir(ckpt_dir)
+                    if f.startswith("chunk_") and f.endswith(".npz"))
+    return [np.load(os.path.join(ckpt_dir, f)) for f in chunks], carry
+
+
+def _cat(zs, name: str, axis: int, kept: int, device, like=None):
+    """Entry ``name`` of every chunk joined along ``axis``, cut to ``kept``
+    rows, on ``device``; a tree entry is rebuilt like ``like``."""
+    take = (slice(None),) * axis + (slice(None, kept),)
+
+    def one(entry):
+        return torch.cat([_tensor_of(z, entry) for z in zs], dim=axis)[take].to(device)
+
+    if name in zs[0].files:
+        return one(name)
+    return tree_unflatten_like(like, [one(f"{name}__leaf_{i}")
+                                      for i in range(len(tree_leaves(like)))])
+
+
+def _da_tuple(da: DualAveragingState) -> tuple:
+    return (da.step_size, da.log_eps_bar, da.h_t, da.mu)
+
+
+def _da_of(t) -> DualAveragingState:
+    return DualAveragingState(*t)
+
+
+def _assemble_mcmc(zs, config, carry, time_axis: int = 0, acc_from_prob: bool = False):
+    """The chunk archives as one MCMCResult; ``carry`` is ``(state, da
+    tuple[, warm])`` in the result's layout.  A directory from a longer run
+    may hold more draws: exactly the draws this config asks for come back.
+    """
+    state, da = carry[0], _da_of(carry[1])
+    device = tree_leaves(state.theta)[0].device
+    kept = config.num_samples // max(getattr(config, "thin", 1), 1)
+    samples = _cat(zs, "samples", time_axis, kept, device, like=state.theta)
+    stats = MCMCStats(**{f: _cat(zs, f, time_axis, kept, device) for f in MCMCStats._fields})
+    if acc_from_prob:
+        acc_rate = torch.mean(stats.accept_prob, dim=time_axis)
+    else:
+        # transition-weighted mean of the chunks' rates: with thin > 1 the
+        # stats hold each window's last transition only
+        remaining, num = kept, 0.0
+        for z in zs:
+            rows = z["accepted"].shape[time_axis]
+            take = min(rows, remaining)
+            if take == rows:
+                rate = _tensor_of(z, "acc_rate").double().numpy()
+            else:  # a boundary chunk of a longer run: the kept rows' outcomes
+                acc = np.asarray(z["accepted"], np.float64)
+                rate = np.mean(acc[(slice(None),) * time_axis + (slice(None, take),)],
+                               axis=time_axis)
+            num = num + rate * take
+            remaining -= take
+            if remaining <= 0:
+                break
+        acc_rate = torch.as_tensor(num / max(kept, 1), dtype=stats.energy_old.dtype,
+                                   device=device)
+    return MCMCResult(samples=samples, stats=stats, final_step_size=da.step_size,
+                      acc_rate=acc_rate, final_state=state, final_da=da,
+                      final_warm=carry[2] if len(carry) > 2 else None)
+
+
+def _mcmc_chunk_fields(result: MCMCResult) -> dict:
+    out = {"samples": result.samples}
+    out.update({f: getattr(result.stats, f) for f in MCMCStats._fields})
+    out["acc_rate"] = result.acc_rate  # the chunk's exact rate (thin-aware)
+    return out
+
+
+def _chain_state_template(theta) -> ChainState:
+    """The structure of a batch's ChainState (leading chain axis), no
+    potential evaluation."""
+    leaf = tree_leaves(theta)[0]
+    return ChainState(theta, leaf.new_zeros(leaf.shape[:1]), tree_map(torch.zeros_like, theta))
+
+
+def _first(tree):
+    """A one-chain batch's tree without its chain axis."""
+    return tree_map(lambda t: t[0], tree)
+
+
+def _hmc_runner(key, lp, theta0, config, mass, ckpt_dir, chunk_size, resume, one_chain: bool):
+    """The checkpoint loop of ``_run_hmc_batched`` over the chains of
+    ``theta0`` (leading axis); the carry holds the batch's state, dual
+    averaging and, with windowed warmup, its carry."""
+    from .samplers.hmc import _first_chain, _run_hmc_batched, init_chain_state
+    from .samplers.nuts import init_metric_seed
+    from .samplers.warmup import schedule_flags
+
+    leaves = tree_leaves(theta0)
+    c, dtype, device = leaves[0].shape[0], leaves[0].dtype, leaves[0].device
+    windowed = bool(config.adapt_mass) and config.burn > 0
+    da0 = _da_tuple(da_init(torch.full((c,), config.step_size, dtype=dtype, device=device),
+                            dtype=dtype, device=device))
+    tail = ()
+    if windowed:
+        template = getattr(mass, "template", None)
+        seed_mass = mass.inner if template is not None else mass
+        dim = sum(leaf[0].numel() for leaf in leaves)
+        wf0, metric0 = init_metric_seed(seed_mass, dim, dtype, config.adapt_mass == "dense",
+                                        device, (c,))
+        tail = ((wf0, metric0, torch.zeros(c, dtype=torch.int32, device=device)),)
+
+    def init_carry_fn():
+        states = torch.func.vmap(lambda t: init_chain_state(lp, t))(theta0)
+        return (states, da0) + tail
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        cf = ef = None
+        if windowed:
+            # each chunk takes its slice of the GLOBAL warmup schedule
+            cf, ef = schedule_flags(config.burn, n_done, cfg.num_samples)
+        res = _run_hmc_batched(seed, theta0, lp, cfg, mass, init_state=carry[0],
+                               init_da=_da_of(carry[1]), start_iter=n_done,
+                               init_warm=carry[2] if windowed else None,
+                               collect_flags=cf, end_flags=ef)
+        new = (res.final_state, _da_tuple(res.final_da)) + ((res.final_warm,) if windowed else ())
+        return (_first_chain(res) if one_chain else res), new
+
+    fp = _fingerprint(config, _first(theta0) if one_chain else theta0)
+    zs, carry = _checkpoint_loop(chunk_runner, key, (_chain_state_template(theta0), da0) + tail,
+                                 init_carry_fn, config, ckpt_dir, chunk_size, resume, fp,
+                                 _mcmc_chunk_fields)
+    if one_chain:
+        return _assemble_mcmc(zs, config, _first(carry))
+    return _assemble_mcmc(zs, config, carry, time_axis=1)
+
+
+def run_hmc_checkpointed(
+    key: int,
+    log_prob_fn: Callable[[torch.Tensor], torch.Tensor],
+    theta0,
+    config,  # MCMCConfig
+    ckpt_dir: str,
+    chunk_size: int = 100,
+    inv_mass=None,
+    pass_grad=None,
+    resume: bool = True,
+) -> MCMCResult:
+    """HMC (``run_hmc``) with per-chunk checkpointing into ``ckpt_dir``.
+
+    Interrupt at any point; calling again with ``resume=True`` (the default)
+    continues from the last completed chunk and returns the whole result,
+    ``run_hmc``'s with the same key bit for bit (``acc_rate`` within
+    rounding: it is summed per chunk).  ``theta0`` is a flat tensor or a
+    parameter tree; a start that is not a tensor goes to the card.
+    """
+    from .samplers.hmc import _one_chain
+
+    lp, stacked, mass = _one_chain(log_prob_fn, theta0, config, inv_mass, pass_grad)
+    return _hmc_runner(key, lp, stacked, config, mass, ckpt_dir, chunk_size, resume, True)
+
+
+def run_hmc_chains_checkpointed(
+    key: int,
+    log_prob_fn: Callable[[torch.Tensor], torch.Tensor],
+    theta0,
+    config,  # MCMCConfig
+    ckpt_dir: str,
+    num_chains: int,
+    chunk_size: int = 100,
+    inv_mass=None,
+    pass_grad=None,
+    resume: bool = True,
+    theta0_is_stacked: bool | None = None,
+) -> MCMCResult:
+    """Batched HMC chains (``run_hmc_chains``) with per-chunk checkpointing;
+    samples and stats come back chain-major as from ``run_hmc_chains``, bit
+    for bit."""
+    from .ops.potential import resolve_potential
+    from .samplers.hmc import _mass_for
+    from .utils.pytree import stack_param_tree
+
+    lp = resolve_potential(log_prob_fn, pass_grad)
+    theta0 = place_start(theta0)
+    if is_param_tree(theta0):
+        template, theta0 = stack_param_tree(theta0, num_chains, stacked=theta0_is_stacked)
+    else:
+        template = None
+        if theta0.ndim == 1:
+            theta0 = theta0.expand((num_chains,) + tuple(theta0.shape)).clone()
+    mass = _mass_for(theta0, template, inv_mass, config)
+    return _hmc_runner(key, lp, theta0, config, mass, ckpt_dir, chunk_size, resume, False)
+
+
+def _nuts_carry(theta0, config, mass, pooled: bool):
+    """(template, da0 tuple, warm0) of a NUTS batch: the carry's seed, as
+    ``_run_nuts_batched`` builds it."""
+    from .samplers.nuts import init_metric_seed
+
+    leaves = tree_leaves(theta0)
+    c, dtype, device = leaves[0].shape[0], leaves[0].dtype, leaves[0].device
+    batch = () if pooled else (c,)
+    windowed = bool(config.adapt_mass) and config.burn > 0
+    template = getattr(mass, "template", None)
+    seed_mass = mass.inner if template is not None else mass
+    dim = sum(leaf[0].numel() for leaf in leaves)
+    wf0, metric0 = init_metric_seed(seed_mass, dim, dtype,
+                                    windowed and config.adapt_mass == "dense", device, batch)
+    da0 = _da_tuple(da_init(torch.full(batch, config.step_size, dtype=dtype, device=device),
+                            dtype=dtype, device=device))
+    return da0, (wf0, metric0, torch.zeros(batch, dtype=torch.int32, device=device))
+
+
+def _nuts_chunk_runner(lp, theta0, config, mass, pooled: bool):
+    from .samplers.nuts import _run_nuts_batched
+    from .samplers.warmup import schedule_flags
+
+    windowed = bool(config.adapt_mass) and config.burn > 0
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        collect, end = schedule_flags(config.burn if windowed else 0, n_done, cfg.num_samples)
+        res, info = _run_nuts_batched(seed, theta0, lp, cfg, mass, pooled=pooled,
+                                      init_state=carry[0], init_da=_da_of(carry[1]),
+                                      start_iter=n_done, init_warm=carry[2],
+                                      collect_flags=collect, end_flags=end)
+        return (res, info), (res.final_state, _da_tuple(res.final_da), res.final_warm)
+
+    return chunk_runner
+
+
+def _nuts_init_fn(lp, theta0, da0, warm0):
+    from .ops.potential import value_and_grad
+
+    def init_carry_fn():
+        logp, grad = torch.func.vmap(value_and_grad(lp))(theta0)
+        return (ChainState(theta0, logp, grad), da0, warm0)
+
+    return init_carry_fn
+
+
+def run_nuts_checkpointed(
+    key: int,
+    log_prob_fn: Callable[[torch.Tensor], torch.Tensor],
+    theta0,
+    config,  # NUTSConfig
+    ckpt_dir: str,
+    chunk_size: int = 100,
+    inv_mass=None,
+    resume: bool = True,
+) -> MCMCResult:
+    """Tree-doubling NUTS (``run_nuts``) with per-chunk checkpointing.
+
+    ``adapt_mass`` windowed warmup resumes exactly: the Welford state, the
+    metric and the window-relative dual-averaging counter are in the state
+    file, and each chunk takes its slice of the global window schedule.
+    Returns the MCMCResult (the per-draw NUTSInfo beyond MCMCStats is not
+    kept), ``run_nuts``'s bit for bit; ``acc_rate`` is the mean acceptance
+    statistic.
+    """
+    from .ops.potential import resolve_potential
+    from .samplers.hmc import _first_chain
+    from .samplers.nuts import _prepare_one
+
+    lp = resolve_potential(log_prob_fn, None)
+    stacked, mass = _prepare_one(theta0, config, inv_mass)
+    da0, warm0 = _nuts_carry(stacked, config, mass, pooled=False)
+    run = _nuts_chunk_runner(lp, stacked, config, mass, pooled=False)
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        (res, _), new = run(seed, carry, n_done, cfg)
+        return res, new
+
+    zs, carry = _checkpoint_loop(
+        chunk_runner, key, (_chain_state_template(stacked), da0, warm0),
+        _nuts_init_fn(lp, stacked, da0, warm0), config, ckpt_dir, chunk_size, resume,
+        _fingerprint(config, _first(stacked)),
+        lambda res: _mcmc_chunk_fields(_first_chain(res)))
+    # NUTS has no Metropolis test: the rate is the mean acceptance statistic
+    return _assemble_mcmc(zs, config, _first(carry), acc_from_prob=True)
+
+
+def run_nuts_ensemble_checkpointed(
+    key: int,
+    log_prob_fn,
+    theta0,
+    config,  # NUTSConfig
+    ckpt_dir: str,
+    num_chains: int = 16,
+    chunk_size: int = 100,
+    inv_mass=None,
+    resume: bool = True,
+    mesh=None,
+    theta0_is_stacked: bool | None = None,
+):
+    """Pooled-adaptation ensemble NUTS (``run_nuts_ensemble``) with per-chunk
+    checkpointing.  The pooled carry (chain states with their potential
+    evaluations, the shared dual averaging, the Chan-merged Welford state
+    and the window-relative counter) is in the state file, and each chunk
+    takes its slice of the global warmup schedule.  Returns (MCMCResult,
+    NUTSInfo) in ``run_nuts_ensemble``'s layout, bit for bit.  ``mesh=``
+    (the sharded ensemble) is not ported and raises.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the sharded NUTS ensemble) is not ported to hamiltorch_tpu_torch; "
+            "see ROADMAP.md, queue 1 item 15"
+        )
+    from .ops.potential import resolve_potential
+    from .samplers.nuts import NUTSInfo, _prepare_chains, _time_major
+
+    lp = resolve_potential(log_prob_fn, None)
+    theta0, mass = _prepare_chains(theta0, config, num_chains, inv_mass, theta0_is_stacked)
+    da0, warm0 = _nuts_carry(theta0, config, mass, pooled=True)
+    run = _nuts_chunk_runner(lp, theta0, config, mass, pooled=True)
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        (res, info), new = run(seed, carry, n_done, cfg)
+        return _time_major(res, info), new
+
+    def save_chunk(chunk):
+        res, info = chunk
+        out = {"samples": res.samples, "accepted": res.stats.accepted}
+        out.update({f: getattr(info, f) for f in NUTSInfo._fields})
+        return out
+
+    zs, carry = _checkpoint_loop(
+        chunk_runner, key, (_chain_state_template(theta0), da0, warm0),
+        _nuts_init_fn(lp, theta0, da0, warm0), config, ckpt_dir, chunk_size, resume,
+        _fingerprint(config, theta0), save_chunk)
+    state, da = carry[0], _da_of(carry[1])
+    device = tree_leaves(state.theta)[0].device
+    kept = config.num_samples // config.thin
+    info = NUTSInfo(**{f: _cat(zs, f, 0, kept, device) for f in NUTSInfo._fields})
+    stats = MCMCStats(
+        accept_prob=info.accept_prob,
+        accepted=_cat(zs, "accepted", 0, kept, device),
+        divergent=info.divergent,
+        energy_old=info.energy,
+        energy_new=info.energy_new,
+        step_size=info.step_size,
+        fp_iters=torch.zeros_like(info.tree_depth),
+        fp_residual=torch.zeros_like(info.accept_prob),
+    )
+    return MCMCResult(
+        samples=_cat(zs, "samples", 1, kept, device, like=state.theta),
+        stats=stats,
+        final_step_size=da.step_size,
+        acc_rate=info.accept_prob.mean(),
+        final_state=state,
+        final_da=da,
+        final_warm=carry[2],
+    ), info
+
+
+def run_mclmc_checkpointed(
+    key: int,
+    log_prob_fn: Callable,
+    theta0,
+    config,  # MCLMCConfig
+    ckpt_dir: str,
+    chunk_size: int = 1000,
+    data=None,
+    resume: bool = True,
+    pass_grad=None,
+):
+    """MCLMC (``run_mclmc``) with per-chunk checkpointing.
+
+    The FIRST chunk runs the tuning phase (``config.tune_steps``); the tuned
+    (eps, L) and the velocity are in the state file and every later chunk
+    runs frozen from them.  Each step's noise is keyed on the global step
+    index, so the assembled trace is ``run_mclmc``'s with the same key bit
+    for bit.  ``chunk_size`` counts transitions (rounded to a ``thin``
+    multiple); ``theta0`` may be flat or a parameter tree.
+    """
+    from .samplers.mclmc import (
+        MCLMCResult,
+        MCLMCStats,
+        _bind_data,
+        _prep_flat,
+        _run_chains,
+        _seed_scales,
+    )
+
+    theta0 = place_start(theta0)
+    theta0f, fn, unravel = _prep_flat(_bind_data(log_prob_fn, data), theta0, pass_grad)
+    theta = theta0f[None]
+    eps0, length0 = _seed_scales(config, theta0f.shape[0], 1, theta0f.device)
+    # (theta, u, eps, L); the velocity is a placeholder until the first chunk
+    # has run (the straight run draws it inside from the seed)
+    carry0 = (theta, torch.zeros_like(theta), eps0, length0)
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        x, u, eps, length = carry
+        if n_done == 0:
+            r = _run_chains(seed, x, eps, length, fn, cfg)
+        else:
+            r = _run_chains(seed, x, eps, length, fn, dataclasses.replace(cfg, tune_steps=0),
+                            init_u=u, start_step=n_done)
+        return r, (r.final_theta, r.final_u, r.step_size, r.trajectory_length)
+
+    def save_chunk(r):
+        out = {"samples": r.samples[0]}
+        out.update({f: getattr(r.stats, f)[0] for f in MCLMCStats._fields})
+        return out
+
+    zs, carry = _checkpoint_loop(chunk_runner, key, carry0, lambda: carry0, config, ckpt_dir,
+                                 chunk_size, resume,
+                                 _fingerprint(config, theta0, extra="mclmc"), save_chunk)
+    kept = config.num_samples // config.thin
+    device = theta0f.device
+    x, u, eps, length = _first(carry)
+    samples = _cat(zs, "samples", 0, kept, device)
+    stats = MCLMCStats(**{f: _cat(zs, f, 0, kept, device) for f in MCLMCStats._fields})
+    if unravel is not None:
+        samples, x = unravel(samples), unravel(x)
+    return MCLMCResult(samples=samples, stats=stats, step_size=eps, trajectory_length=length,
+                       final_theta=x, final_u=u,
+                       final_step=torch.tensor(config.num_samples, dtype=torch.int32,
+                                               device=device))
+
+
+def run_mams_checkpointed(
+    key: int,
+    log_prob_fn: Callable,
+    theta0,
+    config,  # MAMSConfig
+    ckpt_dir: str,
+    chunk_size: int = 1000,
+    data=None,
+    resume: bool = True,
+    pass_grad=None,
+):
+    """MAMS (``run_mams``) with per-chunk checkpointing.
+
+    The dual-averaging state is in the state file; ``config.burn`` is a
+    global draw index, so adaptation continues across chunk boundaries and
+    freezes at the straight run's draw.  Each draw's noise is keyed on the
+    global index: the assembled trace is ``run_mams``'s with the same key
+    bit for bit.  ``chunk_size`` counts draws (rounded to a ``thin``
+    multiple); ``theta0`` may be flat or a parameter tree.
+    """
+    from .samplers.mams import MAMSResult, MAMSStats, _run_chains
+    from .samplers.mclmc import _bind_data, _prep_flat
+
+    if config.burn >= config.num_samples:
+        raise RuntimeError("burn must be less than num_samples.")
+    theta0 = place_start(theta0)
+    theta0f, fn, unravel = _prep_flat(_bind_data(log_prob_fn, data), theta0, pass_grad)
+    device = theta0f.device
+    da0 = _da_tuple(da_init(torch.full((1,), config.step_size, dtype=torch.float32,
+                                       device=device)))
+    carry0 = (theta0f[None], da0)
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        r = _run_chains(seed, carry[0], fn, cfg, init_da=_da_of(carry[1]), start_step=n_done)
+        return r, (r.final_theta, _da_tuple(r.final_da))
+
+    def save_chunk(r):
+        out = {"samples": r.samples[0]}
+        out.update({f: getattr(r.stats, f)[0] for f in MAMSStats._fields})
+        return out
+
+    zs, carry = _checkpoint_loop(chunk_runner, key, carry0, lambda: carry0, config, ckpt_dir,
+                                 chunk_size, resume,
+                                 _fingerprint(config, theta0, extra="mams"), save_chunk)
+    kept = config.num_samples // config.thin
+    x, da = _first(carry[0]), _da_of(_first(carry[1]))
+    samples = _cat(zs, "samples", 0, kept, device)
+    stats = MAMSStats(**{f: _cat(zs, f, 0, kept, device) for f in MAMSStats._fields})
+    burn_kept = config.burn // config.thin
+    acc_rate = (stats.accept_prob[burn_kept:] if kept > burn_kept else stats.accept_prob).mean()
+    if unravel is not None:
+        samples, x = unravel(samples), unravel(x)
+    return MAMSResult(samples=samples, stats=stats,
+                      step_size=torch.exp(da.log_eps_bar) if config.adapt_step_size
+                      else da.step_size,
+                      acc_rate=acc_rate, final_theta=x, final_da=da,
+                      final_step=torch.tensor(config.num_samples, dtype=torch.int32,
+                                              device=device))

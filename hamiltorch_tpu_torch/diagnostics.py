@@ -261,14 +261,18 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
     - ``MCMCResult`` (``run_hmc`` / ``run_hmc_chains``): acceptance rate,
       divergences, the trajectory-start energy (the E-BFMI series) and
       step size;
+    - ``(MCMCResult, NUTSInfo)`` (``run_nuts*``, or ``info=``): the same
+      from the ``NUTSInfo``, with ``tree_depth`` and ``n_steps`` (leapfrogs)
+      besides; a 2-d info is read chains first, as the JAX package reads it
+      (so the ensemble's time-major info comes back (draw, chain));
     - ``MCLMCResult`` (``run_mclmc*``): no acceptance series; the per-draw
       energy change and the tuned per-chain step size and trajectory
       length broadcast over draws;
     - ``MAMSResult`` (``run_mams*``): acceptance, divergences, energy
       change and step size.
 
-    Other families (NUTS, ChEES, tempering, SG-MCMC, ...) are not ported
-    yet and raise ``NotImplementedError``.  ``like`` is accepted for
+    Other families (ChEES, tempering, SG-MCMC, ...) are not ported yet and
+    raise ``NotImplementedError``.  ``like`` is accepted for
     symmetry with ``summary``: the stats' shapes give the chain and draw
     axes.
     """
@@ -278,12 +282,26 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
         arr = _np(x)
         return arr if chains_first else arr[None]
 
-    if info is not None or not hasattr(result, "samples"):
+    # run_nuts / run_nuts_chains / run_nuts_ensemble return (result, info)
+    if not hasattr(result, "samples") and isinstance(result, tuple) and len(result) == 2:
+        result, info = result
+    if not hasattr(result, "samples"):
         raise NotImplementedError(
             "to_inference_dict takes the results of the samplers ported to "
-            "hamiltorch_tpu_torch (MCMCResult, MCLMCResult, MAMSResult); "
-            "NUTS and the other families are not ported yet, see ROADMAP.md"
+            "hamiltorch_tpu_torch (MCMCResult, with a NUTSInfo for NUTS, "
+            "MCLMCResult, MAMSResult); the other families are not ported "
+            "yet, see ROADMAP.md"
         )
+    if info is not None:  # NUTS
+        chains_first = info.accept_prob.ndim == 2
+        return {"posterior": _posterior_vars(result.samples, chains_first), "sample_stats": {
+            "acceptance_rate": cn(info.accept_prob, chains_first),
+            "diverging": cn(info.divergent, chains_first),
+            "energy": cn(info.energy, chains_first),
+            "step_size": cn(info.step_size, chains_first),
+            "tree_depth": cn(info.tree_depth, chains_first),
+            "n_steps": cn(info.num_leapfrogs, chains_first),
+        }}
     s = result.stats
     if hasattr(result, "final_u"):  # MCLMCResult
         chains_first = s.energy_change.ndim == 2

@@ -3,6 +3,8 @@ from .driver import ChainState, MCMCConfig, MCMCResult, MCMCStats, run_mcmc
 from .hmc import hmc_transition, run_hmc, run_hmc_chains, run_hmc_host_offload
 from .mams import MAMSConfig, MAMSResult, MAMSStats, run_mams, run_mams_chains
 from .mclmc import MCLMCConfig, MCLMCResult, MCLMCStats, run_mclmc, run_mclmc_chains
+from .nuts import NUTSConfig, NUTSInfo, run_nuts, run_nuts_chains, run_nuts_ensemble
+from .offload import run_nuts_host_offload
 
 # the JAX package's list (hamiltorch_tpu/samplers/__init__.py), in its order,
 # for the samplers ported so far
@@ -15,7 +17,13 @@ __all__ = [
     "run_hmc",
     "run_hmc_chains",
     "hmc_transition",
+    "NUTSConfig",
+    "NUTSInfo",
+    "run_nuts",
+    "run_nuts_chains",
+    "run_nuts_ensemble",
     "run_hmc_host_offload",
+    "run_nuts_host_offload",
     "MCLMCConfig",
     "MCLMCResult",
     "MCLMCStats",

@@ -29,6 +29,7 @@ from ..ops.mass import (
     make_mass_tree,
 )
 from ..ops.potential import resolve_potential, value_and_grad
+from ..utils.convert import place_start
 from ..utils.pytree import is_param_tree, stack_param_tree, tree_leaves, tree_map
 from .driver import ChainState, MCMCConfig, MCMCResult, TransitionFn, run_mcmc
 from .offload import host_offload_loop
@@ -166,11 +167,11 @@ def run_hmc(
 def _one_chain(log_prob_fn, theta0, config, inv_mass, pass_grad):
     """(potential, theta0 with a chain axis of 1, mass) of a single-chain entry."""
     lp = resolve_potential(log_prob_fn, pass_grad)
+    theta0 = place_start(theta0)
     if is_param_tree(theta0):
         template, stacked = stack_param_tree(theta0, 1, stacked=False)
     else:
-        template, theta0 = None, torch.as_tensor(theta0)
-        stacked = theta0[None]
+        template, stacked = None, theta0[None]
     return lp, stacked, _mass_for(theta0, template, inv_mass, config)
 
 
@@ -257,10 +258,11 @@ def run_hmc_chains(
     replaces the drawn noise (a test hook).
     """
     lp = resolve_potential(log_prob_fn, pass_grad)
+    theta0 = place_start(theta0)
     if is_param_tree(theta0):
         template, theta0 = stack_param_tree(theta0, num_chains, stacked=theta0_is_stacked)
     else:
-        template, theta0 = None, torch.as_tensor(theta0)
+        template = None
         if theta0.ndim == 1:
             theta0 = theta0.expand((num_chains,) + tuple(theta0.shape)).clone()
     mass = _mass_for(theta0, template, inv_mass, config)

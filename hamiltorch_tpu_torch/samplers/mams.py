@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.convert import place_start
 from ..utils.pytree import is_param_tree, stack_param_tree
 from ..utils.rng import MAMS_STREAM, draw_noise
 from ..ops.potential import value_and_grad
@@ -243,12 +244,12 @@ def run_mams_chains(
     if config.burn >= config.num_samples:
         raise RuntimeError("burn must be less than num_samples.")
     lp = _bind_data(log_prob_fn, data)
+    theta0 = place_start(theta0)
     if is_param_tree(theta0):
         template, stacked = stack_param_tree(theta0, num_chains, stacked=theta0_is_stacked)
         _, fn, unravel = _prep_flat(lp, template, None)
         theta0 = _ravel_chains(stacked)
     else:
-        theta0 = torch.as_tensor(theta0)
         if theta0.ndim == 1:
             theta0 = theta0.expand((num_chains,) + tuple(theta0.shape)).clone()
         _, fn, unravel = _prep_flat(lp, theta0[0], None)

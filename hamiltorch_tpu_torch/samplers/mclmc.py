@@ -52,6 +52,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops.potential import make_flat_potential, resolve_potential, value_and_grad
+from ..utils.convert import place_start
 from ..utils.pytree import (
     is_param_tree,
     ravel_pytree_fn,
@@ -323,8 +324,8 @@ def _prep_flat(log_prob_fn, theta0, pass_grad):
     """Boundary ravel: tree states run the flat sampler (the dynamics need
     whole-vector norms anyway); samples unravel on the way out.
     Returns (flat theta0, flat potential, unravel or None)."""
+    theta0 = place_start(theta0)
     if not is_param_tree(theta0):
-        theta0 = torch.as_tensor(theta0)
         if theta0.ndim != 1:
             raise ValueError(
                 f"theta0 must be 1-d (got shape {tuple(theta0.shape)}); "
@@ -342,7 +343,6 @@ def _prep_flat(log_prob_fn, theta0, pass_grad):
             "tree state would need a matching ravel); flatten the state "
             "or drop pass_grad"
         )
-    theta0 = tree_map(torch.as_tensor, theta0)
     flat0, unravel = ravel_pytree_fn(theta0)
     if flat0.shape[0] < 2:
         raise ValueError("MCLMC needs dimension >= 2")
@@ -393,7 +393,8 @@ def run_mclmc(
     if _noise is not None:
         _noise = tuple(None if z is None else z.unsqueeze(-2) for z in _noise)
     r = _run_chains(key, theta0f[None], eps0, length0, lp, config,
-                    init_u=None if init_u is None else torch.as_tensor(init_u)[None],
+                    init_u=None if init_u is None else torch.as_tensor(
+                        init_u, device=theta0f.device)[None],
                     start_step=int(start_step), _noise=_noise)
     r = MCLMCResult(
         samples=r.samples[0], stats=MCLMCStats(*(s[0] for s in r.stats)),
@@ -457,12 +458,12 @@ def run_mclmc_chains(
                         init_u=resume_from.final_u, start_step=steps.pop(), _noise=_noise)
         return _unravel_result(r, unravel)
 
+    theta0 = place_start(theta0)
     if is_param_tree(theta0):
         template, stacked = stack_param_tree(theta0, num_chains, stacked=theta0_is_stacked)
         _, fn, unravel = _prep_flat(lp, template, None)
         theta0 = _ravel_chains(stacked)
     else:
-        theta0 = torch.as_tensor(theta0)
         if theta0.ndim == 1:
             theta0 = theta0.expand((num_chains,) + tuple(theta0.shape)).clone()
         _, fn, unravel = _prep_flat(lp, theta0[0], None)

@@ -8,7 +8,8 @@ runs, so the card holds O(chunk) draws, never the whole (draws x D) trace.
 Each draw's noise is keyed on (seed, chain, global draw index), so the
 chunked stream is the unchunked one.
 
-The NUTS, RMHMC and splitting offload runners of the JAX module come with
+``run_nuts_host_offload`` is NUTS's runner here; ``samplers/hmc.py`` holds
+HMC's.  The RMHMC and splitting offload runners of the JAX module come with
 their samplers (ROADMAP.md, queue 1).
 """
 
@@ -19,7 +20,7 @@ from typing import Callable
 
 import torch
 
-from ..utils.pytree import tree_map
+from ..utils.pytree import tree_leaves, tree_map
 from .driver import MCMCResult, MCMCStats
 
 
@@ -66,3 +67,42 @@ def host_offload_loop(
         final_da=result.final_da,
         final_warm=result.final_warm,
     )
+
+
+def run_nuts_host_offload(
+    key: int,
+    log_prob_fn,
+    theta0,
+    config,  # NUTSConfig
+    inv_mass=None,
+    pass_grad=None,
+    chunk_size: int = 256,
+) -> MCMCResult:
+    """Tree-doubling NUTS whose trace streams to host memory chunk by chunk
+    (the reference's ``store_on_GPU=False``, samplers.py:956-959).
+
+    Each chunk continues the last one's state, dual averaging and
+    ``(welford, metric, da_t)`` warmup carry, with its slice of the global
+    window schedule, and draws its noise keyed on the global draw index: the
+    trace is ``run_nuts``'s bit for bit at any chunking.  Returns an
+    MCMCResult whose ``samples`` and ``stats`` are CPU tensors.
+    """
+    from ..ops.potential import resolve_potential
+    from .hmc import _first_chain
+    from .nuts import _prepare_one, _run_nuts_batched
+    from .warmup import schedule_flags
+
+    lp = resolve_potential(log_prob_fn, pass_grad)
+    stacked, mass = _prepare_one(theta0, config, inv_mass)
+    windowed = bool(config.adapt_mass) and config.burn > 0
+
+    def run_chunk(cfg, n_done, carry):
+        state, da, warm = carry
+        collect, end = schedule_flags(config.burn if windowed else 0, n_done, cfg.num_samples)
+        res, _ = _run_nuts_batched(key, stacked, lp, cfg, mass, init_state=state, init_da=da,
+                                   start_iter=n_done, init_warm=warm, collect_flags=collect,
+                                   end_flags=end)
+        return _first_chain(res), (res.final_state, res.final_da, res.final_warm)
+
+    dtype = tree_leaves(stacked)[0].dtype
+    return host_offload_loop(run_chunk, config, (None, None, None), dtype, chunk_size)

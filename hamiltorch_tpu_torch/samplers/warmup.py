@@ -13,8 +13,8 @@ The schedule is static, a pair of numpy flag arrays; the driver branches on
 them in Python (``windowed_step`` takes the window end as a bool), where
 the JAX scan selects with ``where``.
 
-``init_metric_seed`` and ``init_dense_metric`` live in the JAX package's
-``samplers/nuts.py``; they are here until NUTS is ported.
+``init_metric_seed`` and ``init_dense_metric`` live in ``samplers/nuts.py``,
+as in the JAX package; this module re-exports them.
 """
 
 from __future__ import annotations
@@ -224,37 +224,12 @@ def schedule_flags(burn: int, start: int, length: int):
     return full_c[start:start + length], full_e[start:start + length]
 
 
-def init_metric_seed(mass, d: int, dtype, dense: bool, device=None, batch: tuple = ()):
-    """(wf0, metric0) warmup seed from the user's mass operator, with
-    leading ``batch`` axes (one per chain).  JAX home:
-    ``hamiltorch_tpu/samplers/nuts.py::init_metric_seed``."""
-    from ..ops.mass import DiagMass
+def __getattr__(name):
+    # init_metric_seed and init_dense_metric live in samplers/nuts.py, where
+    # the JAX package keeps them; they are re-exported here for the HMC
+    # driver (imported on first use: nuts.py imports this module)
+    if name in ("init_metric_seed", "init_dense_metric"):
+        from . import nuts
 
-    def expand(t):
-        return t.expand(batch + tuple(t.shape)).clone()
-
-    if dense:
-        inv, chol = init_dense_metric(mass, d, dtype, device)
-        return welford_cov_init(d, dtype, device, batch), (expand(inv), expand(chol))
-    if isinstance(mass, DiagMass):
-        metric = torch.as_tensor(mass.inv_diag, dtype=dtype, device=device)
-    else:
-        metric = torch.ones((d,), dtype=dtype, device=device)
-    return welford_init(d, dtype, device, batch), expand(metric)
-
-
-def init_dense_metric(mass, d: int, dtype, device=None):
-    """(inv_cov, chol_mass) seed for dense windowed warmup from the user's
-    mass operator: dense as given, diagonal as its diagonal embedding,
-    identity as (I, I).  JAX home:
-    ``hamiltorch_tpu/samplers/nuts.py::init_dense_metric``."""
-    from ..ops.mass import DenseMass, DiagMass
-
-    if isinstance(mass, DenseMass):
-        return (torch.as_tensor(mass.inv_mass, dtype=dtype, device=device),
-                torch.as_tensor(mass.chol_mass, dtype=dtype, device=device))
-    if isinstance(mass, DiagMass):
-        inv_diag = torch.as_tensor(mass.inv_diag, dtype=dtype, device=device)
-        return torch.diag(inv_diag), torch.diag(torch.rsqrt(inv_diag))
-    eye = torch.eye(d, dtype=dtype, device=device)
-    return eye, eye
+        return getattr(nuts, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

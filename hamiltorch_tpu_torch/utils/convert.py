@@ -11,7 +11,8 @@ JAX.
 Entry points that make tensors (this module's, the flagship factories) put
 them on the card unless the caller names another device: ``device=None``
 means ``torch.device("cuda")``, and without a card they raise rather than
-fall back to the CPU.
+fall back to the CPU.  The samplers' entry points place a start that is not
+a tensor the same way (``place_start``); a tensor start keeps its device.
 """
 
 from __future__ import annotations
@@ -32,6 +33,18 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def place_start(theta):
+    """A sampler's start as tensors.  A tensor keeps its device: that is the
+    caller's request.  Anything else (a numpy array, a list, a scalar) is no
+    request for a device and goes to the card (``resolve_device(None)``;
+    raises without one).  A parameter tree converts leaf by leaf."""
+    if is_param_tree(theta):
+        return tree_map(place_start, theta)
+    if isinstance(theta, torch.Tensor):
+        return theta
+    return torch.as_tensor(theta, device=resolve_device(None))
 
 
 def _tensor(a, device, dtype):

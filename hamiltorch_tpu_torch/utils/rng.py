@@ -23,8 +23,10 @@ _MASK64 = (1 << 64) - 1
 
 # Stream namespaces: a sampler adds its namespace to the draw index, so that
 # two samplers run with one key do not share a stream.  HMC uses the draw
-# index itself, MCLMC [0, 2**32) (samplers/mclmc.py), MAMS this offset.
+# index itself, MCLMC [0, 2**32) (samplers/mclmc.py), MAMS and NUTS these
+# offsets.
 MAMS_STREAM = 2**40
+NUTS_STREAM = 2**41
 
 _global_gen: torch.Generator | None = None
 
@@ -95,3 +97,24 @@ def draw_normals(key: int, n: int, num_chains: int, dim: int,
         gen.manual_seed(draw_seed(key, c, n))
         z[c].normal_(generator=gen)
     return z
+
+
+def draw_nuts_noise(key: int, n: int, num_chains: int, dim: int, max_depth: int,
+                    dtype=torch.float32, device=None) -> dict:
+    """Everything one NUTS draw of every chain can use (``samplers/nuts.py``):
+    ``z`` (C, dim) standard normal for the momentum, and uniforms ``u_dir``
+    and ``u_merge`` (C, max_depth) and ``u_leaf`` (C, max_depth,
+    2**(max_depth - 1)).  Chain ``c`` draws from its own generator seeded by
+    ``draw_seed(key, c, n)``, once per draw: the tree's decisions need no
+    generator of their own."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    gen = torch.Generator(device=device)
+    half = 1 << (max_depth - 1)
+    z = torch.empty((num_chains, dim), dtype=dtype, device=device)
+    u = torch.empty((num_chains, max_depth * (2 + half)), dtype=dtype, device=device)
+    for c in range(num_chains):
+        gen.manual_seed(draw_seed(key, c, n))
+        z[c].normal_(generator=gen)
+        u[c].uniform_(generator=gen)
+    return {"z": z, "u_dir": u[:, :max_depth], "u_merge": u[:, max_depth:2 * max_depth],
+            "u_leaf": u[:, 2 * max_depth:].reshape(num_chains, max_depth, half)}

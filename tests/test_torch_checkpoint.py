@@ -1,0 +1,239 @@
+"""The port's checkpointed runners (``hamiltorch_tpu_torch/checkpoint.py``).
+
+For each of the six runners (HMC, HMC chains, NUTS, the pooled NUTS
+ensemble, MCLMC, MAMS), on a small Gaussian with windowed warmup where the
+sampler has it (burn 160 puts a slow window across the chunks):
+
+* a run stopped part-way and resumed equals the straight sampler call with
+  the same key bit for bit, at two chunkings (every draw's noise is keyed
+  on the global draw index and the port runs eagerly);
+* a changed stream-changing option raises the fingerprint ``ValueError``;
+  ``num_samples`` and ``progress_every`` do not;
+* ``resume=False`` clears the old chunks;
+* a bfloat16 trace (a bfloat16 chain, or NUTS's ``trace_dtype``) comes back
+  bit for bit;
+* a directory written by the JAX package's ``run_hmc_checkpointed`` is
+  refused; the ensemble's ``mesh=`` raises.
+"""
+
+import dataclasses
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import hamiltorch_tpu_torch as tht
+from hamiltorch_tpu_torch import checkpoint as ck
+from hamiltorch_tpu_torch.utils.pytree import tree_leaves
+
+SCALES = torch.tensor([1.0, 2.0, 0.5, 1.5])
+RUNNERS = ["hmc", "hmc_chains", "nuts", "nuts_ensemble", "mclmc", "mams"]
+CHAINS = 3
+# (draws of the straight run, draws of the first, interrupted, call)
+DRAWS = {"hmc": (170, 90), "hmc_chains": (170, 90), "nuts": (170, 90),
+         "nuts_ensemble": (170, 90), "mclmc": (40, 17), "mams": (30, 13)}
+# two chunkings per runner: a small one and one that leaves a partial chunk
+CHUNKS = {"hmc": (16, 60), "hmc_chains": (16, 60), "nuts": (16, 60),
+          "nuts_ensemble": (16, 60), "mclmc": (6, 15), "mams": (4, 11)}
+
+
+def log_prob(t):
+    return -0.5 * torch.sum((t / SCALES.to(t.dtype)) ** 2) + 0.1 * torch.sum(torch.sin(t))
+
+
+def start(dtype=torch.float32):
+    return torch.tensor([0.5, -0.3, 0.2, 0.8], dtype=dtype)
+
+
+def config(name, num_samples, **kw):
+    if name in ("hmc", "hmc_chains"):
+        return tht.MCMCConfig(num_samples=num_samples, num_steps_per_sample=3, step_size=0.3,
+                              burn=160, adapt_step_size=True, adapt_mass="diag", **kw)
+    if name in ("nuts", "nuts_ensemble"):
+        return tht.NUTSConfig(num_samples=num_samples, step_size=0.4, burn=160,
+                              max_tree_depth=4, adapt_mass="diag", **kw)
+    if name == "mclmc":
+        return tht.MCLMCConfig(num_samples=num_samples, tune_steps=20, **kw)
+    return tht.MAMSConfig(num_samples=num_samples, num_steps_per_sample=4, burn=6, **kw)
+
+
+def straight(name, cfg, theta0):
+    """The sampler's own call with key 5, as the runner returns it."""
+    if name == "hmc":
+        return tht.run_hmc(5, log_prob, theta0, cfg)
+    if name == "hmc_chains":
+        return tht.run_hmc_chains(5, log_prob, theta0, cfg, CHAINS)
+    if name == "nuts":
+        return tht.run_nuts(5, log_prob, theta0, cfg)[0]
+    if name == "nuts_ensemble":
+        return tht.run_nuts_ensemble(5, log_prob, theta0, cfg, CHAINS)
+    if name == "mclmc":
+        return tht.run_mclmc(5, log_prob, theta0, cfg)
+    return tht.run_mams(5, log_prob, theta0, cfg)
+
+
+def checkpointed(name, cfg, theta0, ckpt_dir, chunk, **kw):
+    if name == "hmc":
+        return ck.run_hmc_checkpointed(5, log_prob, theta0, cfg, ckpt_dir, chunk_size=chunk, **kw)
+    if name == "hmc_chains":
+        return ck.run_hmc_chains_checkpointed(5, log_prob, theta0, cfg, ckpt_dir, CHAINS,
+                                              chunk_size=chunk, **kw)
+    if name == "nuts":
+        return ck.run_nuts_checkpointed(5, log_prob, theta0, cfg, ckpt_dir, chunk_size=chunk,
+                                        **kw)
+    if name == "nuts_ensemble":
+        return ck.run_nuts_ensemble_checkpointed(5, log_prob, theta0, cfg, ckpt_dir, CHAINS,
+                                                 chunk_size=chunk, **kw)
+    if name == "mclmc":
+        return ck.run_mclmc_checkpointed(5, log_prob, theta0, cfg, ckpt_dir, chunk_size=chunk,
+                                         **kw)
+    return ck.run_mams_checkpointed(5, log_prob, theta0, cfg, ckpt_dir, chunk_size=chunk, **kw)
+
+
+def assert_same(got, want):
+    """Every tensor of the two results equal bit for bit, but acc_rate, which
+    the HMC runners sum per chunk (equal within two roundings of its dtype)."""
+    if isinstance(want, tuple) and not hasattr(want, "_fields"):  # (result, info)
+        for a, b in zip(got, want):
+            assert_same(a, b)
+        return
+    for field in want._fields:
+        a, b = getattr(got, field), getattr(want, field)
+        if field == "acc_rate" and isinstance(got, tht.MCMCResult):
+            torch.testing.assert_close(a, b, rtol=2 * torch.finfo(b.dtype).eps, atol=0)
+            continue
+        if dataclasses.is_dataclass(b):
+            a, b = [getattr(a, f.name) for f in dataclasses.fields(a)], [
+                getattr(b, f.name) for f in dataclasses.fields(b)]
+        la, lb = tree_leaves(a), tree_leaves(b)
+        assert len(la) == len(lb), field
+        for x, y in zip(la, lb):
+            assert x.dtype == y.dtype and x.shape == y.shape, field
+            assert torch.equal(x, y), field
+
+
+def chunk_files(path):
+    return sorted(f for f in os.listdir(path) if f.startswith("chunk_"))
+
+
+@pytest.mark.parametrize("name", RUNNERS)
+def test_resume_equals_the_straight_run_at_two_chunkings(name, tmp_path):
+    total, first = DRAWS[name]
+    want = straight(name, config(name, total), start())
+    for chunk in CHUNKS[name]:
+        d = str(tmp_path / f"c{chunk}")
+        part = checkpointed(name, config(name, first), start(), d, chunk)
+        assert_same(part, straight(name, config(name, first), start()))
+        resumed = checkpointed(name, config(name, total), start(), d, chunk)
+        assert_same(resumed, want)
+        assert len(chunk_files(d)) >= total // chunk
+
+
+@pytest.mark.parametrize("name", RUNNERS)
+def test_a_changed_option_raises_and_the_cosmetic_ones_do_not(name, tmp_path):
+    total, first = 12, 8
+    d = str(tmp_path)
+    checkpointed(name, config(name, first), start(), d, 4)
+    changed = dataclasses.replace(config(name, total), step_size=0.25)
+    with pytest.raises(ValueError, match="fingerprint"):
+        checkpointed(name, changed, start(), d, 4)
+    with pytest.raises(ValueError, match="fingerprint"):  # another start dtype
+        checkpointed(name, config(name, total), start(torch.float64), d, 4)
+    cosmetic = {"progress_every": 5} if hasattr(config(name, 1), "progress_every") else {}
+    got = checkpointed(name, config(name, total, **cosmetic), start(), d, 4)
+    assert_same(got, straight(name, config(name, total), start()))
+
+
+@pytest.mark.parametrize("name", RUNNERS)
+def test_resume_false_clears_old_chunks(name, tmp_path):
+    d = str(tmp_path)
+    checkpointed(name, config(name, 12), start(), d, 2)
+    assert len(chunk_files(d)) == 6
+    other = dataclasses.replace(config(name, 8), step_size=0.25)
+    got = checkpointed(name, other, start(), d, 4, resume=False)
+    assert chunk_files(d) == ["chunk_00000000.npz", "chunk_00000004.npz"]
+    assert_same(got, straight(name, other, start()))
+
+
+@pytest.mark.parametrize("name", RUNNERS)
+def test_bfloat16_trace_round_trips(name, tmp_path):
+    """A bfloat16 trace through the chunk files: NUTS's trace_dtype with a
+    float32 chain, the other samplers' bfloat16 chains."""
+    if name.startswith("nuts"):
+        cfg, theta0 = config(name, 12, trace_dtype="bfloat16"), start()
+    else:
+        cfg, theta0 = config(name, 12), start(torch.bfloat16)
+    got = checkpointed(name, cfg, theta0, str(tmp_path), 5)
+    want = straight(name, cfg, theta0)
+    assert tree_leaves(got[0] if isinstance(got, tuple) and name == "nuts_ensemble"
+                       else got)[0].dtype == torch.bfloat16
+    assert_same(got, want)
+    assert_same(checkpointed(name, cfg, theta0, str(tmp_path), 5), want)  # read back
+
+
+def test_tree_states_resume(tmp_path):
+    """A parameter-tree chain: the trace is saved leaf by leaf and rebuilt."""
+    tree = {"a": torch.tensor([0.5, -0.3]), "b": torch.tensor([[0.2], [0.8]])}
+
+    def lp(t):
+        return log_prob(torch.cat([t["a"], t["b"].reshape(-1)]))
+
+    cfg = tht.NUTSConfig(num_samples=10, step_size=0.4, burn=5, max_tree_depth=4)
+    want = tht.run_nuts_ensemble(5, lp, tree, cfg, CHAINS)
+    ck.run_nuts_ensemble_checkpointed(5, lp, tree, dataclasses.replace(cfg, num_samples=4),
+                                      str(tmp_path), CHAINS, chunk_size=3)
+    got = ck.run_nuts_ensemble_checkpointed(5, lp, tree, cfg, str(tmp_path), CHAINS,
+                                            chunk_size=3)
+    assert_same(got, want)
+    hmc_cfg = tht.MCMCConfig(num_samples=10, num_steps_per_sample=3, step_size=0.3)
+    got = ck.run_hmc_chains_checkpointed(5, lp, tree, hmc_cfg, str(tmp_path / "h"), CHAINS,
+                                         chunk_size=4)
+    assert_same(got, tht.run_hmc_chains(5, lp, tree, hmc_cfg, CHAINS))
+
+
+def test_ensemble_mesh_raises(tmp_path):
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        ck.run_nuts_ensemble_checkpointed(5, log_prob, start(), config("nuts_ensemble", 4),
+                                          str(tmp_path), CHAINS, mesh=object())
+
+
+@pytest.fixture(scope="module")
+def jax_written_dir(tmp_path_factory):
+    """A directory the JAX package's run_hmc_checkpointed wrote."""
+    import jax
+    import jax.numpy as jnp
+
+    import hamiltorch_tpu as jht
+    from hamiltorch_tpu.checkpoint import run_hmc_checkpointed
+
+    d = str(tmp_path_factory.mktemp("jax_ckpt"))
+    run_hmc_checkpointed(jax.random.key(0), lambda t: -0.5 * jnp.sum(t ** 2),
+                         jnp.asarray(start().numpy()),
+                         jht.MCMCConfig(num_samples=6, num_steps_per_sample=3, step_size=0.3),
+                         d, chunk_size=3)
+    assert sorted(os.listdir(d)) == ["chunk_00000000.npz", "chunk_00000003.npz", "state.npz"]
+    return d
+
+
+@pytest.mark.parametrize("name", RUNNERS)
+def test_a_directory_the_jax_package_wrote_is_refused(name, jax_written_dir, tmp_path):
+    d = str(tmp_path / "copy")
+    shutil.copytree(jax_written_dir, d)
+    cfg = (tht.MCMCConfig(num_samples=9, num_steps_per_sample=3, step_size=0.3)
+           if name.startswith("hmc") else config(name, 9))
+    with pytest.raises(ValueError, match="fingerprint"):
+        checkpointed(name, cfg, start(), d, 3)
+
+
+def test_archive_keeps_bfloat16_bits(tmp_path):
+    """bfloat16 has no numpy dtype: its 16-bit patterns go to disk and come
+    back exactly, NaN payloads and signed zeros included."""
+    bits = torch.tensor([0x7FC1, -0x8000, 0x0001, 0x3F80, -0x0081], dtype=torch.int16)
+    t = bits.view(torch.bfloat16)
+    path = str(tmp_path / "a.npz")
+    np.savez(path, **ck._archive({"t": t, "f": torch.ones(2)}))
+    z = np.load(path)
+    assert torch.equal(ck._tensor_of(z, "t").view(torch.int16), bits)
+    assert ck._tensor_of(z, "f").dtype == torch.float32

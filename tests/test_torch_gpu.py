@@ -473,3 +473,173 @@ def test_predict_model_on_card_matches_cpu(cuda_device):
     for got in (card, streamed):
         torch.testing.assert_close(got[0].cpu(), host[0], atol=1e-5, rtol=0)
         torch.testing.assert_close(got[1].cpu(), host[1], rtol=1e-5, atol=0)
+
+
+# The sampler entry points place a start that is not a tensor on the card
+# (utils.convert.place_start) and keep a tensor start where it is.
+
+SAMPLER_ENTRIES = ["sample", "sample_nuts", "sample_offload", "run_hmc", "run_hmc_chains",
+                   "run_hmc_host_offload", "run_mclmc", "run_mclmc_chains", "run_mams",
+                   "run_mams_chains", "run_nuts", "run_nuts_chains", "run_nuts_ensemble",
+                   "run_nuts_host_offload", "run_hmc_checkpointed",
+                   "run_hmc_chains_checkpointed", "run_nuts_checkpointed",
+                   "run_nuts_ensemble_checkpointed", "run_mclmc_checkpointed",
+                   "run_mams_checkpointed"]
+
+
+def _leaf_lp(t):
+    from hamiltorch_tpu_torch.utils.pytree import tree_leaves
+
+    return -0.5 * sum(torch.sum(leaf ** 2) for leaf in tree_leaves(t))
+
+
+def call_entry(entry, theta0, ckpt_dir):
+    """Run ``entry`` for a few draws from ``theta0``; returns (samples, final
+    chain state) of its result."""
+    import hamiltorch_tpu_torch as tht
+    from hamiltorch_tpu_torch import checkpoint as ck
+    from hamiltorch_tpu_torch.samplers.offload import run_nuts_host_offload
+
+    hmc = tht.MCMCConfig(num_samples=3, num_steps_per_sample=2, step_size=0.2)
+    nuts = tht.NUTSConfig(num_samples=3, step_size=0.3, max_tree_depth=3)
+    mclmc = tht.MCLMCConfig(num_samples=3, tune_steps=2)
+    mams = tht.MAMSConfig(num_samples=3, num_steps_per_sample=2, burn=1)
+    if entry.startswith("sample"):
+        kw = dict(num_samples=3, num_steps_per_sample=2, step_size=0.2, verbose=False, key=0)
+        if entry == "sample_nuts":
+            kw["sampler"] = tht.Sampler.NUTS
+        out = tht.sample(_leaf_lp, theta0, store_on_GPU=entry != "sample_offload", **kw)
+        return out, out
+    calls = {
+        "run_hmc": lambda: tht.run_hmc(0, _leaf_lp, theta0, hmc),
+        "run_hmc_chains": lambda: tht.run_hmc_chains(0, _leaf_lp, theta0, hmc, 2),
+        "run_hmc_host_offload": lambda: tht.run_hmc_host_offload(0, _leaf_lp, theta0, hmc),
+        "run_mclmc": lambda: tht.run_mclmc(0, _leaf_lp, theta0, mclmc),
+        "run_mclmc_chains": lambda: tht.run_mclmc_chains(0, _leaf_lp, theta0, mclmc, 2),
+        "run_mams": lambda: tht.run_mams(0, _leaf_lp, theta0, mams),
+        "run_mams_chains": lambda: tht.run_mams_chains(0, _leaf_lp, theta0, mams, 2),
+        "run_nuts": lambda: tht.run_nuts(0, _leaf_lp, theta0, nuts)[0],
+        "run_nuts_chains": lambda: tht.run_nuts_chains(0, _leaf_lp, theta0, nuts, 2)[0],
+        "run_nuts_ensemble": lambda: tht.run_nuts_ensemble(0, _leaf_lp, theta0, nuts, 2)[0],
+        "run_nuts_host_offload": lambda: run_nuts_host_offload(0, _leaf_lp, theta0, nuts),
+        "run_hmc_checkpointed": lambda: ck.run_hmc_checkpointed(0, _leaf_lp, theta0, hmc,
+                                                                ckpt_dir),
+        "run_hmc_chains_checkpointed": lambda: ck.run_hmc_chains_checkpointed(
+            0, _leaf_lp, theta0, hmc, ckpt_dir, 2),
+        "run_nuts_checkpointed": lambda: ck.run_nuts_checkpointed(0, _leaf_lp, theta0, nuts,
+                                                                  ckpt_dir),
+        "run_nuts_ensemble_checkpointed": lambda: ck.run_nuts_ensemble_checkpointed(
+            0, _leaf_lp, theta0, nuts, ckpt_dir, 2)[0],
+        "run_mclmc_checkpointed": lambda: ck.run_mclmc_checkpointed(0, _leaf_lp, theta0, mclmc,
+                                                                    ckpt_dir),
+        "run_mams_checkpointed": lambda: ck.run_mams_checkpointed(0, _leaf_lp, theta0, mams,
+                                                                  ckpt_dir),
+    }
+    out = calls[entry]()
+    final = out.final_state.theta if hasattr(out, "final_state") else out.final_theta
+    return out.samples, final
+
+
+def _starts(entry):
+    """The flat start, and for the entry points that take trees a dict one."""
+    flat = np.array([0.3, -0.2, 0.1], np.float32)
+    if entry.startswith("sample"):
+        return [flat]
+    return [flat, {"a": flat[:2], "b": flat[2:]}]
+
+
+def _devices(tree):
+    from hamiltorch_tpu_torch.utils.pytree import tree_leaves
+
+    return {leaf.device.type for leaf in tree_leaves(tree)}
+
+
+@pytest.mark.parametrize("entry", SAMPLER_ENTRIES)
+def test_numpy_starts_raise_without_a_card_and_cpu_tensors_run(monkeypatch, tmp_path, entry):
+    """With CUDA masked, a start that is not a tensor (a numpy array, or a
+    tree with numpy leaves) raises the no-card error; a CPU tensor start runs
+    on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for start in _starts(entry):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call_entry(entry, start, str(tmp_path / "numpy"))
+    for i, start in enumerate(_starts(entry)):
+        as_cpu = (torch.as_tensor(start, device="cpu") if isinstance(start, np.ndarray)
+                  else {k: torch.as_tensor(v, device="cpu") for k, v in start.items()})
+        samples, final = call_entry(entry, as_cpu, str(tmp_path / f"cpu{i}"))
+        assert _devices(samples) == _devices(final) == {"cpu"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", SAMPLER_ENTRIES)
+def test_numpy_starts_sample_on_the_card(cuda_device, tmp_path, entry):
+    """A numpy start (or a tree of numpy leaves) runs on the card: the
+    chain's final state is there, and so are its samples unless the entry
+    point offloads them to the host."""
+    for i, start in enumerate(_starts(entry)):
+        samples, final = call_entry(entry, start, str(tmp_path / str(i)))
+        offloads = entry in ("sample_offload", "run_hmc_host_offload", "run_nuts_host_offload")
+        assert _devices(samples) == ({"cpu"} if offloads else {"cuda"})
+        if not entry.startswith("sample"):
+            assert _devices(final) == {"cuda"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pooled", [False, True])
+def test_nuts_on_card_matches_cpu_in_float64(cuda_device, pooled):
+    """NUTS chains (and the pooled ensemble) on the tiny flagship in float64
+    on the same injected noise: identical trees, positions within 1e-8 of
+    max |theta|."""
+    from hamiltorch_tpu_torch.samplers.nuts import NUTSConfig, run_nuts_chains, run_nuts_ensemble
+
+    chains, draws, depth = 4, 5, 5
+    gen = torch.Generator().manual_seed(6)
+    dims = 41
+    noise = {"z": torch.randn(draws, chains, dims, generator=gen, dtype=torch.float64),
+             "u_dir": torch.rand(draws, chains, depth, generator=gen, dtype=torch.float64),
+             "u_merge": torch.rand(draws, chains, depth, generator=gen, dtype=torch.float64),
+             "u_leaf": torch.rand(draws, chains, depth, 1 << (depth - 1), generator=gen,
+                                  dtype=torch.float64)}
+    cfg = NUTSConfig(num_samples=draws, step_size=0.05, burn=3, max_tree_depth=depth)
+    run = run_nuts_ensemble if pooled else run_nuts_chains
+
+    def go(device):
+        lp, p = make_flagship_potential_tree(8, 4, 16, device=device, dtype=torch.float64)
+        return run(0, lp, p, cfg, chains, _noise={k: v.to(device) for k, v in noise.items()})
+
+    (card, card_info), (host, host_info) = go(cuda_device), go("cpu")
+    for f in ("tree_depth", "num_leapfrogs", "divergent"):
+        assert torch.equal(getattr(card_info, f).cpu(), getattr(host_info, f)), f
+    for k in host.samples:
+        scale = float(host.samples[k].abs().max())
+        assert float((card.samples[k].cpu() - host.samples[k]).abs().max()) <= 1e-8 * scale
+
+
+@pytest.mark.gpu
+def test_checkpoint_resume_on_card(cuda_device, tmp_path):
+    """run_hmc_chains_checkpointed and run_nuts_ensemble_checkpointed on the
+    card, stopped and resumed, equal the straight runs bit for bit."""
+    from hamiltorch_tpu_torch import checkpoint as ck
+    from hamiltorch_tpu_torch.samplers.nuts import NUTSConfig, run_nuts_ensemble
+
+    lp, p = make_flagship_potential_tree(8, 4, 16, device=cuda_device)
+    hmc = MCMCConfig(num_samples=10, num_steps_per_sample=5, step_size=0.05, burn=4,
+                     adapt_step_size=True)
+    want = run_hmc_chains(3, lp, p, hmc, 4)
+    ck.run_hmc_chains_checkpointed(3, lp, p, MCMCConfig(**{**vars(hmc), "num_samples": 4}),
+                                   str(tmp_path / "hmc"), 4, chunk_size=3)
+    got = ck.run_hmc_chains_checkpointed(3, lp, p, hmc, str(tmp_path / "hmc"), 4, chunk_size=3)
+    for k in want.samples:
+        assert got.samples[k].is_cuda and torch.equal(got.samples[k], want.samples[k])
+    for a, b in zip(got.stats, want.stats):
+        assert torch.equal(a, b)
+    nuts = NUTSConfig(num_samples=8, step_size=0.05, burn=4, max_tree_depth=4)
+    want_n, want_info = run_nuts_ensemble(3, lp, p, nuts, 4)
+    ck.run_nuts_ensemble_checkpointed(3, lp, p, NUTSConfig(**{**vars(nuts), "num_samples": 3}),
+                                      str(tmp_path / "nuts"), 4, chunk_size=2)
+    got_n, got_info = ck.run_nuts_ensemble_checkpointed(3, lp, p, nuts, str(tmp_path / "nuts"),
+                                                        4, chunk_size=2)
+    for k in want_n.samples:
+        assert torch.equal(got_n.samples[k], want_n.samples[k])
+    for a, b in zip(got_info, want_info):
+        assert torch.equal(a, b)

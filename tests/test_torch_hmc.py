@@ -221,10 +221,16 @@ def test_sample_error_probes():
         tht.sample(_gauss_t, torch.tensor([0.0, float("nan"), 0.0]), verbose=False)
     with pytest.raises(RuntimeError, match="adapt_mass requires burn"):
         tht.sample(_gauss_t, torch.zeros(3), num_samples=5, adapt_mass=True, verbose=False)
-    for kw in (dict(sampler=tht.Sampler.RMHMC), dict(sampler=tht.Sampler.NUTS),
-               dict(integrator=tht.Integrator.SPLITTING)):
+    for kw in (dict(sampler=tht.Sampler.RMHMC), dict(integrator=tht.Integrator.SPLITTING)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tht.sample(_gauss_t, torch.zeros(3), num_samples=5, verbose=False, **kw)
+    # NUTS is ported: sample() keeps run_nuts's draws after the first, behind
+    # the initial point
+    nuts = tht.sample(_gauss_t, torch.zeros(3), num_samples=5, key=1, verbose=False,
+                      sampler=tht.Sampler.NUTS)
+    direct = tht.run_nuts(1, _gauss_t, torch.zeros(3),
+                          tht.NUTSConfig(num_samples=5, adapt_step_size=False))[0]
+    assert torch.equal(nuts[1:], direct.samples[1:])
     # host offload and progress lines are ported: the same draws as the plain call
     plain = tht.sample(_gauss_t, torch.zeros(3), num_samples=5, key=1, verbose=False)
     for kw in (dict(store_on_GPU=False), dict(progress_every=2)):
