@@ -93,7 +93,24 @@ the kernels are built for sm_90a).  It
    the on-card trace) and the ``checkpoint`` phase (``checkpoint_path``:
    ``run_hmc_chains_checkpointed`` on the flagship at 64 chains, and the
    NUTS, NUTS-ensemble, MCLMC and MAMS runners on a small Gaussian, each
-   stopped part-way and resumed, bit for bit their straight runs);
+   stopped part-way and resumed, bit for bit their straight runs), the
+   ``rmhmc`` phase (``rmhmc_path``: ``bench.py``'s batch-scale RMHMC, a D=64
+   quartic Gaussian at 64 chains x L=5, SOFTABS, IMPLICIT, timed in
+   grad-steps/s with its fixed-point iteration counts, ms a fixed-point
+   iteration and peak memory; BASELINE config 3's banana with the implicit
+   and explicit integrators against the gates of ``tests/test_rmhmc.py``;
+   float64 card against CPU on injected noise for the IMPLICIT, EXPLICIT,
+   MIDPOINT and S3 integrators and the HESSIAN and JACOBIAN_DIAG metrics,
+   identical accepts and fixed-point counts, positions within 1e-8 of max
+   |theta|; the softabs backward at repeated eigenvalues against a central
+   difference; a non-SPD metric rejected; ``sample(store_on_GPU=False)``
+   identical) and the ``split`` phase (``split_path``: BASELINE config 5,
+   a 784-256-10 tanh ``nn.Sequential`` on 6,000 MNIST-shaped rows in 6
+   splits, the terms' sum and gradient against ``define_model_log_prob`` on
+   all rows within 1e-5, timed in draws/s and term-gradients/s;
+   SPLITTING_RAND and SPLITTING_KMID on the regression BNN of
+   ``examples/split_hmc_bnn_example.py`` in float64, card against CPU; the
+   offloaded and checkpointed runners identical to the straight run);
 6. checks the tiny flagship on the card against the CPU;
 7. prints one JSON line with every kernel's summary and, last, the device
    line.
@@ -176,6 +193,19 @@ DIAG_RTOL = 1e-4  # summary() on the card against the CPU, both float64
 MODEL_LOGP_RTOL = 1e-6
 MODEL_CARD_RTOL = 1e-5
 COMPARISON_RTOL = 1e-6
+# RMHMC (bench.py:377-401): D=64, 64 chains, L=5; the draws of a timed run are
+# cut from bench.py's 20 (a metric evaluation costs ~70 ms on the card, most
+# of it the batched 64x64 eigh: PERF.md section 5).  The banana of BASELINE
+# config 3 at 64 chains, its 150 draws cut the same way; card vs CPU in
+# float64 at L=2 (the CPU computes the D=64 Hessians itself).
+RMHMC_DIM, RMHMC_CHAINS, RMHMC_STEPS, RMHMC_DRAWS = 64, 64, 5, 4
+BANANA_BURN, BANANA_DRAWS = 6, 18
+RMHMC_CPU_STEPS = 2
+# split HMC (BASELINE config 5): the example's 100 draws cut to 10 a timed
+# run; the sum of the 6 terms against the full-data potential: float32 sums
+# over 1,000 and 6,000 rows in another order
+SPLIT_DRAWS = 10
+SPLIT_RTOL = 1e-5
 
 
 class SmokeError(RuntimeError):
@@ -1318,6 +1348,352 @@ def checkpoint_path(torch, device, card):
         raise SmokeError(f"checkpoint: a resumed run differs from its straight run: {same}")
 
 
+def quartic_gaussian(torch, d, seed, device, dtype):
+    """bench.py's RMHMC target: a D-dim Gaussian whose precision has the
+    eigenvalues logspace(-1, 1, D) under a random rotation (QR of a numpy
+    normal matrix from ``seed``), minus 0.025 sum(theta^4), which keeps the
+    metric position-dependent."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    q, _ = np.linalg.qr(rng.randn(d, d))
+    prec = torch.as_tensor((q * np.logspace(-1.0, 1.0, d)) @ q.T, dtype=dtype, device=device)
+
+    def lp(t):
+        return -0.5 * t @ prec @ t - 0.025 * torch.sum(t ** 4)
+    return lp
+
+
+def banana_lp(t):
+    """BASELINE config 3's banana: a curved ridge y ~ 0.1 (x^2 - 4)."""
+    x, y = t[0], t[1]
+    return -0.5 * (x ** 2 / 4.0) - 0.5 * ((y - 0.1 * (x ** 2 - 4.0)) ** 2) / 0.5
+
+
+def rmhmc_path(torch, device, card):
+    """Riemannian-manifold HMC (no kernel of its own: third-order AD through
+    the Hessian, softabs and Cholesky, as in the JAX package): bench.py's
+    batch-scale configuration timed, BASELINE config 3's banana with both
+    integrators, card against CPU in float64 on injected noise for every
+    integrator and metric, the softabs backward at repeated eigenvalues
+    against a finite difference, a non-SPD metric rejected, and the host
+    offload of ``sample``."""
+    from hamiltorch_tpu_torch import Integrator, MCMCConfig, Metric, Sampler, run_rmhmc_chains
+    from hamiltorch_tpu_torch import run_rmhmc, sample
+    from hamiltorch_tpu_torch.ops import metrics
+
+    d, chains, steps = RMHMC_DIM, RMHMC_CHAINS, RMHMC_STEPS
+    lp = quartic_gaussian(torch, d, 3, device, torch.float32)
+    rm_kw = dict(metric=Metric.SOFTABS, softabs_const=1e3, fixed_point_max_iterations=50)
+    zeros = torch.zeros(d, device=device)
+
+    def run(seed, draws):
+        res = run_rmhmc_chains(seed, lp, zeros, MCMCConfig(num_samples=draws,
+                                                           num_steps_per_sample=steps,
+                                                           step_size=0.1), chains, **rm_kw)
+        torch.cuda.synchronize()
+        return res
+
+    # 1. bench.py:377-401 (64 chains, L=5, step 0.1, SOFTABS 1e3, IMPLICIT, cap 50,
+    # float32), RMHMC_DRAWS draws a run: a warm call, then the median of 3
+    run(40, 1)
+    torch.cuda.reset_peak_memory_stats()
+    walls, results = [], []
+    for rep in range(3):
+        t0 = time.perf_counter()
+        results.append(run(41 + rep, RMHMC_DRAWS))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    wall = statistics.median(walls)
+    iters = torch.cat([r.stats.fp_iters.reshape(-1).cpu() for r in results])
+    acc = float(torch.stack([r.stats.accepted.float().mean() for r in results]).mean())
+    # one iteration of each fixed point, at 64 chains: dH/dtheta (momentum
+    # solve) and dH/dp (position solve)
+    rm = metrics.batched(metrics.make_rm_hamiltonian(
+        lp, metrics.RMOptions(metric=Metric.SOFTABS, softabs_const=1e3)), False)
+    theta, p = results[-1].final_state.theta, torch.randn(chains, d, device=device)
+    it_ms = {}
+    for name in ("grad_theta", "grad_p"):
+        fn = getattr(rm, name)
+        fn(theta, p, None)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(theta, p, None)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        it_ms[name] = statistics.median(ts)
+    finite = all(bool(torch.isfinite(r.samples).all()) for r in results)
+    print(f"rmhmc: run_rmhmc_chains D={d} quartic Gaussian, {chains} chains x {RMHMC_DRAWS} "
+          f"draws x L={steps}, step 0.1, SOFTABS 1e3, IMPLICIT, float32: "
+          f"{', '.join(f'{w:.2f}' for w in walls)} s (median {wall:.2f} s), "
+          f"{chains * RMHMC_DRAWS * steps / wall:,.1f} grad-steps/s; fp_iters (max over a "
+          f"draw's steps and solves) min {int(iters.min())} median {float(iters.median()):.0f} "
+          f"max {int(iters.max())}, histogram {torch.bincount(iters).tolist()}; acceptance "
+          f"{acc:.4f}; one fixed-point iteration at {chains} chains: {it_ms['grad_theta']:.2f} ms "
+          f"(dH/dtheta, the momentum solve), {it_ms['grad_p']:.2f} ms (dH/dp, the position "
+          f"solve); peak {peak / 2**30:.3f} GiB [{card}]")
+    if not (finite and 0.0 < acc <= 1.0):
+        raise SmokeError(f"rmhmc: finite {finite}, acceptance {acc}")
+
+    # 2. BASELINE config 3: the banana, SOFTABS 1e2, L=6, step 0.15, 8 fixed-point
+    # iterations at 1e-8, 64 chains, BANANA_DRAWS draws after BANANA_BURN
+    for integrator in (Integrator.IMPLICIT, Integrator.EXPLICIT):
+        t0 = time.perf_counter()
+        res = run_rmhmc_chains(
+            50, banana_lp, torch.zeros(2, device=device),
+            MCMCConfig(num_samples=BANANA_BURN + BANANA_DRAWS, num_steps_per_sample=6,
+                       step_size=0.15), 64, integrator=integrator, metric=Metric.SOFTABS,
+            softabs_const=1e2, fixed_point_max_iterations=8, fixed_point_threshold=1e-8)
+        kept = res.samples[:, BANANA_BURN:].reshape(-1, 2).cpu().double()
+        resid = kept[:, 1] - 0.1 * (kept[:, 0] ** 2 - 4.0)
+        acc = float(res.acc_rate.mean())
+        finite = bool(torch.isfinite(res.samples).all())
+        mean_x, std_r = float(kept[:, 0].mean()), float(resid.std())
+        print(f"rmhmc banana {integrator.name}: 64 chains x {BANANA_BURN} + {BANANA_DRAWS} draws "
+              f"x L=6: acceptance {acc:.4f}, mean x {mean_x:.4f}, ridge residual std {std_r:.4f}, "
+              f"fp_iters max {int(res.stats.fp_iters.max())}; "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        if not (finite and acc > 0.5 and abs(mean_x) < 1.0 and std_r < 1.5):
+            raise SmokeError(f"rmhmc banana {integrator.name}: finite {finite}, acceptance {acc}, "
+                             f"mean x {mean_x}, residual std {std_r}")
+
+    # 3. card against CPU, float64, injected noise, on the D=64 target
+    c64, draws64 = 4, 3
+    gen = torch.Generator().manual_seed(43)
+    noise = (torch.randn(draws64, c64, d, generator=gen, dtype=torch.float64),
+             torch.rand(draws64, c64, generator=gen, dtype=torch.float64).log(),
+             torch.rand(draws64, c64, d, generator=gen, dtype=torch.float64))
+    cases = [(Integrator.IMPLICIT, Metric.SOFTABS), (Integrator.EXPLICIT, Metric.SOFTABS),
+             (Integrator.MIDPOINT, Metric.SOFTABS), (Integrator.S3, Metric.SOFTABS),
+             (Integrator.IMPLICIT, Metric.HESSIAN), (Integrator.IMPLICIT, Metric.JACOBIAN_DIAG)]
+    t0 = time.perf_counter()
+    worst = 0.0
+    for integrator, metric in cases:
+        # the Jacobian-diagonal metric diag(g^2) is near-singular where a
+        # gradient entry is near 0: its momentum solve contracts only at a
+        # small step (at 0.1 some lanes run to the cap, chaotic, and the card
+        # and the CPU part by their rounding)
+        jac = metric == Metric.JACOBIAN_DIAG
+        cfg = MCMCConfig(num_samples=draws64, num_steps_per_sample=RMHMC_CPU_STEPS,
+                         step_size=0.005 if jac else 0.1)
+        jitter = 1.0 if jac else None
+
+        def go(dev):
+            return run_rmhmc_chains(
+                44, quartic_gaussian(torch, d, 3, dev, torch.float64),
+                torch.full((d,), 0.2, dtype=torch.float64, device=dev), cfg, c64,
+                integrator=integrator, metric=metric, softabs_const=1e3, jitter=jitter,
+                _noise=tuple(t.to(dev) for t in (noise if jitter else noise[:2])))
+
+        on_card, on_host = go(device), go("cpu")
+        same = (torch.equal(on_card.stats.accepted.cpu(), on_host.stats.accepted)
+                and torch.equal(on_card.stats.fp_iters.cpu(), on_host.stats.fp_iters))
+        scale = float(on_host.samples.abs().max())
+        err = float((on_card.samples.cpu() - on_host.samples).abs().max()) / scale
+        worst = max(worst, err)
+        print(f"rmhmc float64 card vs CPU, {integrator.name} {metric.name}: accepts "
+              f"{on_host.stats.accepted.float().mean():.3f}, fp_iters "
+              f"{on_host.stats.fp_iters.reshape(-1).tolist()}, identical accepts and fp_iters "
+              f"{same}, positions {err:.3e} of max |theta|")
+        if not (same and err <= 1e-8):
+            raise SmokeError(f"rmhmc card vs CPU {integrator.name} {metric.name}: identical "
+                             f"{same}, error {err:.3e}")
+    print(f"rmhmc card vs CPU: {len(cases)} cases, worst {worst:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # 4. the softabs backward on the card at exactly repeated eigenvalues
+    # against a central difference in float64
+    g64 = torch.Generator().manual_seed(45)
+    a = torch.diag(torch.tensor([2.0, 2.0, 2.0, -1.0, 0.5], dtype=torch.float64)).to(device)
+    w = torch.randn(5, 5, generator=g64, dtype=torch.float64).to(device)
+    e = torch.randn(5, 5, generator=g64, dtype=torch.float64).to(device)
+    e = 0.5 * (e + e.T)
+
+    def loss(m):
+        g, lam = metrics.softabs_transform(m, 10.0)
+        return (g * w).sum() + torch.log(lam).sum()
+
+    grad = torch.func.vmap(torch.func.grad(loss))(a[None])[0]
+    h = 1e-6
+    fd = float((loss(a + h * e) - loss(a - h * e)) / (2 * h))
+    ad = float((grad * e).sum())
+    eigh_grad = torch.func.grad(lambda m: torch.linalg.eigh(m)[1].sum())(a)
+    print(f"softabs backward on the card at eigenvalues (2, 2, 2, -1, 0.5), vmap over grad: "
+          f"finite {bool(torch.isfinite(grad).all())}, directional derivative {ad:.12f} against "
+          f"the central difference {fd:.12f} (diff {abs(ad - fd):.3e}); eigh's own backward "
+          f"finite: {bool(torch.isfinite(eigh_grad).all())}")
+    if not (bool(torch.isfinite(grad).all()) and abs(ad - fd) <= 1e-6 * max(1.0, abs(fd))):
+        raise SmokeError(f"softabs backward on the card: {ad} against {fd}")
+
+    # 5. a HESSIAN metric that is not SPD (the funnel away from its mode): NaN, a divergence
+    def funnel(t):
+        v, x = t[0], t[1:]
+        return -0.5 * v ** 2 / 9.0 - 0.5 * torch.sum(x ** 2) * torch.exp(-v) - 2.0 * v
+
+    bad = torch.tensor([-1.0, 2.0, 0.5, -1.5, 1.0], device=device)
+    res = run_rmhmc(46, funnel, bad, MCMCConfig(num_samples=3, num_steps_per_sample=2,
+                                                step_size=0.1),
+                    metric=Metric.HESSIAN, fixed_point_max_iterations=3)
+    rejected = bool(res.stats.divergent.all()) and not bool(res.stats.accepted.any())
+    print(f"rmhmc HESSIAN metric on the funnel at {bad.tolist()} (not SPD): energies "
+          f"{res.stats.energy_old.tolist()}, every draw divergent and rejected {rejected}")
+    if not (rejected and torch.equal(res.samples[-1], bad)):
+        raise SmokeError("rmhmc: a non-SPD metric was not rejected as a divergence")
+
+    # 6. sample(sampler=RMHMC): store_on_GPU=False gives the on-card trace
+    kw = dict(num_samples=8, num_steps_per_sample=3, step_size=0.15, burn=2,
+              sampler=Sampler.RMHMC, integrator=Integrator.IMPLICIT, metric=Metric.SOFTABS,
+              softabs_const=1e2, fixed_point_max_iterations=8, key=47, verbose=False)
+    on_card = sample(banana_lp, torch.zeros(2, device=device), **kw)
+    offloaded = sample(banana_lp, torch.zeros(2, device=device), store_on_GPU=False, **kw)
+    same = offloaded.device.type == "cpu" and torch.equal(on_card.cpu(), offloaded)
+    print(f"sample(sampler=RMHMC) banana, store_on_GPU=False vs True: identical {same}")
+    if not same:
+        raise SmokeError("sample(sampler=RMHMC): the offloaded trace differs")
+
+
+def split_path(torch, device, card):
+    """Symmetric-split minibatch HMC (no kernel of its own): BASELINE config
+    5 (``examples/mnist_scale_split_hmc.py``) at its widths, the split terms
+    against the full-data potential, timed; SPLITTING_RAND and SPLITTING_KMID
+    on the regression BNN of ``examples/split_hmc_bnn_example.py``, card
+    against CPU on injected noise; the offloaded and checkpointed runners
+    against the straight run."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    from torch import nn
+
+    from hamiltorch_tpu_torch import Integrator, MCMCConfig, sample_split_model
+    from hamiltorch_tpu_torch import checkpoint as ck
+    from hamiltorch_tpu_torch.models.bnn import define_model_log_prob, define_split_model_log_prob
+    from hamiltorch_tpu_torch.samplers import (
+        run_split_hmc_host_offload,
+        run_split_hmc_stacked,
+    )
+
+    # 1. MNIST-shaped data (10 numpy prototypes + 0.5 noise, seed 0), 6 splits
+    rng = np.random.RandomState(0)
+    prototypes = rng.randn(10, 784).astype(np.float32)
+    labels = rng.randint(0, 10, 6000)
+    x = (prototypes[labels] + 0.5 * rng.randn(6000, 784)).astype(np.float32)
+    splits = 6
+    batches = [(x[i::splits], labels[i::splits].astype(np.float32)) for i in range(splits)]
+    torch.manual_seed(0)
+    net = nn.Sequential(nn.Linear(784, 256), nn.Tanh(), nn.Linear(256, 10))
+    loss = "multi_class_linear_output"
+    term_fn, m_terms, flat, _, data = define_split_model_log_prob(
+        net, loss, batches, splits, tau_out=1.0, verbose=False, device=device)
+    dims = flat.numel()
+    xs, ys = (t.reshape((-1,) + tuple(t.shape[2:])) for t in data)
+    full, _, _ = define_model_log_prob(net, loss, xs, ys, tau_out=1.0, device=device)
+    theta = flat + 0.01 * torch.randn(dims, generator=torch.Generator().manual_seed(51)).to(device)
+    g_full, v_full = torch.func.grad_and_value(full)(theta)
+    v_sum = sum(term_fn(theta, m, data) for m in range(m_terms))
+    g_sum = sum(torch.func.grad(lambda t, m=m: term_fn(t, m, data))(theta) for m in range(m_terms))
+    v_err = abs(float(v_sum - v_full)) / abs(float(v_full))
+    g_err = float((g_sum - g_full).abs().max()) / float(g_full.abs().max())
+    print(f"split: nn.Sequential 784-256-10 tanh ({dims:,} parameters), {m_terms} terms of "
+          f"{data[0].shape[1]} rows: the terms' sum {float(v_sum):.6f} against "
+          f"define_model_log_prob on all {xs.shape[0]} rows {float(v_full):.6f} ({v_err:.3e} "
+          f"relative), gradient {g_err:.3e} of max |g|")
+    if not (v_err <= SPLIT_RTOL and g_err <= SPLIT_RTOL):
+        raise SmokeError(f"split: the terms do not sum to the full potential: {v_err:.3e}, "
+                         f"{g_err:.3e}")
+
+    # 2. timed: run_split_hmc_stacked, SPLITTING, step 2e-4, L=10, SPLIT_DRAWS draws
+    cfg = MCMCConfig(num_samples=SPLIT_DRAWS, num_steps_per_sample=10, step_size=2e-4)
+    run_split_hmc_stacked(52, term_fn, m_terms, flat, dataclasses.replace(cfg, num_samples=1),
+                          data=data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, res = [], None
+    for rep in range(3):
+        t0 = time.perf_counter()
+        res = run_split_hmc_stacked(53 + rep, term_fn, m_terms, flat, cfg, data=data)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    per_draw = 10 * 2 * m_terms
+    finite = bool(torch.isfinite(res.samples).all())
+    print(f"split: run_split_hmc_stacked SPLITTING, {SPLIT_DRAWS} draws x L=10, step 2e-4, one "
+          f"chain: {', '.join(f'{w:.2f}' for w in walls)} s (median {wall:.2f} s), "
+          f"{SPLIT_DRAWS / wall:.2f} draws/s, {SPLIT_DRAWS * per_draw / wall:,.1f} "
+          f"term-gradients/s ({per_draw} a draw); acceptance {float(res.acc_rate):.3f}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
+    if not (finite and float(res.acc_rate) > 0.0):
+        raise SmokeError(f"split: finite {finite}, acceptance {float(res.acc_rate)}")
+    t0 = time.perf_counter()
+    samples = sample_split_model(net, batches, num_splits=splits, model_loss=loss,
+                                 num_samples=4, num_steps_per_sample=10, step_size=2e-4,
+                                 tau_out=1.0, key=54, verbose=False, device=device)
+    print(f"split: sample_split_model 4 draws: {tuple(samples.shape)} on {samples.device}, "
+          f"finite {bool(torch.isfinite(samples).all())}; {time.perf_counter() - t0:.2f} s")
+    if not (samples.device == theta.device and bool(torch.isfinite(samples).all())):
+        raise SmokeError("split: sample_split_model's draws are not finite on the card")
+
+    # 3. the regression BNN of examples/split_hmc_bnn_example.py (1-100-100-1 tanh,
+    # 400 points, 4 splits of 100, tau_out 100, step 5e-4), float64 card vs CPU
+    rng = np.random.RandomState(0)
+    xr = np.linspace(-1, 1, 400)[:, None]
+    yr = np.sin(4 * xr) + 0.1 * rng.randn(*xr.shape)
+    reg_batches = [(xr[i::4], yr[i::4]) for i in range(4)]
+    torch.manual_seed(1)
+    reg = nn.Sequential(nn.Linear(1, 100), nn.Tanh(), nn.Linear(100, 100), nn.Tanh(),
+                        nn.Linear(100, 1)).double()
+    reg_cfg = MCMCConfig(num_samples=4, num_steps_per_sample=10, step_size=5e-4)
+
+    def reg_terms(dev):
+        return define_split_model_log_prob(reg, "regression", reg_batches, 4, tau_out=100.0,
+                                           verbose=False, device=dev)
+
+    rdims = reg_terms("cpu")[2].numel()
+    gen = torch.Generator().manual_seed(55)
+    noise = (torch.randn(4, 1, rdims, generator=gen, dtype=torch.float64),
+             torch.rand(4, 1, generator=gen, dtype=torch.float64).log(),
+             torch.stack([torch.randperm(4, generator=gen) for _ in range(4)])[:, None])
+    for integrator in (Integrator.SPLITTING_RAND, Integrator.SPLITTING_KMID):
+        out = {}
+        for dev in (device, "cpu"):
+            fn, m, flat_r, _, data_r = reg_terms(dev)
+            out[dev if dev == "cpu" else "card"] = run_split_hmc_stacked(
+                56, fn, m, flat_r, reg_cfg, integrator=integrator, data=data_r,
+                _noise=tuple(t[:, 0].to(dev) for t in noise))
+        same = torch.equal(out["card"].stats.accepted.cpu(), out["cpu"].stats.accepted)
+        scale = float(out["cpu"].samples.abs().max())
+        err = float((out["card"].samples.cpu() - out["cpu"].samples).abs().max()) / scale
+        finite = bool(torch.isfinite(out["card"].samples).all())
+        print(f"split regression BNN ({rdims} parameters) {integrator.name}, float64 card vs CPU "
+              f"on the same noise: accepts {out['cpu'].stats.accepted.tolist()}, identical {same}, "
+              f"positions {err:.3e} of max |theta|, finite {finite}")
+        if not (same and finite and err <= 1e-8):
+            raise SmokeError(f"split {integrator.name} card vs CPU: identical {same}, error {err}")
+
+    # 4. the offloaded and checkpointed runners against the straight run (float32)
+    fn, m, flat_r, _, data_r = define_split_model_log_prob(
+        reg.float(), "regression", reg_batches, 4, tau_out=100.0, verbose=False, device=device)
+    cfg = MCMCConfig(num_samples=9, num_steps_per_sample=5, step_size=5e-4)
+    kw = dict(integrator=Integrator.SPLITTING_RAND, data=data_r)
+    want = run_split_hmc_stacked(57, fn, m, flat_r, cfg, **kw)
+    off = run_split_hmc_host_offload(57, fn, m, flat_r, cfg, chunk_size=4, **kw)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        ck.run_split_hmc_checkpointed(57, fn, m, flat_r, dataclasses.replace(cfg, num_samples=5),
+                                      tmp, chunk_size=3, **kw)
+        resumed = ck.run_split_hmc_checkpointed(57, fn, m, flat_r, cfg, tmp, chunk_size=3, **kw)
+    same_off = torch.equal(off.samples, want.samples.cpu()) and all(
+        torch.equal(a, b.cpu()) for a, b in zip(off.stats, want.stats))
+    same_ck = same_tensors(torch, resumed.samples, want.samples) and same_tensors(
+        torch, tuple(resumed.stats), tuple(want.stats))
+    print(f"split SPLITTING_RAND: host offload (chunks of 4) identical {same_off}; checkpointed "
+          f"(stopped at 5, chunks of 3) identical {same_ck}")
+    if not (same_off and same_ck):
+        raise SmokeError(f"split: offload identical {same_off}, checkpoint identical {same_ck}")
+
+
 def tiny_card_vs_cpu(torch, device):
     """The port's tensor path is the same on the card as on the CPU."""
     from hamiltorch_tpu_torch import MCMCConfig, run_hmc_chains
@@ -1477,8 +1853,10 @@ def main() -> int:
     bnn_model_path(torch, device, card)
     print(f"bnn_model phase: {time.perf_counter() - t_model:.1f} s, kernel launches "
           f"{ {kernel.__name__: kernel.launches for kernel in kernel_fns} }")
-    # tree-doubling NUTS and checkpoint/resume: no kernel of the port on them
-    for phase, fn in (("nuts", nuts_path), ("checkpoint", checkpoint_path)):
+    # tree-doubling NUTS, checkpoint/resume, RMHMC and split HMC: no kernel
+    # of the port on them
+    for phase, fn in (("nuts", nuts_path), ("checkpoint", checkpoint_path),
+                      ("rmhmc", rmhmc_path), ("split", split_path)):
         for kernel in kernel_fns:
             kernel.launches = 0
         t_phase = time.perf_counter()

@@ -5,14 +5,20 @@ paths and public names mirror ``hamiltorch_tpu``'s, so each counterpart is
 found under the same name.  This package imports ``torch`` and never
 ``jax``.
 
-Ported so far: the HMC chain sampler (``sample`` for ``Sampler.HMC`` /
-``HMC_NUTS`` with progress lines and ``store_on_GPU=False``, ``run_hmc``,
-``run_hmc_chains``, ``run_hmc_host_offload``) with its potential, mass
-(block-diagonal included), leapfrog, dual-averaging, windowed mass warmup
-and driver layers; tree-doubling NUTS (``sample`` for ``Sampler.NUTS``,
-``run_nuts``, ``run_nuts_chains``, ``run_nuts_ensemble``,
-``samplers.run_nuts_host_offload``); checkpoint/resume for HMC, NUTS,
-MCLMC and MAMS (``checkpoint``); MCLMC (``run_mclmc``, ``run_mclmc_chains``); MAMS
+Ported so far: ``sample`` with every sampler, integrator and metric of the
+JAX package's, progress lines and ``store_on_GPU=False``; the HMC chain
+sampler (``run_hmc``, ``run_hmc_chains``, ``run_hmc_host_offload``) with
+its potential, mass (block-diagonal included), leapfrog, dual-averaging,
+windowed mass warmup and driver layers; tree-doubling NUTS (``run_nuts``,
+``run_nuts_chains``, ``run_nuts_ensemble``,
+``samplers.run_nuts_host_offload``); Riemannian-manifold HMC
+(``run_rmhmc``, ``run_rmhmc_chains``, ``samplers.run_rmhmc_host_offload``;
+``ops.metrics``, the implicit, explicit and midpoint integrators);
+symmetric-split minibatch HMC (``samplers.run_split_hmc``,
+``run_split_hmc_stacked``, ``run_split_hmc_chains``,
+``run_split_hmc_host_offload``; ``sample_split_model``); checkpoint/resume
+for HMC, NUTS, MCLMC, MAMS, RMHMC and split HMC (``checkpoint``); MCLMC
+(``run_mclmc``, ``run_mclmc_chains``); MAMS
 (``run_mams``, ``run_mams_chains``); the diagnostics (``diagnostics``:
 ESS, R-hat, ``summary``); model comparison (``waic``, ``psis_loo``,
 ``compare``); the BNN layer on ``torch.nn.Module``s (``sample_model``,
@@ -22,7 +28,7 @@ ESS, R-hat, ``summary``); model comparison (``waic``, ``psis_loo``,
 CUDA kernels for Hopper.  ROADMAP.md lists what is still to port.
 """
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
 from . import util
 from .api import sample
@@ -39,6 +45,7 @@ from .samplers.hmc import run_hmc, run_hmc_chains, run_hmc_host_offload
 from .samplers.mams import MAMSConfig, MAMSResult, run_mams, run_mams_chains
 from .samplers.mclmc import MCLMCConfig, MCLMCResult, run_mclmc, run_mclmc_chains
 from .samplers.nuts import NUTSConfig, run_nuts, run_nuts_chains, run_nuts_ensemble
+from .samplers.rmhmc import run_rmhmc, run_rmhmc_chains
 from .utils.rng import next_key, set_random_seed
 
 __all__ = [
@@ -57,6 +64,8 @@ __all__ = [
     "run_nuts",
     "run_nuts_chains",
     "run_nuts_ensemble",
+    "run_rmhmc",
+    "run_rmhmc_chains",
     "NUTSConfig",
     "MCMCConfig",
     "MCMCResult",

@@ -7,17 +7,21 @@ state after each draw ``n > burn``, as one (num_kept, D) tensor;
 ``(samples, acc_rate)`` otherwise.  ``key`` is an integer seed; without it
 the module-level generator set by ``set_random_seed`` supplies one.
 
-The port has the ``Sampler.HMC`` / ``Sampler.HMC_NUTS`` branch with the
-leapfrog integrator and the ``Sampler.NUTS`` branch (tree-doubling NUTS,
-``samplers/nuts.py``; it adapts the step size when ``burn > 0``), both with
-windowed mass warmup (``adapt_mass``), progress lines (``progress_every``)
-and ``store_on_GPU=False``, which runs the chain in chunks and moves each
-chunk's trace to the host (``run_hmc_host_offload``,
-``run_nuts_host_offload``): the samples then come back as a CPU tensor,
-the same numbers as with ``store_on_GPU=True``.  ``params_init`` that is
-not a tensor goes to the card (raises without one); a tensor keeps its
-device.  RMHMC and the splitting integrators raise ``NotImplementedError``
-until they are ported (ROADMAP.md, queue 1).
+Every branch of the JAX package's: ``Sampler.HMC`` / ``Sampler.HMC_NUTS``
+with the leapfrog integrator (windowed mass warmup with ``adapt_mass``) or,
+given a list of per-term log-probs, a splitting integrator
+(``samplers/splitting.py``); ``Sampler.NUTS`` (tree-doubling NUTS,
+``samplers/nuts.py``; it adapts the step size when ``burn > 0``); and
+``Sampler.RMHMC`` with the IMPLICIT, EXPLICIT, S3 or MIDPOINT integrator
+under the HESSIAN, SOFTABS or JACOBIAN_DIAG metric (``samplers/rmhmc.py``).
+Each takes progress lines (``progress_every``) and ``store_on_GPU=False``,
+which runs the chain in chunks and moves each chunk's trace to the host:
+the samples then come back as a CPU tensor, the same numbers as with
+``store_on_GPU=True``.  ``params_init`` that is not a tensor goes to the
+card (raises without one); a tensor keeps its device.  The validations and
+their messages are the JAX package's: a list of log-probs only with a
+splitting integrator, ``pass_grad`` refused for RMHMC (and accepted for
+splitting as a per-term list), ``adapt_mass`` refused for both.
 """
 
 from __future__ import annotations
@@ -30,17 +34,17 @@ from .enums import Integrator, Metric, Sampler
 from .samplers.driver import MCMCConfig, MCMCResult
 from .samplers.hmc import run_hmc, run_hmc_host_offload
 from .samplers.nuts import NUTSConfig, run_nuts
-from .samplers.offload import run_nuts_host_offload
+from .samplers.offload import (
+    run_nuts_host_offload,
+    run_rmhmc_host_offload,
+    run_split_hmc_host_offload,
+)
+from .samplers.rmhmc import run_rmhmc
+from .samplers.splitting import grads_from_list, run_split_hmc, terms_from_list
 from .utils.convert import place_start
 from .utils.rng import next_key
 
 _SPLITTING = (Integrator.SPLITTING, Integrator.SPLITTING_RAND, Integrator.SPLITTING_KMID)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to hamiltorch_tpu_torch yet; see ROADMAP.md, queue 1"
-    )
 
 
 def _kept_samples(params_init: torch.Tensor, result: MCMCResult, burn: int,
@@ -101,18 +105,28 @@ def sample(
         raise RuntimeError("burn must be less than num_samples.")
     if thin > 1 and burn > 0 and burn % thin:
         raise RuntimeError("burn must be divisible by thin.")
-    if sampler == Sampler.HMC_NUTS and burn == 0:
-        raise RuntimeError("burn must be greater than 0 for NUTS.")
-    if sampler not in (Sampler.HMC, Sampler.HMC_NUTS, Sampler.NUTS):
-        raise _not_ported(f"sampler={sampler}")
-    if integrator in _SPLITTING or isinstance(log_prob_func, (list, tuple)):
-        raise _not_ported("split HMC (the splitting integrators)")
+    if adapt_mass and (sampler == Sampler.RMHMC or integrator in _SPLITTING):
+        raise RuntimeError(
+            "adapt_mass (windowed mass warmup) is available for Sampler.NUTS "
+            "and the plain-HMC samplers (or the native run_hmc/run_nuts/"
+            "run_chees APIs)."
+        )
     # NUTS ignores adapt_mass without a warmup phase, as in the JAX package
     if adapt_mass and sampler in (Sampler.HMC, Sampler.HMC_NUTS) and burn <= 0:
         raise RuntimeError("adapt_mass requires burn > 0 (the warmup phase).")
+    if sampler == Sampler.HMC_NUTS and burn == 0:
+        raise RuntimeError("burn must be greater than 0 for NUTS.")
+    if sampler not in (Sampler.HMC, Sampler.HMC_NUTS, Sampler.NUTS, Sampler.RMHMC):
+        raise NotImplementedError(f"sampler={sampler}, integrator={integrator}")
+    is_list = isinstance(log_prob_func, (list, tuple))
+    if is_list and not (sampler in (Sampler.HMC, Sampler.HMC_NUTS) and integrator in _SPLITTING):
+        raise RuntimeError(
+            "A list of log_prob functions requires Sampler.HMC with a "
+            "SPLITTING integrator (reference: samplers.py:466-467)."
+        )
     if key is None:
         key = next_key()
-    if isinstance(log_prob_func(params_init), (tuple, list)):
+    if not is_list and isinstance(log_prob_func(params_init), (tuple, list)):
         # the reference differentiates element [0] of a tuple return
         # (collect_gradients, samplers.py:54-58)
         orig = log_prob_func
@@ -133,7 +147,7 @@ def sample(
         adapt_mass=adapt_mass,
     )
     # the reference's store_on_GPU=False moves the trace to the host per
-    # draw (samplers.py:956-959); here per chunk
+    # draw (samplers.py:956-959, 1008-1012); here per chunk
     if sampler == Sampler.NUTS:
         nuts_config = NUTSConfig(
             num_samples=num_samples,
@@ -151,6 +165,44 @@ def sample(
         else:
             result = run_nuts_host_offload(key, log_prob_func, params_init, nuts_config,
                                            inv_mass=inv_mass, pass_grad=pass_grad)
+    elif sampler == Sampler.RMHMC:
+        if pass_grad is not None:
+            # reference parity (samplers.py:309-310,389-390): a user-supplied
+            # d logp/d theta cannot stand in for the Riemannian Hamiltonian's
+            # gradient, which includes metric-derivative terms
+            raise RuntimeError("Passing user-determined gradients not implemented for RMHMC")
+        rm_kwargs = dict(
+            integrator=integrator, metric=metric, jitter=jitter,
+            softabs_const=softabs_const, explicit_binding_const=explicit_binding_const,
+            fixed_point_threshold=fixed_point_threshold,
+            fixed_point_max_iterations=fixed_point_max_iterations,
+        )
+        if store_on_GPU:
+            result = run_rmhmc(key, log_prob_func, params_init, config, **rm_kwargs)
+        else:
+            result = run_rmhmc_host_offload(key, log_prob_func, params_init, config,
+                                            **rm_kwargs)
+    elif integrator in _SPLITTING:
+        if not is_list:
+            raise RuntimeError("For splitting log_prob_func must be list of functions")
+        if pass_grad is not None and (not isinstance(pass_grad, (list, tuple))
+                                      or len(pass_grad) != len(log_prob_func)):
+            # the reference refuses pass_grad for splitting outright
+            # (samplers.py:468-469); the JAX package accepts PER-TERM
+            # gradients, the only well-defined form
+            raise RuntimeError(
+                "Passing user-determined gradients for splitting requires a "
+                "list of per-term gradient callables (one per log_prob term)."
+            )
+        if store_on_GPU:
+            result = run_split_hmc(key, list(log_prob_func), params_init, config,
+                                   integrator=integrator, inv_mass=inv_mass,
+                                   pass_grad=None if pass_grad is None else list(pass_grad))
+        else:
+            result = run_split_hmc_host_offload(
+                key, terms_from_list(log_prob_func), len(log_prob_func), params_init, config,
+                integrator=integrator, inv_mass=inv_mass,
+                pass_grad=None if pass_grad is None else grads_from_list(pass_grad))
     else:
         runner = run_hmc if store_on_GPU else run_hmc_host_offload
         result = runner(key, log_prob_func, params_init, config,

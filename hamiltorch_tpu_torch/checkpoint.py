@@ -4,8 +4,9 @@ Counterpart of ``hamiltorch_tpu/checkpoint.py`` for the families the port
 has: single-chain and batched HMC (``run_hmc_checkpointed``,
 ``run_hmc_chains_checkpointed``), tree-doubling NUTS
 (``run_nuts_checkpointed``) and its pooled ensemble
-(``run_nuts_ensemble_checkpointed``), MCLMC (``run_mclmc_checkpointed``) and
-MAMS (``run_mams_checkpointed``).  Sampling proceeds in chunks; after every
+(``run_nuts_ensemble_checkpointed``), MCLMC (``run_mclmc_checkpointed``),
+MAMS (``run_mams_checkpointed``), RMHMC (``run_rmhmc_checkpointed``) and
+split HMC (``run_split_hmc_checkpointed``).  Sampling proceeds in chunks; after every
 chunk its trace goes to ``chunk_XXXXXXXX.npz`` and the whole resume carry
 (chain state with its cached potential evaluation, dual averaging, the
 windowed-warmup carry where there is one, MCLMC's tuned (eps, L) and
@@ -377,6 +378,104 @@ def run_hmc_chains_checkpointed(
             theta0 = theta0.expand((num_chains,) + tuple(theta0.shape)).clone()
     mass = _mass_for(theta0, template, inv_mass, config)
     return _hmc_runner(key, lp, theta0, config, mass, ckpt_dir, chunk_size, resume, False)
+
+
+def _single_chain_runner(key, stacked, config, ckpt_dir, chunk_size, resume, extra,
+                         init_logp, run_batched):
+    """The checkpoint loop of a single-chain sampler whose batched runner
+    ``run_batched(seed, cfg, state, da, n_done)`` continues a chunk from its
+    (state, dual averaging) carry; ``init_logp`` evaluates the start's
+    log-prob over the chain axis of ``stacked`` (1 chain).  ``extra`` enters
+    the fingerprint."""
+    from .samplers.hmc import _first_chain
+
+    leaf = tree_leaves(stacked)[0]
+    da0 = _da_tuple(da_init(torch.full((1,), config.step_size, dtype=leaf.dtype,
+                                       device=leaf.device), dtype=leaf.dtype, device=leaf.device))
+
+    def init_carry_fn():
+        return (ChainState(stacked, init_logp(stacked), tree_map(torch.zeros_like, stacked)),
+                da0)
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        res = run_batched(seed, cfg, carry[0], _da_of(carry[1]), n_done)
+        return _first_chain(res), (res.final_state, _da_tuple(res.final_da))
+
+    zs, carry = _checkpoint_loop(chunk_runner, key, (_chain_state_template(stacked), da0),
+                                 init_carry_fn, config, ckpt_dir, chunk_size, resume,
+                                 _fingerprint(config, _first(stacked), extra=extra),
+                                 _mcmc_chunk_fields)
+    return _assemble_mcmc(zs, config, _first(carry))
+
+
+def run_split_hmc_checkpointed(
+    key: int,
+    term_fn: Callable,
+    num_terms: int,
+    theta0,
+    config,  # MCMCConfig
+    ckpt_dir: str,
+    chunk_size: int = 100,
+    integrator=None,
+    inv_mass=None,
+    data=None,
+    pass_grad=None,
+    resume: bool = True,
+) -> MCMCResult:
+    """Symmetric-split minibatch HMC (``run_split_hmc_stacked``) with
+    per-chunk checkpointing: ``term_fn(theta, m[, data])`` one term, the
+    stacked data passed as ``data``.  The splitting scheme and the number of
+    terms enter the fingerprint.  ``theta0`` may be a parameter tree (with a
+    tree-taking ``term_fn``; diagonal metrics only).  Bit for bit the
+    straight run at any chunking."""
+    from .enums import Integrator
+    from .samplers.splitting import _prepare_one, _run_split_batched, stacked_total_logp
+
+    integrator = Integrator.SPLITTING if integrator is None else integrator
+    stacked, mass = _prepare_one(theta0, inv_mass)
+
+    def run_batched(seed, cfg, state, da, n_done):
+        return _run_split_batched(seed, stacked, term_fn, num_terms, cfg, integrator, mass,
+                                  data, pass_grad=pass_grad, init_state=state, init_da=da,
+                                  start_iter=n_done)
+
+    return _single_chain_runner(
+        key, stacked, config, ckpt_dir, chunk_size, resume, (integrator, num_terms),
+        torch.func.vmap(stacked_total_logp(term_fn, num_terms, data)), run_batched)
+
+
+def run_rmhmc_checkpointed(
+    key: int,
+    log_prob_fn: Callable[[torch.Tensor], torch.Tensor],
+    theta0,
+    config,  # MCMCConfig
+    ckpt_dir: str,
+    chunk_size: int = 50,
+    resume: bool = True,
+    **rmhmc_kwargs,
+) -> MCMCResult:
+    """RMHMC (``run_rmhmc``, a flat ``theta0``) with per-chunk
+    checkpointing: the sampler where resume matters most, its implicit
+    fixed points making it the slowest per draw.  ``rmhmc_kwargs`` go to the
+    sampler (``integrator``, ``metric``, ``jitter``, ``softabs_const``,
+    ``explicit_binding_const``, ``fixed_point_threshold``,
+    ``fixed_point_max_iterations``, ``ham_func``, ``custom_metric``); the
+    integrator and the metric options enter the fingerprint.  Bit for bit
+    the straight run at any chunking."""
+    from .ops.potential import resolve_potential
+    from .samplers.rmhmc import _run_rmhmc_batched, resolve_rmhmc_options
+
+    stacked = place_start(theta0)[None]
+    lp = resolve_potential(log_prob_fn)
+    integrator, opts, ham_func, custom_metric = resolve_rmhmc_options(rmhmc_kwargs)
+
+    def run_batched(seed, cfg, state, da, n_done):
+        return _run_rmhmc_batched(seed, stacked, lp, cfg, integrator, opts, ham_func,
+                                  custom_metric, init_state=state, init_da=da,
+                                  start_iter=n_done)
+
+    return _single_chain_runner(key, stacked, config, ckpt_dir, chunk_size, resume,
+                                (integrator, opts), torch.func.vmap(lp), run_batched)
 
 
 def _nuts_carry(theta0, config, mass, pooled: bool):

@@ -258,7 +258,7 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
     layout (every array (chain, draw, *shape), numpy on the host) from a
     sampler result of a family the port has:
 
-    - ``MCMCResult`` (``run_hmc`` / ``run_hmc_chains``): acceptance rate,
+    - ``MCMCResult`` (``run_hmc*``, ``run_rmhmc*``, ``run_split_hmc*``): acceptance rate,
       divergences, the trajectory-start energy (the E-BFMI series) and
       step size;
     - ``(MCMCResult, NUTSInfo)`` (``run_nuts*``, or ``info=``): the same

@@ -3,6 +3,7 @@ from .bnn import (
     define_model_log_prob,
     define_model_prior_and_lik,
     define_model_tree_log_prob,
+    define_split_model_log_prob,
     gaussian_prior_log_prob,
     log_likelihood,
     predict_model,
@@ -10,13 +11,13 @@ from .bnn import (
     sample_split_model,
 )
 
-# the JAX package's list, in its order, less define_split_model_log_prob
-# (the splitting integrator is not ported yet)
+# the JAX package's list, in its order
 __all__ = [
     "build_model",
     "define_model_log_prob",
     "define_model_prior_and_lik",
     "define_model_tree_log_prob",
+    "define_split_model_log_prob",
     "gaussian_prior_log_prob",
     "log_likelihood",
     "predict_model",

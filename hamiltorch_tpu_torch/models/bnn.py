@@ -1,7 +1,8 @@
 """Bayesian-neural-network layer: ``torch.nn.Module`` -> flat-vector log-probability.
 
 Counterpart of ``hamiltorch_tpu/models/bnn.py`` (the reference's
-``define_model_log_prob``, ``sample_model``, ``predict_model``; reference:
+``define_model_log_prob``, ``define_split_model_log_prob``,
+``sample_model``, ``sample_split_model``, ``predict_model``; reference:
 hamiltorch/samplers.py:1093-1562).  The JAX package translates a torch
 module into jnp operations (``models/interop.py``); here the module runs
 itself, through ``torch.func.functional_call``, as upstream hamiltorch's
@@ -39,8 +40,11 @@ from typing import Optional
 
 import torch
 
+from ..api import _kept_samples
 from ..api import sample as _sample
 from ..enums import Integrator, Metric, Sampler
+from ..samplers.driver import MCMCConfig
+from ..samplers.splitting import run_split_hmc_stacked
 from ..utils.convert import resolve_device
 from ..utils.pytree import (
     is_param_tree,
@@ -49,6 +53,7 @@ from ..utils.pytree import (
     tree_map,
     tree_unflatten_like,
 )
+from ..utils.rng import next_key
 
 # ---------------------------------------------------------------------------
 # model normalisation
@@ -384,6 +389,79 @@ def _as_batches(train_loader, num_splits: Optional[int] = None, keep_tail: bool 
     return torch.stack([xs[i] for i in keep]), torch.stack([ys[i] for i in keep])
 
 
+def _split_potential(model, model_loss, train_loader, num_splits, tau_list, tau_out,
+                     predict, verbose, params_template, device, flat):
+    """(term_fn(theta, m, data), M, template, data): the stacked batches on
+    ``device`` and each term's potential on batch ``m``, the prior counted
+    as prior / M in every term, so that the terms sum to the full-data
+    potential."""
+    xs, ys = _as_batches(train_loader, num_splits)
+    m_terms = int(xs.shape[0])
+    raw_fn, template, device = _potential(model, model_loss, tau_list, tau_out, predict,
+                                          m_terms, params_template, False, device, flat)
+    dtype = tree_leaves(template)[0].dtype
+    data = (_as_data(xs, device, dtype), _as_data(ys, device, dtype))
+    if verbose:
+        print(f"Number of splits: {m_terms} , each of batch size {xs.shape[1]}\n")
+
+    def term_fn(theta, m, data):
+        xs_, ys_ = data
+        return raw_fn(theta, (xs_[m], ys_[m]))
+
+    return term_fn, m_terms, template, data
+
+
+def define_split_model_log_prob(
+    model,
+    model_loss,
+    train_loader,
+    num_splits: int,
+    tau_list=None,
+    tau_out: float = 1.0,
+    predict: bool = False,
+    verbose: bool = True,
+    params_template=None,
+    device=None,
+):
+    """Stacked-data split likelihood (reference: samplers.py:1203-1258).
+
+    The loader's first ``num_splits`` equal-size batches (ragged ones
+    dropped) are stacked to (M, B, ...) tensors on ``device`` (the card when
+    None), and ``term_fn(theta, m, data)`` is the potential of batch ``m``
+    at the flat ``theta``, the prior divided by M so that it counts once in
+    the sum.  Returns ``(term_fn, num_terms, flat_init, unravel, (xs, ys))``;
+    pass the last as ``data`` to the split samplers.
+    """
+    term_fn, m_terms, template, data = _split_potential(
+        model, model_loss, train_loader, num_splits, tau_list, tau_out, predict, verbose,
+        params_template, device, True)
+    flat_init, unravel = ravel_pytree_fn(template)
+    return term_fn, m_terms, flat_init, unravel, data
+
+
+def define_split_model_tree_log_prob(
+    model,
+    model_loss,
+    train_loader,
+    num_splits: int,
+    tau_list=None,
+    tau_out: float = 1.0,
+    predict: bool = False,
+    verbose: bool = True,
+    params_template=None,
+    device=None,
+):
+    """Tree variant of :func:`define_split_model_log_prob`: ``term_fn(params,
+    m, data)`` takes the parameter tree (a list for a module), with no
+    ravel/unravel in the per-term gradient path; the split samplers take the
+    returned template as ``theta0``.  Values match the flat factory's.
+
+    Returns ``(term_fn, num_terms, params_template, (xs, ys))``.
+    """
+    return _split_potential(model, model_loss, train_loader, num_splits, tau_list, tau_out,
+                            predict, verbose, params_template, device, False)
+
+
 # ---------------------------------------------------------------------------
 # user-facing entry points
 
@@ -448,13 +526,72 @@ def sample_model(
     )
 
 
-def sample_split_model(model, train_loader, *args, **kwargs):
+def sample_split_model(
+    model,
+    train_loader,
+    params_init=None,
+    num_splits: int = 2,
+    model_loss="multi_class_linear_output",
+    num_samples: int = 10,
+    num_steps_per_sample: int = 10,
+    step_size: float = 0.1,
+    burn: int = 0,
+    inv_mass=None,
+    jitter=None,
+    normalizing_const: float = 1.0,
+    softabs_const=None,
+    explicit_binding_const: float = 100.0,
+    fixed_point_threshold: float = 1e-5,
+    fixed_point_max_iterations: int = 1000,
+    jitter_max_tries: int = 10,
+    sampler: Sampler = Sampler.HMC,
+    integrator: Integrator = Integrator.SPLITTING,
+    metric: Metric = Metric.HESSIAN,
+    debug: int = 0,
+    tau_out: float = 1.0,
+    tau_list=None,
+    store_on_GPU: bool = True,
+    desired_accept_rate: float = 0.8,
+    verbose: bool = True,
+    key=None,
+    params_template=None,
+    device=None,
+):
     """Symmetric-split minibatch HMC on a BNN (reference:
-    samplers.py:1364-1466): needs the splitting integrator, not ported yet."""
-    raise NotImplementedError(
-        "sample_split_model (the splitting integrator) is not ported to "
-        "hamiltorch_tpu_torch yet; see ROADMAP.md, queue 1"
+    samplers.py:1364-1466): the terms of :func:`define_split_model_log_prob`
+    through ``run_split_hmc_stacked``, with ``sample``'s return convention.
+    The chain and the stacked batches live on ``device`` (the card when
+    None); ``params_init`` defaults to the module's own parameters.  As in
+    the JAX package, the RMHMC and jitter arguments are accepted and unused,
+    and the trace stays on the device."""
+    term_fn, m_terms, flat_init, _, data = define_split_model_log_prob(
+        model, model_loss, train_loader, num_splits, tau_list=tau_list, tau_out=tau_out,
+        verbose=verbose, params_template=params_template, device=device,
     )
+    if params_init is None:
+        params_init = flat_init
+    params_init = torch.as_tensor(params_init, dtype=flat_init.dtype, device=flat_init.device)
+    if params_init.ndim != 1:
+        raise RuntimeError("params_init must be a 1d array.")
+    if burn >= num_samples:
+        raise RuntimeError("burn must be less than num_samples.")
+    if sampler == Sampler.HMC_NUTS and burn <= 0:
+        raise RuntimeError("burn must be greater than 0 for NUTS.")
+    if key is None:
+        key = next_key()
+    config = MCMCConfig(
+        num_samples=num_samples, num_steps_per_sample=num_steps_per_sample,
+        step_size=step_size, burn=burn, adapt_step_size=sampler == Sampler.HMC_NUTS,
+        desired_accept_rate=desired_accept_rate,
+    )
+    result = run_split_hmc_stacked(key, term_fn, m_terms, params_init, config,
+                                   integrator=integrator, inv_mass=inv_mass, data=data)
+    samples = _kept_samples(params_init, result, burn)
+    if verbose:
+        print(f"Acceptance Rate {float(result.acc_rate):.2f}")
+    if debug == 2:
+        return samples, float(result.acc_rate)
+    return samples
 
 
 def predict_model(

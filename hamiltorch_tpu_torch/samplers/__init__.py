@@ -4,7 +4,9 @@ from .hmc import hmc_transition, run_hmc, run_hmc_chains, run_hmc_host_offload
 from .mams import MAMSConfig, MAMSResult, MAMSStats, run_mams, run_mams_chains
 from .mclmc import MCLMCConfig, MCLMCResult, MCLMCStats, run_mclmc, run_mclmc_chains
 from .nuts import NUTSConfig, NUTSInfo, run_nuts, run_nuts_chains, run_nuts_ensemble
-from .offload import run_nuts_host_offload
+from .offload import run_nuts_host_offload, run_rmhmc_host_offload, run_split_hmc_host_offload
+from .rmhmc import run_rmhmc, run_rmhmc_chains
+from .splitting import run_split_hmc, run_split_hmc_chains, run_split_hmc_stacked
 
 # the JAX package's list (hamiltorch_tpu/samplers/__init__.py), in its order,
 # for the samplers ported so far
@@ -21,9 +23,16 @@ __all__ = [
     "NUTSInfo",
     "run_nuts",
     "run_nuts_chains",
+    "run_rmhmc",
+    "run_rmhmc_chains",
     "run_nuts_ensemble",
+    "run_split_hmc",
+    "run_split_hmc_chains",
+    "run_split_hmc_stacked",
     "run_hmc_host_offload",
     "run_nuts_host_offload",
+    "run_rmhmc_host_offload",
+    "run_split_hmc_host_offload",
     "MCLMCConfig",
     "MCLMCResult",
     "MCLMCStats",

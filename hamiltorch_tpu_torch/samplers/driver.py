@@ -35,7 +35,7 @@ import torch
 
 from ..utils.progress import scan_progress
 from ..utils.pytree import tree_leaves, tree_map
-from ..utils.rng import draw_noise
+from ..utils.rng import draw_aux_noise, draw_noise
 from .adaptation import DualAveragingState, da_init, da_update
 from .warmup import schedule_flags, welford_cov_update, welford_update, windowed_step
 
@@ -57,8 +57,10 @@ class MCMCStats(NamedTuple):
     energy_old: torch.Tensor
     energy_new: torch.Tensor
     step_size: torch.Tensor  # step size used for this draw
-    # the generalized leapfrog's fixed-point diagnostics (implicit RMHMC
-    # only, not ported yet; zero for plain HMC, as in the JAX package)
+    # the fixed-point diagnostics of the implicit RMHMC integrators (zero
+    # elsewhere, as in the JAX package): the largest iteration count and
+    # final squared residual over the trajectory (and the thinning window);
+    # a count at fixed_point_max_iterations means a solve did not converge
     fp_iters: torch.Tensor  # int32
     fp_residual: torch.Tensor
 
@@ -123,6 +125,9 @@ class MCMCConfig:
 # A transition proposes new states for every chain and returns the two
 # Hamiltonians the Metropolis test needs:
 # (z (C, D), state, step_size (C,)) -> (proposal, H0 (C,), H1 (C,)).
+# It may append a 4th element, a dict of per-chain diagnostics
+# ({"fp_iters", "fp_residual"}), which the driver folds into MCMCStats.  A
+# run given ``extra_noise`` calls it with a 4th argument, that noise.
 # With windowed warmup the caller passes make_transition(metric) -> such a
 # transition instead, for the per-chain metric of the current draw.
 TransitionFn = Callable[
@@ -157,6 +162,7 @@ def run_mcmc(
     init_warm=None,
     collect_flags=None,
     end_flags=None,
+    extra_noise=None,
     _noise=None,
 ) -> MCMCResult:
     """Run ``config.num_samples`` draws of ``transition`` from ``init_state``.
@@ -164,8 +170,13 @@ def run_mcmc(
     Every tensor of ``init_state`` has a leading chain axis.  ``key`` is the
     integer seed of the per-draw streams (``utils/rng.py``).
     ``init_da``/``start_iter`` continue a previous chunk's adaptation and
-    random stream exactly.  ``_noise = (z, log_u)``, of shapes
-    ``(num_samples, C, D)`` and ``(num_samples, C)``, replaces the drawn
+    random stream exactly.  ``extra_noise = (kind, size)`` asks for more
+    noise per draw and chain, passed to the transition as its 4th argument:
+    ``("uniform", D)`` a (C, D) uniform (RMHMC's jitter), ``("perm", M)`` a
+    (C, M) permutation (SPLITTING_RAND's term order); it comes from the
+    chain's own stream keyed on (seed, chain, draw) (``utils/rng.py``).
+    ``_noise = (z, log_u[, extra])``, of shapes ``(num_samples, C, D)``,
+    ``(num_samples, C)`` and ``(num_samples, C, ...)``, replaces the drawn
     noise (a test hook).
 
     Windowed mass warmup (``config.adapt_mass`` with ``burn > 0``): the
@@ -221,17 +232,27 @@ def run_mcmc(
         div_any = torch.zeros(num_chains, dtype=torch.bool, device=device)
         alpha_sum = torch.zeros(num_chains, dtype=dtype, device=device)
         acc_cnt = torch.zeros(num_chains, dtype=dtype, device=device)
+        fp_it = fp_res = None
         for j in range(thin):
             n = start_iter + k * thin + j
             if progress is not None:
                 progress(n - start_iter)  # the bar is sized per run, not global
             if _noise is None:
                 z, log_u = draw_noise(key, n, num_chains, dim, dtype, device)
+                extra = (None if extra_noise is None else
+                         draw_aux_noise(key, n, num_chains, *extra_noise, dtype, device))
             else:
                 z, log_u = _noise[0][n - start_iter], _noise[1][n - start_iter]
+                extra = None if extra_noise is None else _noise[2][n - start_iter]
             step_size = da.step_size
             trans = make_transition(metric) if windowed else transition
-            proposal, h0, h1 = trans(z, state, step_size)
+            out = trans(z, state, step_size) if extra is None else trans(z, state, step_size, extra)
+            proposal, h0, h1 = out[:3]
+            if len(out) > 3:
+                # maxed over the thinning window
+                it, res = out[3]["fp_iters"], out[3]["fp_residual"]
+                fp_it = it if fp_it is None else torch.maximum(fp_it, it)
+                fp_res = res if fp_res is None else torch.maximum(fp_res, res)
             log_ratio = h0 - h1
             finite = torch.isfinite(log_ratio)
             rho = torch.clamp(
@@ -278,6 +299,9 @@ def run_mcmc(
         stat_buf["energy_old"][:, k] = h0
         stat_buf["energy_new"][:, k] = h1
         stat_buf["step_size"][:, k] = step_size
+        if fp_it is not None:
+            stat_buf["fp_iters"][:, k] = fp_it
+            stat_buf["fp_residual"][:, k] = fp_res
         acc_frac_sum += acc_cnt / thin
 
     if progress is not None:

@@ -8,9 +8,8 @@ runs, so the card holds O(chunk) draws, never the whole (draws x D) trace.
 Each draw's noise is keyed on (seed, chain, global draw index), so the
 chunked stream is the unchunked one.
 
-``run_nuts_host_offload`` is NUTS's runner here; ``samplers/hmc.py`` holds
-HMC's.  The RMHMC and splitting offload runners of the JAX module come with
-their samplers (ROADMAP.md, queue 1).
+``run_nuts_host_offload``, ``run_rmhmc_host_offload`` and
+``run_split_hmc_host_offload`` are here; ``samplers/hmc.py`` holds HMC's.
 """
 
 from __future__ import annotations
@@ -106,3 +105,70 @@ def run_nuts_host_offload(
 
     dtype = tree_leaves(stacked)[0].dtype
     return host_offload_loop(run_chunk, config, (None, None, None), dtype, chunk_size)
+
+
+def run_rmhmc_host_offload(
+    key: int,
+    log_prob_fn,
+    theta0,
+    config,  # MCMCConfig
+    chunk_size: int = 64,
+    **rmhmc_kwargs,
+) -> MCMCResult:
+    """RMHMC whose trace streams to host memory chunk by chunk (the
+    reference's ``store_on_GPU=False`` for RMHMC, samplers.py:1008-1012).
+    ``rmhmc_kwargs`` as ``run_rmhmc`` (integrator, metric, jitter, ...);
+    ``theta0`` is flat.  Chunks are smaller than HMC's: an RMHMC draw costs
+    far more.  The trace is ``run_rmhmc``'s bit for bit at any chunking."""
+    from ..ops.potential import resolve_potential
+    from ..utils.convert import place_start
+    from .hmc import _first_chain
+    from .rmhmc import _run_rmhmc_batched, resolve_rmhmc_options
+
+    stacked = place_start(theta0)[None]
+    lp = resolve_potential(log_prob_fn)
+    integrator, opts, ham_func, custom_metric = resolve_rmhmc_options(rmhmc_kwargs)
+
+    def run_chunk(cfg, n_done, carry):
+        state, da = carry
+        res = _run_rmhmc_batched(key, stacked, lp, cfg, integrator, opts, ham_func,
+                                 custom_metric, init_state=state, init_da=da,
+                                 start_iter=n_done)
+        return _first_chain(res), (res.final_state, res.final_da)
+
+    return host_offload_loop(run_chunk, config, (None, None), stacked.dtype, chunk_size)
+
+
+def run_split_hmc_host_offload(
+    key: int,
+    term_fn,
+    num_terms: int,
+    theta0,
+    config,  # MCMCConfig
+    integrator=None,
+    inv_mass=None,
+    data=None,
+    pass_grad=None,
+    chunk_size: int = 256,
+) -> MCMCResult:
+    """Split HMC whose trace streams to host memory chunk by chunk (the
+    reference's ``store_on_GPU=False`` offload inside its splitting
+    branches, samplers.py:542-547).  Contract as ``run_split_hmc_stacked``;
+    ``theta0`` may be a parameter tree.  The trace is
+    ``run_split_hmc_stacked``'s bit for bit at any chunking."""
+    from ..enums import Integrator
+    from .hmc import _first_chain
+    from .splitting import _prepare_one, _run_split_batched
+
+    integrator = Integrator.SPLITTING if integrator is None else integrator
+    stacked, mass = _prepare_one(theta0, inv_mass)
+
+    def run_chunk(cfg, n_done, carry):
+        state, da = carry
+        res = _run_split_batched(key, stacked, term_fn, num_terms, cfg, integrator, mass, data,
+                                 pass_grad=pass_grad, init_state=state, init_da=da,
+                                 start_iter=n_done)
+        return _first_chain(res), (res.final_state, res.final_da)
+
+    dtype = tree_leaves(stacked)[0].dtype
+    return host_offload_loop(run_chunk, config, (None, None), dtype, chunk_size)

@@ -24,9 +24,12 @@ _MASK64 = (1 << 64) - 1
 # Stream namespaces: a sampler adds its namespace to the draw index, so that
 # two samplers run with one key do not share a stream.  HMC uses the draw
 # index itself, MCLMC [0, 2**32) (samplers/mclmc.py), MAMS and NUTS these
-# offsets.
+# offsets.  AUX_STREAM holds the extra per-draw noise that a transition asks
+# the driver for (RMHMC's jitter, SPLITTING_RAND's term order), beside the
+# draw's momentum and Metropolis uniform.
 MAMS_STREAM = 2**40
 NUTS_STREAM = 2**41
+AUX_STREAM = 2**42
 
 _global_gen: torch.Generator | None = None
 
@@ -118,3 +121,28 @@ def draw_nuts_noise(key: int, n: int, num_chains: int, dim: int, max_depth: int,
         u[c].uniform_(generator=gen)
     return {"z": z, "u_dir": u[:, :max_depth], "u_merge": u[:, max_depth:2 * max_depth],
             "u_leaf": u[:, 2 * max_depth:].reshape(num_chains, max_depth, half)}
+
+
+def draw_aux_noise(key: int, n: int, num_chains: int, kind: str, size: int,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+    """Extra per-draw noise of every chain, from a generator seeded by
+    ``draw_seed(key, c, AUX_STREAM + n)``: ``kind="uniform"`` gives a
+    (num_chains, size) U(0, 1) tensor of ``dtype`` (RMHMC's jitter, one
+    vector per transition), ``kind="perm"`` a (num_chains, size) int64
+    permutation of ``range(size)`` (SPLITTING_RAND's term order, one per
+    trajectory)."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    gen = torch.Generator(device=device)
+    if kind == "uniform":
+        out = torch.empty((num_chains, size), dtype=dtype, device=device)
+    elif kind == "perm":
+        out = torch.empty((num_chains, size), dtype=torch.int64, device=device)
+    else:
+        raise ValueError(f"unknown noise kind {kind!r}; expected 'uniform' or 'perm'")
+    for c in range(num_chains):
+        gen.manual_seed(draw_seed(key, c, AUX_STREAM + n))
+        if kind == "uniform":
+            out[c].uniform_(generator=gen)
+        else:
+            out[c] = torch.randperm(size, generator=gen, device=device)
+    return out

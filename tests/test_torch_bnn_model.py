@@ -340,5 +340,14 @@ def test_build_model_forms():
 
 
 def test_sample_split_model_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tht.sample_split_model(net_for("mlp"), [])
+    """sample_split_model is ported now (tests/test_torch_splitting.py holds
+    it against the JAX package): an empty loader is refused, as there, and a
+    small one samples."""
+    with pytest.raises(ValueError, match="no batches"):
+        tht.sample_split_model(net_for("mlp"), [], device="cpu")
+    x = inputs_for("mlp")
+    y = np.random.RandomState(5).randint(0, 3, N).astype(np.float32)
+    batches = [(x[i::2], y[i::2]) for i in range(2)]
+    s = tht.sample_split_model(net_for("mlp"), batches, num_samples=3, num_steps_per_sample=2,
+                               step_size=1e-3, key=0, verbose=False, device="cpu")
+    assert s.shape[0] == 3 and bool(torch.isfinite(s).all())

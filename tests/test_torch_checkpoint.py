@@ -111,7 +111,17 @@ def assert_same(got, want):
         assert len(la) == len(lb), field
         for x, y in zip(la, lb):
             assert x.dtype == y.dtype and x.shape == y.shape, field
-            assert torch.equal(x, y), field
+            assert same_bits(x, y), field
+
+
+def same_bits(a, b):
+    """Equal tensors, bit for bit: a NaN (a diverged draw's energy) equals a
+    NaN with the same bits at the same place."""
+    if torch.equal(a, b):
+        return True
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return (a.is_floating_point() and a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(ints[a.element_size()]), b.view(ints[b.element_size()])))
 
 
 def chunk_files(path):
@@ -237,3 +247,78 @@ def test_archive_keeps_bfloat16_bits(tmp_path):
     z = np.load(path)
     assert torch.equal(ck._tensor_of(z, "t").view(torch.int16), bits)
     assert ck._tensor_of(z, "f").dtype == torch.float32
+
+
+# --- RMHMC and split HMC -------------------------------------------------------
+
+def banana(t):
+    return -0.5 * (t[0] ** 2 / 4.0) - 0.5 * ((t[1] - 0.1 * (t[0] ** 2 - 4.0)) ** 2) / 0.5
+
+
+SPLIT_DATA = torch.tensor(np.random.RandomState(0).randn(3, 4, 2), dtype=torch.float32)
+
+
+def split_term(t, m, data):
+    flat = torch.cat([t["a"], t["b"]]) if isinstance(t, dict) else t
+    return -0.5 * torch.sum((flat - data[m]) ** 2) / 3.0 + 0.1 * torch.sum(torch.sin(flat))
+
+
+# name -> (straight(cfg, **kw), checkpointed(cfg, dir, chunk, **kw), theta0)
+RM_SPLIT = {
+    "rmhmc-implicit-jitter": (
+        lambda cfg, **kw: tht.run_rmhmc(5, banana, torch.tensor([0.4, -0.2]), cfg, **kw),
+        lambda cfg, d, c, **kw: ck.run_rmhmc_checkpointed(5, banana, torch.tensor([0.4, -0.2]),
+                                                          cfg, d, chunk_size=c, **kw),
+        dict(metric=tht.Metric.SOFTABS, softabs_const=1e2, jitter=0.05,
+             fixed_point_max_iterations=4)),
+    "rmhmc-explicit": (
+        lambda cfg, **kw: tht.run_rmhmc(5, banana, torch.tensor([0.4, -0.2]), cfg, **kw),
+        lambda cfg, d, c, **kw: ck.run_rmhmc_checkpointed(5, banana, torch.tensor([0.4, -0.2]),
+                                                          cfg, d, chunk_size=c, **kw),
+        dict(integrator=tht.Integrator.EXPLICIT, metric=tht.Metric.JACOBIAN_DIAG, jitter=0.3)),
+    "split-rand": (
+        lambda cfg, **kw: tht.samplers.run_split_hmc_stacked(
+            5, split_term, 3, torch.zeros(2), cfg, data=SPLIT_DATA, **kw),
+        lambda cfg, d, c, **kw: ck.run_split_hmc_checkpointed(
+            5, split_term, 3, torch.zeros(2), cfg, d, chunk_size=c, data=SPLIT_DATA, **kw),
+        dict(integrator=tht.Integrator.SPLITTING_RAND)),
+    "split-tree": (
+        lambda cfg, **kw: tht.samplers.run_split_hmc_stacked(
+            5, split_term, 3, {"a": torch.zeros(1), "b": torch.zeros(1)}, cfg,
+            data=SPLIT_DATA, **kw),
+        lambda cfg, d, c, **kw: ck.run_split_hmc_checkpointed(
+            5, split_term, 3, {"a": torch.zeros(1), "b": torch.zeros(1)}, cfg, d, chunk_size=c,
+            data=SPLIT_DATA, **kw),
+        dict(integrator=tht.Integrator.SPLITTING, inv_mass=torch.tensor([0.8, 1.3]))),
+}
+
+
+def rm_split_config(num_samples):
+    return tht.MCMCConfig(num_samples=num_samples, num_steps_per_sample=2, step_size=0.4,
+                          burn=5, adapt_step_size=True)
+
+
+@pytest.mark.parametrize("name", sorted(RM_SPLIT))
+def test_rmhmc_and_split_resume_equals_the_straight_run_at_two_chunkings(name, tmp_path):
+    run, run_ck, kw = RM_SPLIT[name]
+    want = run(rm_split_config(11), **kw)
+    for chunk in (2, 4):
+        d = str(tmp_path / f"c{chunk}")
+        assert_same(run_ck(rm_split_config(7), d, chunk, **kw), run(rm_split_config(7), **kw))
+        assert_same(run_ck(rm_split_config(11), d, chunk, **kw), want)
+
+
+@pytest.mark.parametrize("name", sorted(RM_SPLIT))
+def test_rmhmc_and_split_refuse_a_changed_option(name, tmp_path):
+    """The integrator (and the metric options, the number of terms) enter
+    the fingerprint, beside the config."""
+    run, run_ck, kw = RM_SPLIT[name]
+    d = str(tmp_path / "d")
+    run_ck(rm_split_config(4), d, 2, **kw)
+    other = (dict(kw, integrator=tht.Integrator.MIDPOINT) if name.startswith("rmhmc")
+             else dict(kw, integrator=tht.Integrator.SPLITTING_KMID))
+    with pytest.raises(ValueError, match="fingerprint"):
+        run_ck(rm_split_config(6), d, 2, **other)
+    with pytest.raises(ValueError, match="fingerprint"):
+        run_ck(dataclasses.replace(rm_split_config(6), step_size=0.3), d, 2, **kw)
+    assert_same(run_ck(rm_split_config(6), d, 2, **kw), run(rm_split_config(6), **kw))

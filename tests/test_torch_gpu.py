@@ -397,6 +397,12 @@ def test_model_entry_points_raise_without_a_card(monkeypatch):
         lambda: bnn.define_model_prior_and_lik(net, "multi_class_linear_output", x, y),
         lambda: bnn.sample_model(net, x, y, num_samples=2, verbose=False),
         lambda: bnn.predict_model(net, flat[None], x=x, y=y),
+        lambda: bnn.define_split_model_log_prob(net, "multi_class_linear_output",
+                                                [(x, y)], 1, verbose=False),
+        lambda: bnn.define_split_model_tree_log_prob(net, "multi_class_linear_output",
+                                                     [(x, y)], 1, verbose=False),
+        lambda: bnn.sample_split_model(net, [(x[:20], y[:20]), (x[20:], y[20:])],
+                                       num_samples=2, verbose=False),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -484,7 +490,12 @@ SAMPLER_ENTRIES = ["sample", "sample_nuts", "sample_offload", "run_hmc", "run_hm
                    "run_nuts_host_offload", "run_hmc_checkpointed",
                    "run_hmc_chains_checkpointed", "run_nuts_checkpointed",
                    "run_nuts_ensemble_checkpointed", "run_mclmc_checkpointed",
-                   "run_mams_checkpointed"]
+                   "run_mams_checkpointed", "sample_rmhmc", "sample_splitting", "run_rmhmc",
+                   "run_rmhmc_chains", "run_rmhmc_host_offload", "run_rmhmc_checkpointed",
+                   "run_split_hmc", "run_split_hmc_chains", "run_split_hmc_host_offload",
+                   "run_split_hmc_checkpointed"]
+# entry points that take a flat start only, as in the JAX package
+FLAT_ONLY = ("run_rmhmc_host_offload", "run_rmhmc_checkpointed")
 
 
 def _leaf_lp(t):
@@ -504,11 +515,22 @@ def call_entry(entry, theta0, ckpt_dir):
     nuts = tht.NUTSConfig(num_samples=3, step_size=0.3, max_tree_depth=3)
     mclmc = tht.MCLMCConfig(num_samples=3, tune_steps=2)
     mams = tht.MAMSConfig(num_samples=3, num_steps_per_sample=2, burn=1)
+    rm = dict(metric=tht.Metric.SOFTABS, softabs_const=10.0, fixed_point_max_iterations=3)
+    split_terms = [lambda t: 0.5 * _leaf_lp(t)] * 2
+
+    def split_term(t, m):
+        return 0.5 * _leaf_lp(t)
+
     if entry.startswith("sample"):
         kw = dict(num_samples=3, num_steps_per_sample=2, step_size=0.2, verbose=False, key=0)
+        lp = _leaf_lp
         if entry == "sample_nuts":
             kw["sampler"] = tht.Sampler.NUTS
-        out = tht.sample(_leaf_lp, theta0, store_on_GPU=entry != "sample_offload", **kw)
+        if entry == "sample_rmhmc":
+            kw.update(rm, sampler=tht.Sampler.RMHMC)
+        if entry == "sample_splitting":
+            lp, kw["integrator"] = split_terms, tht.Integrator.SPLITTING
+        out = tht.sample(lp, theta0, store_on_GPU=entry != "sample_offload", **kw)
         return out, out
     calls = {
         "run_hmc": lambda: tht.run_hmc(0, _leaf_lp, theta0, hmc),
@@ -534,6 +556,19 @@ def call_entry(entry, theta0, ckpt_dir):
                                                                     ckpt_dir),
         "run_mams_checkpointed": lambda: ck.run_mams_checkpointed(0, _leaf_lp, theta0, mams,
                                                                   ckpt_dir),
+        "run_rmhmc": lambda: tht.run_rmhmc(0, _leaf_lp, theta0, hmc, **rm),
+        "run_rmhmc_chains": lambda: tht.run_rmhmc_chains(0, _leaf_lp, theta0, hmc, 2, **rm),
+        "run_rmhmc_host_offload": lambda: tht.samplers.run_rmhmc_host_offload(
+            0, _leaf_lp, theta0, hmc, **rm),
+        "run_rmhmc_checkpointed": lambda: ck.run_rmhmc_checkpointed(0, _leaf_lp, theta0, hmc,
+                                                                    ckpt_dir, **rm),
+        "run_split_hmc": lambda: tht.samplers.run_split_hmc(0, split_terms, theta0, hmc),
+        "run_split_hmc_chains": lambda: tht.samplers.run_split_hmc_chains(
+            0, split_term, 2, theta0, hmc, 2),
+        "run_split_hmc_host_offload": lambda: tht.samplers.run_split_hmc_host_offload(
+            0, split_term, 2, theta0, hmc),
+        "run_split_hmc_checkpointed": lambda: ck.run_split_hmc_checkpointed(
+            0, split_term, 2, theta0, hmc, ckpt_dir),
     }
     out = calls[entry]()
     final = out.final_state.theta if hasattr(out, "final_state") else out.final_theta
@@ -543,7 +578,7 @@ def call_entry(entry, theta0, ckpt_dir):
 def _starts(entry):
     """The flat start, and for the entry points that take trees a dict one."""
     flat = np.array([0.3, -0.2, 0.1], np.float32)
-    if entry.startswith("sample"):
+    if entry.startswith("sample") or entry in FLAT_ONLY:
         return [flat]
     return [flat, {"a": flat[:2], "b": flat[2:]}]
 
@@ -578,7 +613,8 @@ def test_numpy_starts_sample_on_the_card(cuda_device, tmp_path, entry):
     point offloads them to the host."""
     for i, start in enumerate(_starts(entry)):
         samples, final = call_entry(entry, start, str(tmp_path / str(i)))
-        offloads = entry in ("sample_offload", "run_hmc_host_offload", "run_nuts_host_offload")
+        offloads = entry in ("sample_offload", "run_hmc_host_offload", "run_nuts_host_offload",
+                             "run_rmhmc_host_offload", "run_split_hmc_host_offload")
         assert _devices(samples) == ({"cpu"} if offloads else {"cuda"})
         if not entry.startswith("sample"):
             assert _devices(final) == {"cuda"}
@@ -643,3 +679,135 @@ def test_checkpoint_resume_on_card(cuda_device, tmp_path):
         assert torch.equal(got_n.samples[k], want_n.samples[k])
     for a, b in zip(got_info, want_info):
         assert torch.equal(a, b)
+
+
+# --- RMHMC and split HMC on the card (no kernel of their own) -------------------
+
+PREC4 = np.array([[2.0, 0.6, 0.0, 0.1], [0.6, 1.0, 0.2, 0.0],
+                  [0.0, 0.2, 1.5, -0.3], [0.1, 0.0, -0.3, 0.8]])
+
+
+def quartic_lp(device, dtype=torch.float64):
+    prec = torch.as_tensor(PREC4, dtype=dtype, device=device)
+
+    def lp(t):
+        return -0.5 * t @ prec @ t - 0.025 * torch.sum(t ** 4)
+    return lp
+
+
+def funnel_lp(t):
+    v, x = t[0], t[1:]
+    return -0.5 * v ** 2 / 9.0 - 0.5 * torch.sum(x ** 2) * torch.exp(-v) - 0.5 * 4 * v
+
+
+RM_CARD_CASES = [("IMPLICIT", "SOFTABS"), ("EXPLICIT", "SOFTABS"), ("MIDPOINT", "SOFTABS"),
+                 ("S3", "SOFTABS"), ("IMPLICIT", "HESSIAN"), ("IMPLICIT", "JACOBIAN_DIAG")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("integrator,metric", RM_CARD_CASES)
+def test_rmhmc_on_card_matches_cpu_in_float64(cuda_device, integrator, metric):
+    """run_rmhmc_chains on the card and on the CPU, float64, the same
+    injected noise (jitter included): identical accepts and fixed-point
+    counts, positions within 1e-8 of max |theta|."""
+    import hamiltorch_tpu_torch as tht
+
+    chains, draws, d = 3, 3, 4
+    gen = torch.Generator().manual_seed(3)
+    noise = (torch.randn(draws, chains, d, generator=gen, dtype=torch.float64),
+             torch.rand(draws, chains, generator=gen, dtype=torch.float64).log(),
+             torch.rand(draws, chains, d, generator=gen, dtype=torch.float64))
+    cfg = tht.MCMCConfig(num_samples=draws, num_steps_per_sample=3, step_size=0.2)
+    kw = dict(integrator=getattr(tht.Integrator, integrator), metric=getattr(tht.Metric, metric),
+              softabs_const=1e2, jitter=0.1, fixed_point_threshold=1e-10,
+              fixed_point_max_iterations=30)
+
+    def go(device):
+        theta0 = torch.full((d,), 0.3, dtype=torch.float64, device=device)
+        return tht.run_rmhmc_chains(0, quartic_lp(device), theta0, cfg, chains,
+                                    _noise=tuple(t.to(device) for t in noise), **kw)
+
+    card, host = go(cuda_device), go("cpu")
+    assert torch.equal(card.stats.accepted.cpu(), host.stats.accepted)
+    assert torch.equal(card.stats.fp_iters.cpu(), host.stats.fp_iters)
+    assert bool(host.stats.accepted.any())
+    scale = float(host.samples.abs().max())
+    assert float((card.samples.cpu() - host.samples).abs().max()) <= 1e-8 * scale
+
+
+@pytest.mark.gpu
+def test_softabs_under_vmap_and_grad_on_card(cuda_device):
+    """The softabs Function under torch.func.vmap over torch.func.grad on
+    CUDA tensors, at exactly repeated eigenvalues: finite, and equal to the
+    CPU's derivative."""
+    from hamiltorch_tpu_torch.ops.metrics import softabs_transform
+
+    rng = np.random.RandomState(4)
+    q, _ = np.linalg.qr(rng.randn(5, 5))
+    mats = np.stack([np.diag([2.0, 2.0, 2.0, -1.0, 0.5]),
+                     (q * np.array([0.7, 0.7, -0.3, -0.3, 1e-9])) @ q.T])
+    w = rng.randn(5, 5)
+
+    def grads(device):
+        wt = torch.as_tensor(w, device=device)
+
+        def loss(m):
+            g, lam = softabs_transform(m, 10.0)
+            return (g * wt).sum() + torch.log(lam).sum()
+        return torch.func.vmap(torch.func.grad(loss))(torch.as_tensor(mats, device=device))
+
+    card, host = grads(cuda_device), grads("cpu")
+    assert bool(torch.isfinite(card).all())
+    torch.testing.assert_close(card.cpu(), host, rtol=0, atol=1e-10)
+
+
+@pytest.mark.gpu
+def test_a_metric_that_is_not_spd_is_nan_and_rejected_on_card(cuda_device):
+    """cholesky_ex without checks: the non-SPD HESSIAN metric of the funnel
+    gives a NaN energy on the card (no exception, no host sync) and the
+    driver rejects every draw as a divergence."""
+    import hamiltorch_tpu_torch as tht
+    from hamiltorch_tpu_torch.enums import Metric
+    from hamiltorch_tpu_torch.ops.metrics import RMOptions, make_rm_hamiltonian
+
+    theta = torch.tensor([-1.0, 2.0, 0.5, -1.5, 1.0], dtype=torch.float64, device=cuda_device)
+    rm = make_rm_hamiltonian(funnel_lp, RMOptions(metric=Metric.HESSIAN))
+    assert bool(torch.isnan(rm.ham(theta, torch.ones_like(theta), None)))
+    res = tht.run_rmhmc(0, funnel_lp, theta,
+                        tht.MCMCConfig(num_samples=3, num_steps_per_sample=2, step_size=0.1),
+                        metric=tht.Metric.HESSIAN, fixed_point_max_iterations=3)
+    assert bool(res.stats.divergent.all()) and not bool(res.stats.accepted.any())
+    assert torch.equal(res.samples[-1], theta)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["SPLITTING", "SPLITTING_RAND", "SPLITTING_KMID"])
+def test_split_hmc_on_card_matches_cpu_in_float64(cuda_device, scheme):
+    """run_split_hmc_chains with stacked data on the card and on the CPU,
+    float64, the same injected noise and term orders: identical accepts,
+    positions within 1e-8 of max |theta|."""
+    import hamiltorch_tpu_torch as tht
+
+    chains, draws, terms = 3, 4, 3
+    rng = np.random.RandomState(5)
+    data = rng.randn(terms, 6, 2)
+    noise = (torch.as_tensor(rng.randn(draws, chains, 2)),
+             torch.as_tensor(np.log(rng.rand(draws, chains))),
+             torch.as_tensor(np.stack([[rng.permutation(terms) for _ in range(chains)]
+                                       for _ in range(draws)])))
+
+    def term(t, m, xs):
+        return -0.5 * torch.sum((t - xs[m]) ** 2) / terms + 0.1 * torch.sum(torch.sin(t))
+
+    def go(device):
+        return tht.samplers.run_split_hmc_chains(
+            0, term, terms, torch.zeros(2, dtype=torch.float64, device=device),
+            tht.MCMCConfig(num_samples=draws, num_steps_per_sample=3, step_size=0.5), chains,
+            integrator=getattr(tht.Integrator, scheme),
+            data=torch.as_tensor(data, device=device),
+            _noise=tuple(t.to(device) for t in noise))
+
+    card, host = go(cuda_device), go("cpu")
+    assert torch.equal(card.stats.accepted.cpu(), host.stats.accepted)
+    scale = float(host.samples.abs().max())
+    assert float((card.samples.cpu() - host.samples).abs().max()) <= 1e-8 * scale

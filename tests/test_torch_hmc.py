@@ -221,9 +221,15 @@ def test_sample_error_probes():
         tht.sample(_gauss_t, torch.tensor([0.0, float("nan"), 0.0]), verbose=False)
     with pytest.raises(RuntimeError, match="adapt_mass requires burn"):
         tht.sample(_gauss_t, torch.zeros(3), num_samples=5, adapt_mass=True, verbose=False)
-    for kw in (dict(sampler=tht.Sampler.RMHMC), dict(integrator=tht.Integrator.SPLITTING)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tht.sample(_gauss_t, torch.zeros(3), num_samples=5, verbose=False, **kw)
+    # RMHMC and the splitting integrators are ported: RMHMC samples, and a
+    # splitting integrator wants a list of per-term log-probs, as in the JAX
+    # package (tests/test_torch_rmhmc.py and test_torch_splitting.py hold them)
+    rm = tht.sample(_gauss_t, torch.zeros(3), num_samples=3, num_steps_per_sample=2,
+                    verbose=False, key=1, sampler=tht.Sampler.RMHMC)
+    assert rm.shape == (3, 3) and bool(torch.isfinite(rm).all())
+    with pytest.raises(RuntimeError, match="must be list of functions"):
+        tht.sample(_gauss_t, torch.zeros(3), num_samples=5, verbose=False,
+                   integrator=tht.Integrator.SPLITTING)
     # NUTS is ported: sample() keeps run_nuts's draws after the first, behind
     # the initial point
     nuts = tht.sample(_gauss_t, torch.zeros(3), num_samples=5, key=1, verbose=False,
