@@ -110,7 +110,26 @@ the kernels are built for sm_90a).  It
    all rows within 1e-5, timed in draws/s and term-gradients/s;
    SPLITTING_RAND and SPLITTING_KMID on the regression BNN of
    ``examples/split_hmc_bnn_example.py`` in float64, card against CPU; the
-   offloaded and checkpointed runners identical to the straight run);
+   offloaded and checkpointed runners identical to the straight run), the
+   ``chees`` phase (``chees_path``: ``bench.py``'s ChEES configuration on
+   the flagship at 64 chains, step 2e-4, T0 0.01, diagonal warmup, a
+   warmup chunk thinned to one row and a sampling chunk resumed from its
+   carry, cut to 150 + 20 draws, timed in grad-steps/s with the per-draw
+   sync's share, the final eps and T, the post-burn acceptance and
+   ``chees_min_ess_per_sec``, gated on finite draws, L within its cap and a
+   finite positive eps and T; the correlated 2-D Gaussian of
+   ``tests/test_chees.py``, its moments and acceptance gate; float64 card
+   against CPU on injected noise, identical leapfrog counts and accepts,
+   positions within 1e-8 of max |theta|; ``run_chees_checkpointed`` stopped
+   and resumed, bit for bit) and the ``sgmcmc`` phase (``sgmcmc_path``:
+   SGLD, pSGLD, SGHMC and cSGLD on BASELINE config 5 at one chain and
+   ``run_sgld_chains`` at 8, timed in steps/s and term-gradients/s, gated on
+   finite draws and no rejected step; the noisy-gradient Gaussian of
+   ``tests/test_sgmcmc.py`` at its tolerance; SGLD and SGHMC on the
+   regression BNN of ``examples/sgld_bnn_example.py`` in float64, card
+   against CPU, identical terms, positions within 1e-8; checkpointed SGLD
+   and SGHMC identical to their straight runs); every phase of this list
+   fails if it launched a fused kernel;
 6. checks the tiny flagship on the card against the CPU;
 7. prints one JSON line with every kernel's summary and, last, the device
    line.
@@ -206,6 +225,22 @@ RMHMC_CPU_STEPS = 2
 # over 1,000 and 6,000 rows in another order
 SPLIT_DRAWS = 10
 SPLIT_RTOL = 1e-5
+# ChEES (bench.py:244-340): the flagship at 64 chains, step 2e-4, T0 0.01,
+# diagonal windowed warmup, a warmup chunk thinned to one row and a
+# sampling chunk resumed from its carry.  bench's 600 + 300 draws are cut to
+# 150 (the shortest burn with a slow window: [75, 100)) + 20: a draw at the
+# initial L ~ 50 costs ~0.15 s at the unfused path's ~20,000 grad-steps/s.
+CHEES_WARMUP, CHEES_SAMPLING = 150, 20
+CHEES_CHAINS = 64
+# SG-MCMC on BASELINE config 5 (one chain, and 8 chains for the batched
+# runner): steps a timed run; the Gaussian recovery of
+# tests/test_sgmcmc.py::test_noisy_gradients_still_target_posterior at its
+# length (8000 steps) and tolerance (pooled means within 0.15) on 32 chains
+# where the test has 8: at 8 the means' standard error (~0.065 for the
+# std-1.41 coordinate) puts the 0.15 gate near 2.3 sigma
+SG_STEPS = 60
+SG_CHAINS = 8
+SG_RECOVERY_STEPS, SG_RECOVERY_CHAINS = 8000, 32
 
 
 class SmokeError(RuntimeError):
@@ -1554,28 +1589,17 @@ def rmhmc_path(torch, device, card):
         raise SmokeError("sample(sampler=RMHMC): the offloaded trace differs")
 
 
-def split_path(torch, device, card):
-    """Symmetric-split minibatch HMC (no kernel of its own): BASELINE config
-    5 (``examples/mnist_scale_split_hmc.py``) at its widths, the split terms
-    against the full-data potential, timed; SPLITTING_RAND and SPLITTING_KMID
-    on the regression BNN of ``examples/split_hmc_bnn_example.py``, card
-    against CPU on injected noise; the offloaded and checkpointed runners
-    against the straight run."""
-    import dataclasses
-    import tempfile
-
+def mnist_split_model(torch, device):
+    """BASELINE config 5 (``examples/mnist_scale_split_hmc.py``) at its
+    widths: a 784-256-10 tanh ``nn.Sequential`` (seed 0) on 6,000
+    MNIST-shaped rows (10 numpy prototypes + 0.5 noise, seed 0) in 6 splits.
+    Returns (net, loss, batches, splits, term_fn, num_terms, flat start,
+    stacked data) of ``define_split_model_log_prob`` on ``device``."""
     import numpy as np
     from torch import nn
 
-    from hamiltorch_tpu_torch import Integrator, MCMCConfig, sample_split_model
-    from hamiltorch_tpu_torch import checkpoint as ck
-    from hamiltorch_tpu_torch.models.bnn import define_model_log_prob, define_split_model_log_prob
-    from hamiltorch_tpu_torch.samplers import (
-        run_split_hmc_host_offload,
-        run_split_hmc_stacked,
-    )
+    from hamiltorch_tpu_torch.models.bnn import define_split_model_log_prob
 
-    # 1. MNIST-shaped data (10 numpy prototypes + 0.5 noise, seed 0), 6 splits
     rng = np.random.RandomState(0)
     prototypes = rng.randn(10, 784).astype(np.float32)
     labels = rng.randint(0, 10, 6000)
@@ -1587,6 +1611,47 @@ def split_path(torch, device, card):
     loss = "multi_class_linear_output"
     term_fn, m_terms, flat, _, data = define_split_model_log_prob(
         net, loss, batches, splits, tau_out=1.0, verbose=False, device=device)
+    return net, loss, batches, splits, term_fn, m_terms, flat, data
+
+
+def regression_bnn(torch, dtype):
+    """The regression BNN of ``examples/sgld_bnn_example.py`` (and
+    ``split_hmc_bnn_example.py``): a 1-100-100-1 tanh ``nn.Sequential``
+    (seed 1) on 400 points of sin(4x) + 0.1 noise (seed 0) in 4 splits of
+    100, tau_out 100.  Returns (net, batches)."""
+    import numpy as np
+    from torch import nn
+
+    rng = np.random.RandomState(0)
+    xr = np.linspace(-1, 1, 400)[:, None]
+    yr = np.sin(4 * xr) + 0.1 * rng.randn(*xr.shape)
+    batches = [(xr[i::4], yr[i::4]) for i in range(4)]
+    torch.manual_seed(1)
+    net = nn.Sequential(nn.Linear(1, 100), nn.Tanh(), nn.Linear(100, 100), nn.Tanh(),
+                        nn.Linear(100, 1)).to(dtype)
+    return net, batches
+
+
+def split_path(torch, device, card):
+    """Symmetric-split minibatch HMC (no kernel of its own): BASELINE config
+    5 (``examples/mnist_scale_split_hmc.py``) at its widths, the split terms
+    against the full-data potential, timed; SPLITTING_RAND and SPLITTING_KMID
+    on the regression BNN of ``examples/split_hmc_bnn_example.py``, card
+    against CPU on injected noise; the offloaded and checkpointed runners
+    against the straight run."""
+    import dataclasses
+    import tempfile
+
+    from hamiltorch_tpu_torch import Integrator, MCMCConfig, sample_split_model
+    from hamiltorch_tpu_torch import checkpoint as ck
+    from hamiltorch_tpu_torch.models.bnn import define_model_log_prob, define_split_model_log_prob
+    from hamiltorch_tpu_torch.samplers import (
+        run_split_hmc_host_offload,
+        run_split_hmc_stacked,
+    )
+
+    # 1. MNIST-shaped data, 6 splits
+    net, loss, batches, splits, term_fn, m_terms, flat, data = mnist_split_model(torch, device)
     dims = flat.numel()
     xs, ys = (t.reshape((-1,) + tuple(t.shape[2:])) for t in data)
     full, _, _ = define_model_log_prob(net, loss, xs, ys, tau_out=1.0, device=device)
@@ -1635,15 +1700,9 @@ def split_path(torch, device, card):
     if not (samples.device == theta.device and bool(torch.isfinite(samples).all())):
         raise SmokeError("split: sample_split_model's draws are not finite on the card")
 
-    # 3. the regression BNN of examples/split_hmc_bnn_example.py (1-100-100-1 tanh,
-    # 400 points, 4 splits of 100, tau_out 100, step 5e-4), float64 card vs CPU
-    rng = np.random.RandomState(0)
-    xr = np.linspace(-1, 1, 400)[:, None]
-    yr = np.sin(4 * xr) + 0.1 * rng.randn(*xr.shape)
-    reg_batches = [(xr[i::4], yr[i::4]) for i in range(4)]
-    torch.manual_seed(1)
-    reg = nn.Sequential(nn.Linear(1, 100), nn.Tanh(), nn.Linear(100, 100), nn.Tanh(),
-                        nn.Linear(100, 1)).double()
+    # 3. the regression BNN of examples/split_hmc_bnn_example.py (step 5e-4),
+    # float64 card vs CPU
+    reg, reg_batches = regression_bnn(torch, torch.float64)
     reg_cfg = MCMCConfig(num_samples=4, num_steps_per_sample=10, step_size=5e-4)
 
     def reg_terms(dev):
@@ -1692,6 +1751,332 @@ def split_path(torch, device, card):
           f"(stopped at 5, chunks of 3) identical {same_ck}")
     if not (same_off and same_ck):
         raise SmokeError(f"split: offload identical {same_off}, checkpoint identical {same_ck}")
+
+
+def ess_quantiles(torch, samples, seed=1234):
+    """(min, 10th percentile) ESS of a (C, N, D) trace over its first 64
+    coordinates and 32 random unit projections (bench.py's
+    ``ess_quantiles``)."""
+    from hamiltorch_tpu_torch.diagnostics import effective_sample_size
+
+    gen = torch.Generator().manual_seed(seed)
+    dirs = torch.randn(samples.shape[-1], 32, generator=gen).to(samples.device)
+    dirs = dirs / dirs.norm(dim=0)
+    ess = torch.cat([effective_sample_size(samples[:, :, :64]).reshape(-1),
+                     effective_sample_size(samples @ dirs).reshape(-1)]).double().cpu()
+    return float(ess.min()), float(torch.quantile(ess, 0.1))
+
+
+def idle_sync_us(torch, device) -> float:
+    """The median time of one device-to-host read of a flag on an idle card."""
+    flag = torch.zeros(1, dtype=torch.bool, device=device)
+    bool(flag.any())
+    times = []
+    for _ in range(200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bool(flag.any())
+        times.append(1e6 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def chees_path(torch, device, card):
+    """ChEES-HMC (no kernel of its own: it evaluates the generic potential,
+    as the JAX package's does): bench.py's ChEES configuration on the
+    flagship at 64 chains, timed in grad-steps/s and min-ESS/s; the
+    correlated 2-D Gaussian of ``tests/test_chees.py``; float64 card against
+    CPU on injected noise; ``run_chees_checkpointed`` stopped and resumed."""
+    import dataclasses
+    import tempfile
+
+    from hamiltorch_tpu_torch import ChEESConfig, run_chees
+    from hamiltorch_tpu_torch import checkpoint as ck
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential
+    from hamiltorch_tpu_torch.samplers.chees import _run_chees, prepare_chees
+    from hamiltorch_tpu_torch.samplers.warmup import schedule_flags
+
+    # 1. the flagship: a warmup chunk thinned to one row, then a sampling
+    # chunk resumed from its carry (bench.py's two chunks)
+    lp, theta0 = make_flagship_potential(device=device)
+    calls = [0]
+
+    def counted(theta):  # one call a batched gradient (vmap runs it once)
+        calls[0] += 1
+        return lp(theta)
+
+    cfg = ChEESConfig(num_samples=CHEES_WARMUP + CHEES_SAMPLING, step_size=2e-4,
+                      burn=CHEES_WARMUP, adapt_mass=True, init_trajectory_length=0.01)
+    cfg_warm = dataclasses.replace(cfg, num_samples=CHEES_WARMUP, thin=CHEES_WARMUP)
+    cfg_samp = dataclasses.replace(cfg, num_samples=CHEES_SAMPLING, thin=1)
+    thetas0, mass = prepare_chees(20260819, theta0, cfg, CHEES_CHAINS)
+    cf_w, ef_w = schedule_flags(cfg.burn, 0, CHEES_WARMUP)
+    cf_s, ef_s = schedule_flags(cfg.burn, CHEES_WARMUP, CHEES_SAMPLING)
+    # untimed: the first calls of this path in the process
+    _run_chees(20260819, thetas0, lp, dataclasses.replace(cfg, num_samples=2, burn=0), mass)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = _run_chees(20260820, thetas0, counted, cfg_warm, mass, collect_flags=cf_w,
+                      end_flags=ef_w)
+    torch.cuda.synchronize()
+    wall_w, grads_w = time.perf_counter() - t0, calls[0] - 1
+    calls[0] = 0
+    t0 = time.perf_counter()
+    res = _run_chees(20260821, warm.final_carry.thetas, counted, cfg_samp, mass,
+                     init_carry=warm.final_carry, start_iter=CHEES_WARMUP, collect_flags=cf_s,
+                     end_flags=ef_s)
+    torch.cuda.synchronize()
+    wall_s, grads_s = time.perf_counter() - t0, calls[0]
+    peak = torch.cuda.max_memory_allocated()
+    used = int(res.info.num_leapfrog.sum())
+    sync_us = idle_sync_us(torch, device)
+    ess_min, ess_p10 = ess_quantiles(torch, res.samples)
+    eps, traj = float(res.final_step_size), float(res.final_trajectory_length)
+    acc = float(res.info.accept_prob.mean())
+    metric = res.final_carry.metric
+    print(f"chees: flagship ({theta0.numel():,} parameters) {CHEES_CHAINS} chains, step 2e-4, "
+          f"T0 0.01, adapt_mass diag: warmup chunk {CHEES_WARMUP} draws (thin "
+          f"{CHEES_WARMUP}) {wall_w:.2f} s, {grads_w} batched gradients = "
+          f"{grads_w * CHEES_CHAINS / wall_w:,.1f} grad-steps/s; sampling chunk "
+          f"{CHEES_SAMPLING} draws {wall_s:.2f} s, L per draw "
+          f"{res.info.num_leapfrog.tolist()} (sum {used}, {grads_s} batched gradients), "
+          f"{used * CHEES_CHAINS / wall_s:,.1f} grad-steps/s; one sync {sync_us:.1f} us on an "
+          f"idle card x {CHEES_WARMUP + CHEES_SAMPLING} draws = "
+          f"{1e-6 * sync_us * (CHEES_WARMUP + CHEES_SAMPLING) / (wall_w + wall_s):.3%} of the "
+          f"wall; final eps {eps:.6g}, T {traj:.6g}; mean post-burn accept_prob {acc:.4f}; "
+          f"min-ESS {ess_min:.1f} (p10 {ess_p10:.1f}) over {CHEES_SAMPLING} draws: "
+          f"chees_min_ess_per_sec {ess_min / wall_s:.2f} (p10 {ess_p10 / wall_s:.2f}); "
+          f"adapted inverse mass median {float(metric.median()):.4g}; peak memory "
+          f"{peak / 2**30:.3f} GiB [{card}]")
+    finite = bool(torch.isfinite(res.samples).all()) and bool(
+        torch.isfinite(warm.samples).all())
+    capped = int(res.info.num_leapfrog.max()) <= cfg.max_leapfrog_steps and int(
+        warm.info.num_leapfrog.max()) <= cfg.max_leapfrog_steps
+    if not (finite and capped and 0 < eps < float("inf") and 0 < traj < float("inf")
+            and grads_s == used):
+        raise SmokeError(f"ChEES flagship: finite {finite}, capped {capped}, eps {eps}, T {traj}, "
+                         f"{grads_s} gradients for {used} leapfrogs")
+
+    # 2. the correlated 2-D Gaussian of tests/test_chees.py: its moments
+    # (1200 draws, burn 500, step 0.3) and its acceptance (1000 draws, burn
+    # 600, step 1.5: 0.45 < mean accept_prob after 700 < 0.9), 16 chains
+    cov = torch.tensor([[1.0, 0.7], [0.7, 1.0]], device=device)
+    prec = torch.linalg.inv(cov)
+    t0 = time.perf_counter()
+    mom = run_chees(31, lambda t: -0.5 * t @ prec @ t, torch.zeros(2, device=device),
+                    ChEESConfig(num_samples=1200, step_size=0.3, burn=500), num_chains=16)
+    pooled = mom.samples[:, 600:].reshape(-1, 2)
+    mean_err = float(pooled.mean(0).abs().max())
+    cov_err = float((torch.cov(pooled.T) - cov).abs().max())
+    accr = run_chees(32, lambda t: -0.5 * t @ prec @ t, torch.zeros(2, device=device),
+                     ChEESConfig(num_samples=1000, step_size=1.5, burn=600), num_chains=16)
+    post = float(accr.info.accept_prob[700:].mean())
+    print(f"chees: correlated 2-D Gaussian, 16 chains: mean max_abs_err {mean_err:.4f} "
+          f"(tolerance 0.1), covariance {cov_err:.4f} (0.12); step 1.5 run post-burn "
+          f"accept_prob {post:.4f} (0.45-0.9); {time.perf_counter() - t0:.1f} s [{card}]")
+    if not (mean_err <= 0.1 and cov_err <= 0.12 and 0.45 < post < 0.9):
+        raise SmokeError(f"ChEES Gaussian: mean {mean_err:.4f}, covariance {cov_err:.4f}, "
+                         f"acceptance {post:.4f}")
+
+    # 3. float64 card against CPU on the same injected noise (burn 150: one
+    # slow window, diagonal warmup), 8 chains on a 4-D non-Gaussian target
+    gen = torch.Generator().manual_seed(33)
+    f64 = dict(generator=gen, dtype=torch.float64)
+    noise = (torch.randn(160, 8, 4, **f64), torch.rand(160, 8, **f64).log(),
+             torch.rand(160, **f64))
+    start = torch.randn(8, 4, **f64)
+    scales = torch.tensor([1.0, 1.5, 0.8, 1.2], dtype=torch.float64)
+    cfg64 = ChEESConfig(num_samples=160, step_size=0.1, burn=150, adapt_mass="diag",
+                        desired_accept_rate=0.95)
+
+    def run64(dev):
+        sc = scales.to(dev)
+        return run_chees(0, lambda t: -0.5 * torch.sum((t / sc) ** 2) + 0.05 * torch.sum(
+            torch.sin(t)), start.to(dev), cfg64, 8, _noise=tuple(t.to(dev) for t in noise))
+
+    card64, host64 = run64(device), run64("cpu")
+    same_l = torch.equal(card64.info.num_leapfrog.cpu(), host64.info.num_leapfrog)
+    moved = lambda s: (s[:, 1:] != s[:, :-1]).any(dim=-1)  # noqa: E731
+    same_acc = torch.equal(moved(card64.samples.cpu()), moved(host64.samples))
+    scale = float(host64.samples.abs().max())
+    err = float((card64.samples.cpu() - host64.samples).abs().max()) / scale
+    print(f"chees: float64 card vs CPU on the same noise, 8 chains x 160 draws (burn 150, "
+          f"diag): leapfrog counts identical {same_l}, accepts identical {same_acc}, positions "
+          f"{err:.3e} of max |theta|")
+    if not (same_l and same_acc and err <= 1e-8):
+        raise SmokeError(f"ChEES card vs CPU: L {same_l}, accepts {same_acc}, error {err:.3e}")
+
+    # 4. run_chees_checkpointed stopped at 90 draws, resumed to 170 (chunks
+    # of 16; burn 160 puts the slow window across chunks)
+    lp4 = lambda t: -0.5 * torch.sum((t / scales.to(t))**2)  # noqa: E731
+    ck_cfg = ChEESConfig(num_samples=170, step_size=0.3, burn=160, adapt_mass="diag")
+    want = run_chees(34, lp4, torch.zeros(4, device=device), ck_cfg, 8)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        ck.run_chees_checkpointed(34, lp4, torch.zeros(4, device=device),
+                                  dataclasses.replace(ck_cfg, num_samples=90), tmp, 8,
+                                  chunk_size=16)
+        got = ck.run_chees_checkpointed(34, lp4, torch.zeros(4, device=device), ck_cfg, tmp, 8,
+                                        chunk_size=16)
+    same = same_tensors(torch, got.samples, want.samples) and same_tensors(
+        torch, tuple(got.info), tuple(want.info)) and same_tensors(
+        torch, got.final_step_size, want.final_step_size)
+    print(f"chees: run_chees_checkpointed (stopped at 90, chunks of 16) identical {same}")
+    if not same:
+        raise SmokeError("ChEES: the checkpointed run is not the straight run")
+
+
+def sgmcmc_path(torch, device, card):
+    """SG-MCMC (no kernel of its own): SGLD, pSGLD, SGHMC and cSGLD on
+    BASELINE config 5 at one chain and ``run_sgld_chains`` at 8, timed; the
+    noisy-gradient Gaussian recovery of ``tests/test_sgmcmc.py``; float64
+    card against CPU on the regression BNN of ``examples/sgld_bnn_example.py``;
+    checkpointed SGLD and SGHMC against their straight runs."""
+    import dataclasses
+    import tempfile
+
+    from hamiltorch_tpu_torch import (
+        CSGMCMCConfig,
+        SGHMCConfig,
+        SGLDConfig,
+        run_csgmcmc,
+        run_sghmc,
+        run_sgld,
+        run_sgld_chains,
+    )
+    from hamiltorch_tpu_torch import checkpoint as ck
+    from hamiltorch_tpu_torch.models.bnn import define_split_model_log_prob
+
+    # 1. BASELINE config 5: one chain of each sampler, then 8 SGLD chains
+    _, _, _, _, term_fn, m_terms, flat, data = mnist_split_model(torch, device)
+    evals = [0]
+
+    def counted(theta, m, d):  # one call a vmapped term gradient
+        evals[0] += 1
+        return term_fn(theta, m, d)
+
+    runs = {
+        "SGLD": (run_sgld, SGLDConfig(num_samples=SG_STEPS, step_size=1e-6, thin=10)),
+        "pSGLD": (run_sgld, SGLDConfig(num_samples=SG_STEPS, step_size=1e-6, thin=10,
+                                       preconditioner="rmsprop")),
+        "SGHMC": (run_sghmc, SGHMCConfig(num_samples=SG_STEPS, step_size=1e-6, thin=10)),
+        "cSGLD": (run_csgmcmc, CSGMCMCConfig(num_cycles=2, cycle_length=SG_STEPS // 2,
+                                             step_size=1e-6, exploration_frac=0.5, thin=5)),
+    }
+    run_sgld(40, term_fn, m_terms, flat, SGLDConfig(num_samples=2, step_size=1e-6), data=data)
+    for i, (name, (run, cfg)) in enumerate(runs.items()):
+        evals[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(41 + i, counted, m_terms, flat, cfg, data=data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finite = bool(torch.isfinite(res.samples).all())
+        rejected = int(res.stats.divergent.sum())
+        print(f"sgmcmc: {name} one chain, {SG_STEPS} steps on 784-256-10 ({flat.numel():,} "
+              f"parameters, {m_terms} terms of {data[0].shape[1]} rows): {wall:.3f} s, "
+              f"{SG_STEPS / wall:,.1f} steps/s, {evals[0] / wall:,.1f} term-gradients/s "
+              f"({1e3 * wall / SG_STEPS:.2f} ms a step); kept {tuple(res.samples.shape)}, "
+              f"grad norm at the last kept step {float(res.stats.grad_norm[-1]):.4g}, finite "
+              f"{finite}, rejected steps {rejected} [{card}]")
+        if not (finite and rejected == 0):
+            raise SmokeError(f"SG-MCMC {name}: finite {finite}, {rejected} rejected steps")
+    evals[0] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_sgld_chains(45, counted, m_terms, flat, SGLDConfig(num_samples=SG_STEPS,
+                                                                step_size=1e-6, thin=10),
+                          SG_CHAINS, data=data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite, rejected = bool(torch.isfinite(res.samples).all()), int(res.stats.divergent.sum())
+    print(f"sgmcmc: run_sgld_chains {SG_CHAINS} chains x {SG_STEPS} steps: {wall:.3f} s, "
+          f"{SG_STEPS / wall:,.1f} steps/s ({SG_CHAINS * SG_STEPS / wall:,.1f} chain-steps/s), "
+          f"{evals[0]} grouped term-gradient calls for {SG_CHAINS * SG_STEPS} chain "
+          f"gradients ({SG_CHAINS * SG_STEPS / wall:,.1f} term-gradients/s); finite {finite}, "
+          f"rejected steps {rejected} [{card}]")
+    if not (finite and rejected == 0):
+        raise SmokeError(f"SG-MCMC chains: finite {finite}, {rejected} rejected steps")
+
+    # 2. tests/test_sgmcmc.py's noisy-gradient Gaussian: 8000 SGLD steps,
+    # inv_mass = S2, pooled means after 2000 within 0.15
+    mu = torch.tensor([1.0, -2.0, 0.5], device=device)
+    s2 = torch.tensor([0.5, 1.0, 2.0], device=device)
+    centres = mu + torch.tensor([[1.0, -1.0, 0.5], [-1.0, 1.0, -0.5], [0.5, 0.5, 1.0],
+                                 [-0.5, -0.5, -1.0]], device=device)
+    t0 = time.perf_counter()
+    gauss = run_sgld_chains(46, lambda t, m: -0.125 * torch.sum((t - centres[m]) ** 2 / s2), 4,
+                            mu, SGLDConfig(num_samples=SG_RECOVERY_STEPS, step_size=0.02),
+                            SG_RECOVERY_CHAINS, inv_mass=s2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pooled = gauss.samples[:, 2000:].reshape(-1, 3)
+    mean_err = float((pooled.mean(0) - mu).abs().max())
+    print(f"sgmcmc: noisy-gradient Gaussian, {SG_RECOVERY_CHAINS} chains x {SG_RECOVERY_STEPS} "
+          f"SGLD steps: "
+          f"{wall:.1f} s ({1e3 * wall / SG_RECOVERY_STEPS:.3f} ms a step); pooled mean "
+          f"max_abs_err {mean_err:.4f} (tolerance 0.15), stds "
+          f"{[round(v, 3) for v in pooled.std(0).tolist()]} (target "
+          f"{[round(v, 3) for v in s2.sqrt().tolist()]}) [{card}]")
+    if not (mean_err <= 0.15 and not bool(gauss.stats.divergent.any())):
+        raise SmokeError(f"SG-MCMC Gaussian: mean error {mean_err:.4f}")
+
+    # 3. the regression BNN of examples/sgld_bnn_example.py in float64: card
+    # against CPU on the same normals; the terms come from the host hash on
+    # both and are recorded by the term function
+    reg, batches = regression_bnn(torch, torch.float64)
+    steps = 10
+
+    def reg_run(dev, run, cfg):
+        fn, m, start, _, d = define_split_model_log_prob(reg, "regression", batches, 4,
+                                                         tau_out=100.0, verbose=False,
+                                                         device=dev)
+        seen = []
+
+        def rec(theta, k, data_):
+            seen.append(k)
+            return fn(theta, k, data_)
+
+        gen = torch.Generator().manual_seed(47)
+        z = torch.randn(steps, start.numel(), generator=gen, dtype=torch.float64).to(dev)
+        from hamiltorch_tpu_torch.utils.rng import sg_term_indices
+
+        idx = torch.tensor([sg_term_indices(48, g, 1, m)[0] for g in range(steps)])
+        return run(48, rec, m, start, cfg, data=d, _noise={"m": idx, "z": z, "fresh": z}), seen
+
+    for name, run, cfg in (("SGLD", run_sgld, SGLDConfig(num_samples=steps, step_size=2e-6)),
+                           ("SGHMC", run_sghmc, SGHMCConfig(num_samples=steps, step_size=2e-6,
+                                                            resample_momentum_every=4))):
+        (card_r, seen_c), (host_r, seen_h) = reg_run(device, run, cfg), reg_run("cpu", run, cfg)
+        scale = float(host_r.samples.abs().max())
+        err = float((card_r.samples.cpu() - host_r.samples).abs().max()) / scale
+        print(f"sgmcmc: {name} regression BNN float64, card vs CPU on the same normals: terms "
+              f"{seen_c}, identical {seen_c == seen_h}; positions {err:.3e} of max |theta|")
+        if not (seen_c == seen_h and err <= 1e-8):
+            raise SmokeError(f"SG-MCMC {name} card vs CPU: terms {seen_c == seen_h}, "
+                             f"error {err:.3e}")
+
+    # 4. checkpointed SGLD and SGHMC (float32, stopped at 6 of 12 steps,
+    # chunks of 4) against their straight runs
+    fn, m, start, _, d = define_split_model_log_prob(reg.float(), "regression", batches, 4,
+                                                     tau_out=100.0, verbose=False, device=device)
+    (REPO / "build").mkdir(exist_ok=True)
+    for name, run, run_ck, cfg in (
+            ("SGLD", run_sgld, ck.run_sgld_checkpointed,
+             SGLDConfig(num_samples=12, step_size=2e-6, thin=2)),
+            ("SGHMC", run_sghmc, ck.run_sghmc_checkpointed,
+             SGHMCConfig(num_samples=12, step_size=2e-6, thin=2, resample_momentum_every=5))):
+        want = run(49, fn, m, start, cfg, data=d)
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+            run_ck(49, fn, m, start, dataclasses.replace(cfg, num_samples=6), tmp, chunk_size=4,
+                   data=d)
+            got = run_ck(49, fn, m, start, cfg, tmp, chunk_size=4, data=d)
+        same = same_tensors(torch, got.samples, want.samples) and same_tensors(
+            torch, tuple(got.stats), tuple(want.stats)) and same_tensors(
+            torch, got.final_aux, want.final_aux)
+        print(f"sgmcmc: {name} checkpointed (stopped at 6, chunks of 4) identical {same}")
+        if not same:
+            raise SmokeError(f"SG-MCMC {name}: the checkpointed run is not the straight run")
 
 
 def tiny_card_vs_cpu(torch, device):
@@ -1853,16 +2238,19 @@ def main() -> int:
     bnn_model_path(torch, device, card)
     print(f"bnn_model phase: {time.perf_counter() - t_model:.1f} s, kernel launches "
           f"{ {kernel.__name__: kernel.launches for kernel in kernel_fns} }")
-    # tree-doubling NUTS, checkpoint/resume, RMHMC and split HMC: no kernel
-    # of the port on them
+    # tree-doubling NUTS, checkpoint/resume, RMHMC, split HMC, ChEES and
+    # SG-MCMC: no kernel of the port on them
     for phase, fn in (("nuts", nuts_path), ("checkpoint", checkpoint_path),
-                      ("rmhmc", rmhmc_path), ("split", split_path)):
+                      ("rmhmc", rmhmc_path), ("split", split_path), ("chees", chees_path),
+                      ("sgmcmc", sgmcmc_path)):
         for kernel in kernel_fns:
             kernel.launches = 0
         t_phase = time.perf_counter()
         fn(torch, device, card)
-        print(f"{phase} phase: {time.perf_counter() - t_phase:.1f} s, kernel launches "
-              f"{ {kernel.__name__: kernel.launches for kernel in kernel_fns} }")
+        counts = {kernel.__name__: kernel.launches for kernel in kernel_fns}
+        print(f"{phase} phase: {time.perf_counter() - t_phase:.1f} s, kernel launches {counts}")
+        if any(counts.values()):
+            raise SmokeError(f"the {phase} phase launched a fused kernel: {counts}")
     print(f"main paths: {time.perf_counter() - t_paths:.1f} s")
 
     # 6. the tiny flagship, card vs CPU

@@ -16,8 +16,11 @@ windowed mass warmup and driver layers; tree-doubling NUTS (``run_nuts``,
 ``ops.metrics``, the implicit, explicit and midpoint integrators);
 symmetric-split minibatch HMC (``samplers.run_split_hmc``,
 ``run_split_hmc_stacked``, ``run_split_hmc_chains``,
-``run_split_hmc_host_offload``; ``sample_split_model``); checkpoint/resume
-for HMC, NUTS, MCLMC, MAMS, RMHMC and split HMC (``checkpoint``); MCLMC
+``run_split_hmc_host_offload``; ``sample_split_model``); ChEES-HMC
+(``run_chees``); stochastic-gradient MCMC (``run_sgld``, ``run_sghmc``,
+their ``_chains`` forms, cyclical ``run_csgmcmc`` / ``run_csgmcmc_chains``);
+checkpoint/resume for HMC, NUTS, MCLMC, MAMS, RMHMC, split HMC, ChEES, SGLD
+and SGHMC (``checkpoint``); MCLMC
 (``run_mclmc``, ``run_mclmc_chains``); MAMS
 (``run_mams``, ``run_mams_chains``); the diagnostics (``diagnostics``:
 ESS, R-hat, ``summary``); model comparison (``waic``, ``psis_loo``,
@@ -28,7 +31,7 @@ ESS, R-hat, ``summary``); model comparison (``waic``, ``psis_loo``,
 CUDA kernels for Hopper.  ROADMAP.md lists what is still to port.
 """
 
-__version__ = "0.7.0"
+__version__ = "0.8.0"
 
 from . import util
 from .api import sample
@@ -40,12 +43,25 @@ from .model_comparison import (
     psis_loo,
     waic,
 )
+from .samplers.chees import ChEESConfig, ChEESResult, run_chees
 from .samplers.driver import MCMCConfig, MCMCResult, MCMCStats
 from .samplers.hmc import run_hmc, run_hmc_chains, run_hmc_host_offload
 from .samplers.mams import MAMSConfig, MAMSResult, run_mams, run_mams_chains
 from .samplers.mclmc import MCLMCConfig, MCLMCResult, run_mclmc, run_mclmc_chains
 from .samplers.nuts import NUTSConfig, run_nuts, run_nuts_chains, run_nuts_ensemble
 from .samplers.rmhmc import run_rmhmc, run_rmhmc_chains
+from .samplers.sgmcmc import (
+    CSGMCMCConfig,
+    SGHMCConfig,
+    SGLDConfig,
+    SGMCMCResult,
+    run_csgmcmc,
+    run_csgmcmc_chains,
+    run_sghmc,
+    run_sghmc_chains,
+    run_sgld,
+    run_sgld_chains,
+)
 from .utils.rng import next_key, set_random_seed
 
 __all__ = [
@@ -67,6 +83,9 @@ __all__ = [
     "run_rmhmc",
     "run_rmhmc_chains",
     "NUTSConfig",
+    "ChEESConfig",
+    "ChEESResult",
+    "run_chees",
     "MCMCConfig",
     "MCMCResult",
     "MCMCStats",
@@ -83,6 +102,15 @@ __all__ = [
     "compare",
     "pointwise_log_lik",
     "pointwise_log_lik_from_predictions",
+    "SGLDConfig",
+    "SGHMCConfig",
+    "CSGMCMCConfig",
+    "run_csgmcmc",
+    "run_csgmcmc_chains",
+    "run_sgld",
+    "run_sgld_chains",
+    "run_sghmc",
+    "run_sghmc_chains",
 ]
 
 

@@ -5,14 +5,17 @@ has: single-chain and batched HMC (``run_hmc_checkpointed``,
 ``run_hmc_chains_checkpointed``), tree-doubling NUTS
 (``run_nuts_checkpointed``) and its pooled ensemble
 (``run_nuts_ensemble_checkpointed``), MCLMC (``run_mclmc_checkpointed``),
-MAMS (``run_mams_checkpointed``), RMHMC (``run_rmhmc_checkpointed``) and
-split HMC (``run_split_hmc_checkpointed``).  Sampling proceeds in chunks; after every
-chunk its trace goes to ``chunk_XXXXXXXX.npz`` and the whole resume carry
-(chain state with its cached potential evaluation, dual averaging, the
-windowed-warmup carry where there is one, MCLMC's tuned (eps, L) and
-velocity) to ``state.npz``, written atomically, with the integer seed and
-the draw counter.  Calling again with the same arguments continues where the
-last completed chunk stopped.
+MAMS (``run_mams_checkpointed``), RMHMC (``run_rmhmc_checkpointed``),
+split HMC (``run_split_hmc_checkpointed``), ChEES (``run_chees_checkpointed``)
+and SG-MCMC (``run_sgld_checkpointed``, ``run_sghmc_checkpointed``).
+Sampling proceeds in chunks; after every chunk its trace goes to
+``chunk_XXXXXXXX.npz`` and the whole resume carry (chain state with its
+cached potential evaluation, dual averaging, the windowed-warmup carry where
+there is one, MCLMC's tuned (eps, L) and velocity, ChEES's trajectory
+adaptation, SGHMC's momentum or pSGLD's accumulator) to ``state.npz``,
+written atomically, with the integer seed and the draw counter.  Calling
+again with the same arguments continues where the last completed chunk
+stopped.
 
 Every draw's noise is keyed on (seed, chain, global draw index)
 (``utils/rng.py``) and the port runs eagerly, so a resumed or chunked run
@@ -763,3 +766,162 @@ def run_mams_checkpointed(
                       acc_rate=acc_rate, final_theta=x, final_da=da,
                       final_step=torch.tensor(config.num_samples, dtype=torch.int32,
                                               device=device))
+
+
+def run_chees_checkpointed(
+    key: int,
+    log_prob_fn,
+    theta0,
+    config,  # ChEESConfig
+    ckpt_dir: str,
+    num_chains: int = 16,
+    chunk_size: int = 100,
+    inv_mass=None,
+    resume: bool = True,
+    mesh=None,
+    theta0_is_stacked: bool | None = None,
+):
+    """ChEES-HMC (``run_chees``) with per-chunk checkpointing of the whole
+    adaptation carry (the ensemble with its potential evaluations, the
+    trajectory length's Adam state, dual averaging, the Welford window and
+    the metric).  Each chunk takes its slice of the global warmup schedule;
+    a single start is spread from the key as ``run_chees`` spreads it.
+    Returns a ChEESResult, ``run_chees``'s bit for bit at any chunking
+    (``chunk_size`` rounds to a multiple of ``thin``).  ``mesh=`` (the
+    sharded ensemble) is not ported and raises.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the sharded ChEES ensemble) is not ported to hamiltorch_tpu_torch; "
+            "see ROADMAP.md, queue 1 item 15"
+        )
+    from .ops.potential import resolve_potential, value_and_grad
+    from .samplers.chees import (
+        ChEESInfo,
+        ChEESResult,
+        _run_chees,
+        init_chees_carry,
+        prepare_chees,
+    )
+    from .samplers.warmup import schedule_flags
+
+    lp = resolve_potential(log_prob_fn, None)
+    theta0s, mass = prepare_chees(key, theta0, config, num_chains, inv_mass, theta0_is_stacked)
+    windowed = bool(config.adapt_mass) and config.burn > 0
+
+    # the state file holds the dual-averaging state as a tuple of tensors
+    def stored(carry):
+        return carry._replace(da=_da_tuple(carry.da))
+
+    def restored(carry):
+        return carry._replace(da=_da_of(carry.da))
+
+    leaf = tree_leaves(theta0s)[0]
+    template = stored(init_chees_carry(theta0s, leaf.new_zeros(leaf.shape[:1]),
+                                       tree_map(torch.zeros_like, theta0s), config, mass))
+
+    def init_carry_fn():
+        logps, grads = torch.func.vmap(value_and_grad(lp))(theta0s)
+        return stored(init_chees_carry(theta0s, logps, grads, config, mass))
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        collect, end = schedule_flags(config.burn if windowed else 0, n_done, cfg.num_samples)
+        res = _run_chees(seed, theta0s, lp, cfg, mass, init_carry=restored(carry),
+                         start_iter=n_done, collect_flags=collect, end_flags=end)
+        return res, stored(res.final_carry)
+
+    def save_chunk(res):
+        out = {"samples": res.samples}
+        out.update({f: getattr(res.info, f) for f in ChEESInfo._fields})
+        return out
+
+    zs, carry = _checkpoint_loop(chunk_runner, key, template, init_carry_fn, config, ckpt_dir,
+                                 chunk_size, resume, _fingerprint(config, theta0s), save_chunk)
+    carry = restored(carry)
+    kept = config.num_samples // max(config.thin, 1)
+    device = leaf.device
+    return ChEESResult(
+        samples=_cat(zs, "samples", 1, kept, device, like=carry.thetas),
+        info=ChEESInfo(**{f: _cat(zs, f, 0, kept, device) for f in ChEESInfo._fields}),
+        final_step_size=carry.da.step_size,
+        final_trajectory_length=torch.exp(carry.log_t),
+        final_carry=carry,
+    )
+
+
+def run_sgld_checkpointed(
+    key: int,
+    term_fn: Callable,
+    num_terms: int,
+    theta0,
+    config,  # SGLDConfig
+    ckpt_dir: str,
+    chunk_size: int = 1000,
+    inv_mass=None,
+    data=None,
+    resume: bool = True,
+):
+    """SGLD / pSGLD (``run_sgld``) with per-chunk checkpointing, the SG-MCMC
+    long-run driver.  ``chunk_size`` counts transitions (rounded to a
+    multiple of ``thin``); the chain and the RMSProp accumulator are in the
+    state file.  Every step's term and normals are keyed on the global step,
+    so the assembled result is ``run_sgld``'s with the same key, bit for
+    bit."""
+    return _run_sgmcmc_checkpointed("sgld", key, term_fn, num_terms, theta0, config,
+                                    ckpt_dir, chunk_size, inv_mass, data, resume)
+
+
+def run_sghmc_checkpointed(
+    key: int,
+    term_fn: Callable,
+    num_terms: int,
+    theta0,
+    config,  # SGHMCConfig
+    ckpt_dir: str,
+    chunk_size: int = 1000,
+    inv_mass=None,
+    data=None,
+    resume: bool = True,
+):
+    """SGHMC (``run_sghmc``) with per-chunk checkpointing; the momentum is
+    in the state file.  The contract of :func:`run_sgld_checkpointed`."""
+    return _run_sgmcmc_checkpointed("sghmc", key, term_fn, num_terms, theta0, config,
+                                    ckpt_dir, chunk_size, inv_mass, data, resume)
+
+
+def _run_sgmcmc_checkpointed(which, key, term_fn, num_terms, theta0, config, ckpt_dir,
+                             chunk_size, inv_mass, data, resume):
+    from .samplers.sgmcmc import SGMCMCResult, SGMCMCStats, _prep, _run_sghmc, _run_sgld
+
+    theta0, pre, data = _prep(key, term_fn, num_terms, theta0, config, inv_mass, data,
+                              f"run_{which}_checkpointed")
+    runner = _run_sgld if which == "sgld" else _run_sghmc
+    stacked = tree_map(lambda t: t.unsqueeze(0), theta0)
+    # the RMSProp accumulator or the momentum; plain SGLD carries None
+    aux0 = None
+    if which == "sghmc" or getattr(config, "preconditioner", "none") == "rmsprop":
+        aux0 = tree_map(torch.zeros_like, stacked)
+    carry0 = (stacked, aux0)
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        res = runner(seed, carry[0], term_fn, num_terms, cfg, pre, data, carry[1], n_done)
+        return res, (res.final_theta, res.final_aux)
+
+    def save_chunk(res):
+        out = {"samples": _first(res.samples)}
+        out.update({f: getattr(res.stats, f)[0] for f in SGMCMCStats._fields})
+        return out
+
+    zs, carry = _checkpoint_loop(chunk_runner, key, carry0, lambda: carry0, config, ckpt_dir,
+                                 chunk_size, resume,
+                                 _fingerprint(config, theta0, extra=(which, num_terms)),
+                                 save_chunk)
+    kept = config.num_samples // config.thin
+    device = tree_leaves(theta0)[0].device
+    return SGMCMCResult(
+        samples=_cat(zs, "samples", 0, kept, device, like=theta0),
+        stats=SGMCMCStats(**{f: _cat(zs, f, 0, kept, device) for f in SGMCMCStats._fields}),
+        final_theta=_first(carry[0]),
+        final_aux=_first(carry[1]),
+        final_step=torch.tensor(config.num_samples, dtype=torch.int32, device=device),
+    )

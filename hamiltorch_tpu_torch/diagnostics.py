@@ -240,7 +240,12 @@ def _leaf_names(tree, prefix=()):
 
 
 def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    """``x`` on the host as numpy; a bfloat16 tensor (a ``trace_dtype``
+    trace) as its float32 values, exactly: numpy has no bfloat16."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
 
 
 def _posterior_vars(samples, chains_first: bool) -> Dict[str, np.ndarray]:
@@ -269,12 +274,17 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
       energy change and the tuned per-chain step size and trajectory
       length broadcast over draws;
     - ``MAMSResult`` (``run_mams*``): acceptance, divergences, energy
-      change and step size.
+      change and step size;
+    - ``ChEESResult`` (``run_chees``): acceptance and divergences from the
+      draw-major (N, C) info, transposed; the step size and trajectory
+      length, shared by the chains, broadcast to (C, N);
+    - ``SGMCMCResult`` / ``CSGMCMCResult`` (``run_sgld*``, ``run_sghmc*``,
+      ``run_csgmcmc*``): divergences, step size and gradient-estimate norm,
+      and for the cyclical samplers each snapshot's cycle.
 
-    Other families (ChEES, tempering, SG-MCMC, ...) are not ported yet and
-    raise ``NotImplementedError``.  ``like`` is accepted for
-    symmetry with ``summary``: the stats' shapes give the chain and draw
-    axes.
+    Other families (tempering, SMC, ...) are not ported yet and raise
+    ``NotImplementedError``.  ``like`` is accepted for symmetry with
+    ``summary``: the stats' shapes give the chain and draw axes.
     """
     del like
 
@@ -289,9 +299,21 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
         raise NotImplementedError(
             "to_inference_dict takes the results of the samplers ported to "
             "hamiltorch_tpu_torch (MCMCResult, with a NUTSInfo for NUTS, "
-            "MCLMCResult, MAMSResult); the other families are not ported "
-            "yet, see ROADMAP.md"
+            "MCLMCResult, MAMSResult, ChEESResult, SGMCMCResult, "
+            "CSGMCMCResult); the other families are not ported yet, see "
+            "ROADMAP.md"
         )
+    if hasattr(result, "final_trajectory_length"):  # ChEESResult
+        info = result.info
+        post = _posterior_vars(result.samples, chains_first=True)
+        c, n = next(iter(post.values())).shape[:2]
+        # ChEESInfo is draw-major (N, C); the shared scalars broadcast to (C, N)
+        return {"posterior": post, "sample_stats": {
+            "acceptance_rate": _np(info.accept_prob).T,
+            "diverging": _np(info.divergent).T,
+            "step_size": np.broadcast_to(_np(info.step_size), (c, n)),
+            "trajectory_length": np.broadcast_to(_np(info.trajectory_length), (c, n)),
+        }}
     if info is not None:  # NUTS
         chains_first = info.accept_prob.ndim == 2
         return {"posterior": _posterior_vars(result.samples, chains_first), "sample_stats": {
@@ -322,6 +344,17 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
             "energy_change": cn(s.energy_change, chains_first),
             "step_size": cn(s.step_size, chains_first),
         }}
+    if hasattr(result, "final_theta"):  # SGMCMCResult / CSGMCMCResult
+        chains_first = s.step_size.ndim == 2
+        stats = {
+            "diverging": cn(s.divergent, chains_first),
+            "step_size": cn(s.step_size, chains_first),
+            "grad_norm": cn(s.grad_norm, chains_first),
+        }
+        if hasattr(result, "cycle"):  # cyclical: each snapshot's cycle
+            stats["cycle"] = cn(result.cycle, chains_first)
+        return {"posterior": _posterior_vars(result.samples, chains_first),
+                "sample_stats": stats}
     if hasattr(result, "final_state"):  # MCMCResult
         chains_first = s.accept_prob.ndim == 2
         return {"posterior": _posterior_vars(result.samples, chains_first), "sample_stats": {

@@ -1,4 +1,5 @@
 from .adaptation import DualAveragingState, da_init, da_update
+from .chees import ChEESConfig, ChEESResult, run_chees
 from .driver import ChainState, MCMCConfig, MCMCResult, MCMCStats, run_mcmc
 from .hmc import hmc_transition, run_hmc, run_hmc_chains, run_hmc_host_offload
 from .mams import MAMSConfig, MAMSResult, MAMSStats, run_mams, run_mams_chains
@@ -6,6 +7,15 @@ from .mclmc import MCLMCConfig, MCLMCResult, MCLMCStats, run_mclmc, run_mclmc_ch
 from .nuts import NUTSConfig, NUTSInfo, run_nuts, run_nuts_chains, run_nuts_ensemble
 from .offload import run_nuts_host_offload, run_rmhmc_host_offload, run_split_hmc_host_offload
 from .rmhmc import run_rmhmc, run_rmhmc_chains
+from .sgmcmc import (
+    SGHMCConfig,
+    SGLDConfig,
+    SGMCMCResult,
+    run_sghmc,
+    run_sghmc_chains,
+    run_sgld,
+    run_sgld_chains,
+)
 from .splitting import run_split_hmc, run_split_hmc_chains, run_split_hmc_stacked
 
 # the JAX package's list (hamiltorch_tpu/samplers/__init__.py), in its order,
@@ -23,6 +33,9 @@ __all__ = [
     "NUTSInfo",
     "run_nuts",
     "run_nuts_chains",
+    "ChEESConfig",
+    "ChEESResult",
+    "run_chees",
     "run_rmhmc",
     "run_rmhmc_chains",
     "run_nuts_ensemble",
@@ -43,6 +56,13 @@ __all__ = [
     "MAMSStats",
     "run_mams",
     "run_mams_chains",
+    "SGLDConfig",
+    "SGHMCConfig",
+    "SGMCMCResult",
+    "run_sgld",
+    "run_sgld_chains",
+    "run_sghmc",
+    "run_sghmc_chains",
     "DualAveragingState",
     "da_init",
     "da_update",

@@ -127,13 +127,19 @@ def is_param_tree(theta: Any) -> bool:
     return any(hasattr(leaf, "ndim") for leaf in leaves)
 
 
-def stack_param_tree(theta0, n: int, stacked: bool | None = None):
+def stack_param_tree(theta0, n: int, key=None, noise: float = 0.0,
+                     stacked: bool | None = None):
     """(template, stacked_tree) for a tree chain entry.
 
     Leaves that already carry a leading ``n`` axis are taken as per-chain
     states (``stacked`` overrides the detection when a single-chain leaf's
     first dim happens to equal ``n``); otherwise the single state is copied
-    to ``n`` chains.
+    to ``n`` chains.  With ``noise > 0`` each copy is spread by
+    ``noise * N(0, 1)``, leaf by leaf in leaf order (ChEES's cross-chain
+    criterion needs distinct starting points).  ``key`` is an integer seed
+    or a ``torch.Generator``; the normals are drawn on the generator's
+    device (the CPU for a seed), so a seed gives the same spread on every
+    device.
     """
     theta0 = tree_map(torch.as_tensor, theta0)
     leaves = tree_leaves(theta0)
@@ -141,6 +147,17 @@ def stack_param_tree(theta0, n: int, stacked: bool | None = None):
         stacked = all(leaf.shape[:1] == (n,) for leaf in leaves)
     if stacked:
         return tree_map(lambda leaf: leaf[0], theta0), theta0
+    if noise > 0.0:
+        if key is None:
+            raise ValueError("stack_param_tree: noise > 0 needs a key")
+        gen = key if isinstance(key, torch.Generator) else torch.Generator().manual_seed(int(key))
+
+        def spread(leaf):
+            z = torch.randn((n,) + tuple(leaf.shape), generator=gen, dtype=leaf.dtype,
+                            device=gen.device)
+            return leaf.unsqueeze(0) + noise * z.to(leaf.device)
+
+        return theta0, tree_map(spread, theta0)
     return theta0, tree_map(
         lambda leaf: leaf.unsqueeze(0).expand((n,) + tuple(leaf.shape)).clone(),
         theta0,

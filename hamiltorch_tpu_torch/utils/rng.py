@@ -26,10 +26,18 @@ _MASK64 = (1 << 64) - 1
 # index itself, MCLMC [0, 2**32) (samplers/mclmc.py), MAMS and NUTS these
 # offsets.  AUX_STREAM holds the extra per-draw noise that a transition asks
 # the driver for (RMHMC's jitter, SPLITTING_RAND's term order), beside the
-# draw's momentum and Metropolis uniform.
+# draw's momentum and Metropolis uniform.  CHEES_JITTER_STREAM holds ChEES's
+# trajectory jitter, one uniform a draw shared by every chain; SPREAD_STREAM
+# the seed of ChEES's start spread; SG_STREAM the SG-MCMC normals, one
+# generator a thinning window keyed on the window's first step, and
+# SG_INDEX_STREAM the SG-MCMC minibatch indices, one hash a step.
 MAMS_STREAM = 2**40
 NUTS_STREAM = 2**41
 AUX_STREAM = 2**42
+CHEES_JITTER_STREAM = 2**43
+SG_STREAM = 2**44
+SG_INDEX_STREAM = 2**45
+SPREAD_STREAM = 2**46
 
 _global_gen: torch.Generator | None = None
 
@@ -146,3 +154,50 @@ def draw_aux_noise(key: int, n: int, num_chains: int, kind: str, size: int,
         else:
             out[c] = torch.randperm(size, generator=gen, device=device)
     return out
+
+
+def draw_jitter(key: int, n: int) -> float:
+    """ChEES's trajectory jitter at global draw ``n``: one U(0, 1) shared by
+    every chain, from a CPU generator seeded by ``draw_seed(key, 0,
+    CHEES_JITTER_STREAM + n)`` (keyed on the seed and the draw alone), as a
+    host float64 value."""
+    gen = torch.Generator().manual_seed(draw_seed(key, 0, CHEES_JITTER_STREAM + n))
+    return float(torch.rand((), generator=gen, dtype=torch.float64))
+
+
+def sg_term_indices(key: int, step: int, num_chains: int, num_terms: int) -> list:
+    """The SG-MCMC minibatch index of every chain at global step ``step``:
+    ``draw_seed(key, c, SG_INDEX_STREAM + step) mod num_terms``, a
+    counter-based draw on the host.  The indices are host ints, a function
+    of (seed, chain, step) alone, so choosing a term never waits for the
+    card; the modulo's bias is below ``num_terms / 2**63``."""
+    return [draw_seed(key, c, SG_INDEX_STREAM + step) % num_terms
+            for c in range(num_chains)]
+
+
+def draw_sg_window(key: int, first_step: int, leaves: list, steps: int,
+                   extra: int = 0) -> tuple:
+    """The SG-MCMC normals of one thinning window of every chain.
+
+    ``leaves`` are the chain state's (C, ...) leaves.  Chain ``c`` draws
+    from one generator on the leaves' device seeded by ``draw_seed(key, c,
+    SG_STREAM + first_step)``: for each leaf in leaf order a (steps, ...)
+    block of standard normals in the leaf's dtype (one per step of the
+    window), then for each leaf an (extra, ...) block (SGHMC's momentum
+    refreshes falling in the window).  Returns ``(z, fresh)``, lists of
+    (C, steps, ...) and (C, extra, ...) tensors in leaf order; a chunk
+    that starts on a window boundary draws what the straight run draws.
+    """
+    device = leaves[0].device
+    gen = torch.Generator(device=device)
+    c_n = leaves[0].shape[0]
+    z = [leaf.new_empty((c_n, steps) + tuple(leaf.shape[1:])) for leaf in leaves]
+    fresh = [leaf.new_empty((c_n, extra) + tuple(leaf.shape[1:])) for leaf in leaves]
+    for c in range(c_n):
+        gen.manual_seed(draw_seed(key, c, SG_STREAM + first_step))
+        for buf in z:
+            buf[c].normal_(generator=gen)
+        for buf in fresh:
+            if extra:
+                buf[c].normal_(generator=gen)
+    return z, fresh

@@ -2,11 +2,14 @@
 
 For each of the six runners (HMC, HMC chains, NUTS, the pooled NUTS
 ensemble, MCLMC, MAMS), on a small Gaussian with windowed warmup where the
-sampler has it (burn 160 puts a slow window across the chunks):
+sampler has it (burn 160 puts a slow window across the chunks), and for
+RMHMC, split HMC, ChEES (flat, tree, dense warmup with ``thin``) and
+SGLD / pSGLD / SGHMC:
 
 * a run stopped part-way and resumed equals the straight sampler call with
   the same key bit for bit, at two chunkings (every draw's noise is keyed
-  on the global draw index and the port runs eagerly);
+  on the global draw index and the port runs eagerly; SG-MCMC's chunks
+  hold whole thinning windows);
 * a changed stream-changing option raises the fingerprint ``ValueError``;
   ``num_samples`` and ``progress_every`` do not;
 * ``resume=False`` clears the old chunks;
@@ -322,3 +325,118 @@ def test_rmhmc_and_split_refuse_a_changed_option(name, tmp_path):
     with pytest.raises(ValueError, match="fingerprint"):
         run_ck(dataclasses.replace(rm_split_config(6), step_size=0.3), d, 2, **kw)
     assert_same(run_ck(rm_split_config(6), d, 2, **kw), run(rm_split_config(6), **kw))
+
+
+# --- ChEES and SG-MCMC -----------------------------------------------------------
+
+def tree_log_prob(t):
+    return log_prob(torch.cat([t["a"], t["b"].reshape(-1)]))
+
+
+def tree_start(dtype=torch.float32):
+    flat = start(dtype)
+    return {"a": flat[:2], "b": flat[2:].reshape(2, 1)}
+
+
+# name -> (log_prob, start, config fields); burn 160 puts a slow window across chunks
+CHEES = {
+    "flat-diag": (log_prob, start, dict(adapt_mass="diag")),
+    "tree-diag-halton": (tree_log_prob, tree_start,
+                         dict(adapt_mass=True, trajectory_jitter="halton")),
+    "flat-dense-thin": (log_prob, start, dict(adapt_mass="dense", thin=2)),
+}
+
+
+def chees_config(name, num_samples, **kw):
+    return tht.ChEESConfig(num_samples=num_samples, step_size=0.3, burn=160,
+                           **dict(CHEES[name][2], **kw))
+
+
+def plain(res):
+    """A ChEESResult with its carry's dual-averaging state as a tuple."""
+    return res._replace(final_carry=res.final_carry._replace(da=ck._da_tuple(res.final_carry.da)))
+
+
+@pytest.mark.parametrize("name", sorted(CHEES))
+def test_chees_resume_equals_the_straight_run_at_two_chunkings(name, tmp_path):
+    lp, theta0, _ = CHEES[name]
+    want = plain(tht.run_chees(5, lp, theta0(), chees_config(name, 170), CHAINS))
+    for chunk in (16, 60):
+        d = str(tmp_path / f"c{chunk}")
+        part = ck.run_chees_checkpointed(5, lp, theta0(), chees_config(name, 90), d, CHAINS,
+                                         chunk_size=chunk)
+        assert_same(plain(part), plain(tht.run_chees(5, lp, theta0(), chees_config(name, 90),
+                                                     CHAINS)))
+        got = ck.run_chees_checkpointed(5, lp, theta0(), chees_config(name, 170), d, CHAINS,
+                                        chunk_size=chunk)
+        assert_same(plain(got), want)
+
+
+def test_chees_refuses_a_changed_option_and_mesh(tmp_path):
+    d = str(tmp_path)
+    ck.run_chees_checkpointed(5, log_prob, start(), chees_config("flat-diag", 8), d, CHAINS,
+                              chunk_size=4)
+    with pytest.raises(ValueError, match="fingerprint"):
+        ck.run_chees_checkpointed(5, log_prob, start(),
+                                  chees_config("flat-diag", 12, trajectory_jitter="halton"), d,
+                                  CHAINS, chunk_size=4)
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        ck.run_chees_checkpointed(5, log_prob, start(), chees_config("flat-diag", 8), d, CHAINS,
+                                  mesh=object())
+    bf = chees_config("flat-diag", 12, trace_dtype="bfloat16")
+    got = ck.run_chees_checkpointed(5, log_prob, start(), bf, str(tmp_path / "bf"), CHAINS,
+                                    chunk_size=5)
+    assert got.samples.dtype == torch.bfloat16
+    assert_same(plain(got), plain(tht.run_chees(5, log_prob, start(), bf, CHAINS)))
+
+
+SG_TERMS = 3
+
+
+def sg_term(t, m):
+    flat = torch.cat([t["a"], t["b"].reshape(-1)]) if isinstance(t, dict) else t
+    return log_prob(flat) / SG_TERMS + 0.2 * (m - 1) * torch.sum(flat)
+
+
+# name -> (straight runner, checkpointed runner, start, config, inv_mass)
+SG = {
+    "sgld": (tht.run_sgld, ck.run_sgld_checkpointed, start,
+             lambda n: tht.SGLDConfig(num_samples=n, step_size=0.05, thin=2), None),
+    "psgld-tree": (tht.run_sgld, ck.run_sgld_checkpointed, tree_start,
+                   lambda n: tht.SGLDConfig(num_samples=n, step_size=0.02, thin=2,
+                                            preconditioner="rmsprop"), None),
+    "sghmc-refresh": (tht.run_sghmc, ck.run_sghmc_checkpointed, start,
+                      lambda n: tht.SGHMCConfig(num_samples=n, step_size=0.02, thin=2,
+                                                resample_momentum_every=5),
+                      torch.tensor([1.0, 2.0, 0.5, 1.5])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SG))
+def test_sgmcmc_resume_equals_the_straight_run_at_two_chunkings(name, tmp_path):
+    run, run_ck, theta0, cfg, pre = SG[name]
+    want = run(5, sg_term, SG_TERMS, theta0(), cfg(30), inv_mass=pre)
+    for chunk in (4, 10):
+        d = str(tmp_path / f"c{chunk}")
+        assert_same(run_ck(5, sg_term, SG_TERMS, theta0(), cfg(14), d, chunk_size=chunk,
+                           inv_mass=pre),
+                    run(5, sg_term, SG_TERMS, theta0(), cfg(14), inv_mass=pre))
+        assert_same(run_ck(5, sg_term, SG_TERMS, theta0(), cfg(30), d, chunk_size=chunk,
+                           inv_mass=pre), want)
+
+
+@pytest.mark.parametrize("name", sorted(SG))
+def test_sgmcmc_refuses_a_changed_option_and_keeps_bfloat16(name, tmp_path):
+    run, run_ck, theta0, cfg, pre = SG[name]
+    d = str(tmp_path / "d")
+    run_ck(5, sg_term, SG_TERMS, theta0(), cfg(8), d, chunk_size=4, inv_mass=pre)
+    with pytest.raises(ValueError, match="fingerprint"):  # another number of terms
+        run_ck(5, sg_term, SG_TERMS + 1, theta0(), cfg(12), d, chunk_size=4, inv_mass=pre)
+    with pytest.raises(ValueError, match="fingerprint"):
+        run_ck(5, sg_term, SG_TERMS, theta0(), dataclasses.replace(cfg(12), step_size=0.03), d,
+               chunk_size=4, inv_mass=pre)
+    bf = theta0(torch.bfloat16)
+    got = run_ck(5, sg_term, SG_TERMS, bf, cfg(12), str(tmp_path / "bf"), chunk_size=4,
+                 inv_mass=pre)
+    assert tree_leaves(got.samples)[0].dtype == torch.bfloat16
+    assert_same(got, run(5, sg_term, SG_TERMS, bf, cfg(12), inv_mass=pre))

@@ -146,6 +146,16 @@ def _runs(form):
     hmc = dict(num_samples=6, num_steps_per_sample=3, step_size=0.3)
     mclmc = dict(num_samples=6, tune_steps=0, trajectory_length=2.0)
     mams = dict(num_samples=6, num_steps_per_sample=3, adapt_step_size=False)
+    chees = dict(num_samples=6, step_size=0.3, burn=3)
+    sgld = dict(num_samples=6, step_size=0.01)
+    cyc = dict(num_cycles=2, cycle_length=6, step_size=0.05, exploration_frac=0.5)
+
+    def j_term(t, m):
+        return 0.5 * j_lp(t)
+
+    def t_term(t, m):
+        return 0.5 * t_lp(t)
+
     return {
         "hmc": (tht.run_hmc_chains(0, t_lp, t0, tht.MCMCConfig(**hmc), 2),
                 jht.run_hmc_chains(key, j_lp, j0, jht.MCMCConfig(**hmc), 2)),
@@ -157,6 +167,16 @@ def _runs(form):
                  jht.run_mams_chains(key, j_lp, j0, jht.MAMSConfig(**mams), 2)),
         "mams_single": (tht.run_mams(0, t_lp, t0, tht.MAMSConfig(**mams)),
                         jht.run_mams(key, j_lp, j0, jht.MAMSConfig(**mams))),
+        "chees": (tht.run_chees(0, t_lp, t0, tht.ChEESConfig(**chees), 4),
+                  jht.run_chees(key, j_lp, j0, jht.ChEESConfig(**chees), 4)),
+        "sgld": (tht.run_sgld_chains(0, t_term, 2, t0, tht.SGLDConfig(**sgld), 2),
+                 jht.run_sgld_chains(key, j_term, 2, j0, jht.SGLDConfig(**sgld), 2)),
+        "sghmc_single": (tht.run_sghmc(0, t_term, 2, t0, tht.SGHMCConfig(**sgld)),
+                         jht.run_sghmc(key, j_term, 2, j0, jht.SGHMCConfig(**sgld))),
+        "csgmcmc": (tht.run_csgmcmc_chains(0, t_term, 2, t0, tht.CSGMCMCConfig(**cyc), 2),
+                    jht.run_csgmcmc_chains(key, j_term, 2, j0, jht.CSGMCMCConfig(**cyc), 2)),
+        "csgmcmc_single": (tht.run_csgmcmc(0, t_term, 2, t0, tht.CSGMCMCConfig(**cyc)),
+                           jht.run_csgmcmc(key, j_term, 2, j0, jht.CSGMCMCConfig(**cyc))),
     }
 
 
@@ -172,11 +192,30 @@ def test_inference_dict_layout_matches_jax(form):
                 assert g.shape == w.shape and g.dtype == w.dtype, (family, name)
 
 
+@pytest.mark.parametrize("family", ["chees", "nuts"])
+def test_inference_dict_of_a_bfloat16_trace(family):
+    """A ``trace_dtype="bfloat16"`` trace exports as its float32 values
+    (numpy has no bfloat16; the JAX package's dict holds ml_dtypes'
+    bfloat16, the same values)."""
+    lp = lambda t: -0.5 * torch.sum(t ** 2)  # noqa: E731
+    if family == "chees":
+        res = tht.run_chees(0, lp, torch.zeros(2), tht.ChEESConfig(
+            num_samples=4, trace_dtype="bfloat16"), 4)
+        trace = res.samples
+    else:
+        res = tht.run_nuts_chains(0, lp, torch.zeros(2), tht.NUTSConfig(
+            num_samples=4, trace_dtype="bfloat16"), 3)
+        trace = res[0].samples
+    post = tdiag.to_inference_dict(res)["posterior"]["theta"]
+    assert trace.dtype == torch.bfloat16 and post.dtype == np.float32
+    np.testing.assert_array_equal(post, trace.float().numpy())
+
+
 def test_inference_dict_refuses_families_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdiag.to_inference_dict(("result", "info"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdiag.to_inference_dict(type("ChEESResult", (), {"samples": 0, "stats": 0})())
+        tdiag.to_inference_dict(type("PTResult", (), {"samples": 0, "stats": 0})())
 
 
 def test_to_arviz_needs_arviz():

@@ -493,7 +493,10 @@ SAMPLER_ENTRIES = ["sample", "sample_nuts", "sample_offload", "run_hmc", "run_hm
                    "run_mams_checkpointed", "sample_rmhmc", "sample_splitting", "run_rmhmc",
                    "run_rmhmc_chains", "run_rmhmc_host_offload", "run_rmhmc_checkpointed",
                    "run_split_hmc", "run_split_hmc_chains", "run_split_hmc_host_offload",
-                   "run_split_hmc_checkpointed"]
+                   "run_split_hmc_checkpointed", "run_chees", "run_chees_checkpointed",
+                   "run_sgld", "run_sgld_chains", "run_sghmc", "run_sghmc_chains",
+                   "run_csgmcmc", "run_csgmcmc_chains", "run_sgld_checkpointed",
+                   "run_sghmc_checkpointed"]
 # entry points that take a flat start only, as in the JAX package
 FLAT_ONLY = ("run_rmhmc_host_offload", "run_rmhmc_checkpointed")
 
@@ -517,6 +520,10 @@ def call_entry(entry, theta0, ckpt_dir):
     mams = tht.MAMSConfig(num_samples=3, num_steps_per_sample=2, burn=1)
     rm = dict(metric=tht.Metric.SOFTABS, softabs_const=10.0, fixed_point_max_iterations=3)
     split_terms = [lambda t: 0.5 * _leaf_lp(t)] * 2
+    chees = tht.ChEESConfig(num_samples=3, step_size=0.2, burn=1)
+    sgld = tht.SGLDConfig(num_samples=3, step_size=0.01)
+    sghmc = tht.SGHMCConfig(num_samples=3, step_size=0.01)
+    cyc = tht.CSGMCMCConfig(num_cycles=1, cycle_length=4, step_size=0.01, exploration_frac=0.5)
 
     def split_term(t, m):
         return 0.5 * _leaf_lp(t)
@@ -569,9 +576,27 @@ def call_entry(entry, theta0, ckpt_dir):
             0, split_term, 2, theta0, hmc),
         "run_split_hmc_checkpointed": lambda: ck.run_split_hmc_checkpointed(
             0, split_term, 2, theta0, hmc, ckpt_dir),
+        "run_chees": lambda: tht.run_chees(0, _leaf_lp, theta0, chees, 2),
+        "run_chees_checkpointed": lambda: ck.run_chees_checkpointed(0, _leaf_lp, theta0, chees,
+                                                                    ckpt_dir, 2),
+        "run_sgld": lambda: tht.run_sgld(0, split_term, 2, theta0, sgld),
+        "run_sgld_chains": lambda: tht.run_sgld_chains(0, split_term, 2, theta0, sgld, 2),
+        "run_sghmc": lambda: tht.run_sghmc(0, split_term, 2, theta0, sghmc),
+        "run_sghmc_chains": lambda: tht.run_sghmc_chains(0, split_term, 2, theta0, sghmc, 2),
+        "run_csgmcmc": lambda: tht.run_csgmcmc(0, split_term, 2, theta0, cyc),
+        "run_csgmcmc_chains": lambda: tht.run_csgmcmc_chains(0, split_term, 2, theta0, cyc, 2),
+        "run_sgld_checkpointed": lambda: ck.run_sgld_checkpointed(0, split_term, 2, theta0, sgld,
+                                                                  ckpt_dir),
+        "run_sghmc_checkpointed": lambda: ck.run_sghmc_checkpointed(0, split_term, 2, theta0,
+                                                                    sghmc, ckpt_dir),
     }
     out = calls[entry]()
-    final = out.final_state.theta if hasattr(out, "final_state") else out.final_theta
+    if hasattr(out, "final_state"):
+        final = out.final_state.theta
+    elif hasattr(out, "final_carry"):  # ChEES
+        final = out.final_carry.thetas
+    else:
+        final = out.final_theta
     return out.samples, final
 
 
@@ -809,5 +834,81 @@ def test_split_hmc_on_card_matches_cpu_in_float64(cuda_device, scheme):
 
     card, host = go(cuda_device), go("cpu")
     assert torch.equal(card.stats.accepted.cpu(), host.stats.accepted)
+    scale = float(host.samples.abs().max())
+    assert float((card.samples.cpu() - host.samples).abs().max()) <= 1e-8 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adapt_mass", [False, "diag", "dense"])
+def test_chees_on_card_matches_cpu_in_float64(cuda_device, adapt_mass):
+    """run_chees on the card and on the CPU, float64, the same injected
+    momenta, Metropolis uniforms and jitter, burn 150 (one slow window):
+    identical leapfrog counts and accepts, positions within 1e-8 of max
+    |theta|."""
+    import hamiltorch_tpu_torch as tht
+
+    chains, draws, d = 8, 160, 4
+    rng = np.random.RandomState(6)
+    noise = (torch.as_tensor(rng.randn(draws, chains, d)),
+             torch.as_tensor(np.log(rng.rand(draws, chains))), torch.as_tensor(rng.rand(draws)))
+    start = rng.randn(chains, d)
+    scales = torch.tensor([1.0, 1.5, 0.8, 1.2], dtype=torch.float64)
+    cfg = tht.ChEESConfig(num_samples=draws, step_size=0.1, burn=150, adapt_mass=adapt_mass,
+                          desired_accept_rate=0.95)
+
+    def go(device):
+        lp = lambda t: (-0.5 * torch.sum((t / scales.to(t.device)) ** 2)  # noqa: E731
+                        + 0.05 * torch.sum(torch.sin(t)))
+        return tht.run_chees(0, lp, torch.as_tensor(start, device=device), cfg, chains,
+                             _noise=tuple(t.to(device) for t in noise))
+
+    card, host = go(cuda_device), go("cpu")
+    assert torch.equal(card.info.num_leapfrog.cpu(), host.info.num_leapfrog)
+    moved = lambda s: (s[:, 1:] != s[:, :-1]).any(dim=-1)  # noqa: E731
+    assert torch.equal(moved(card.samples.cpu()), moved(host.samples))
+    scale = float(host.samples.abs().max())
+    assert float((card.samples.cpu() - host.samples).abs().max()) <= 1e-8 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sgld", "psgld", "sghmc"])
+def test_sgmcmc_on_card_matches_cpu_in_float64(cuda_device, kind):
+    """SG-MCMC chains on the card and on the CPU, float64, the same injected
+    normals; the terms come from the host hash on both: identical terms
+    (recorded by the term function), positions within 1e-8 of max |theta|."""
+    import hamiltorch_tpu_torch as tht
+    from hamiltorch_tpu_torch.utils.rng import sg_term_indices
+
+    chains, steps, terms = 3, 12, 4
+    rng = np.random.RandomState(7)
+    centres = rng.randn(terms, 3)
+    z = torch.as_tensor(rng.randn(steps, chains, 3))
+
+    def go(device):
+        seen = []
+
+        def term(t, m, xs):
+            seen.append(m)
+            return -0.5 * torch.sum((t - xs[m]) ** 2) / terms
+
+        noise = {"z": z.to(device), "fresh": z.to(device),
+                 "m": torch.as_tensor([[int(m) for m in row] for row in
+                                       [sg_term_indices(0, g, chains, terms)
+                                        for g in range(steps)]])}
+        theta0 = torch.zeros(3, dtype=torch.float64, device=device)
+        data = torch.as_tensor(centres, device=device)
+        if kind == "sghmc":
+            cfg = tht.SGHMCConfig(num_samples=steps, step_size=0.01, resample_momentum_every=5)
+            res = tht.run_sghmc_chains(0, term, terms, theta0, cfg, chains, data=data,
+                                       _noise=noise)
+        else:
+            cfg = tht.SGLDConfig(num_samples=steps, step_size=0.01,
+                                 preconditioner="rmsprop" if kind == "psgld" else "none")
+            res = tht.run_sgld_chains(0, term, terms, theta0, cfg, chains, data=data,
+                                      _noise=noise)
+        return res, seen
+
+    (card, seen_card), (host, seen_host) = go(cuda_device), go("cpu")
+    assert seen_card == seen_host
     scale = float(host.samples.abs().max())
     assert float((card.samples.cpu() - host.samples).abs().max()) <= 1e-8 * scale

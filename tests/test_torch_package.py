@@ -100,7 +100,8 @@ def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
 def test_exports_mirror_the_jax_package(module):
     """``__all__`` of ``samplers`` lists the JAX package's names that the
     port has, in the JAX package's order, and nothing else; the top level
-    exports MAMS as the JAX package does.  Every name resolves."""
+    exports MAMS, ChEES and SG-MCMC as the JAX package does.  Every name
+    resolves."""
     import importlib
 
     suffix = f".{module}" if module else ""
@@ -113,7 +114,13 @@ def test_exports_mirror_the_jax_package(module):
         assert set(port.__all__) >= {"ChainState", "run_mcmc", "hmc_transition",
                                      "DualAveragingState", "da_init", "da_update",
                                      "MAMSConfig", "MAMSResult", "MAMSStats", "run_mams",
-                                     "run_mams_chains"}
+                                     "run_mams_chains", "ChEESConfig", "ChEESResult",
+                                     "run_chees", "SGLDConfig", "SGHMCConfig", "SGMCMCResult",
+                                     "run_sgld", "run_sgld_chains", "run_sghmc",
+                                     "run_sghmc_chains"}
     else:
-        assert {"MAMSConfig", "MAMSResult", "run_mams", "run_mams_chains"} <= set(port.__all__)
+        assert {"MAMSConfig", "MAMSResult", "run_mams", "run_mams_chains", "ChEESConfig",
+                "ChEESResult", "run_chees", "SGLDConfig", "SGHMCConfig", "CSGMCMCConfig",
+                "run_csgmcmc", "run_csgmcmc_chains", "run_sgld", "run_sgld_chains",
+                "run_sghmc", "run_sghmc_chains"} <= set(port.__all__)
     assert set(port.__all__) <= set(jax_mod.__all__) | {"next_key"}

@@ -115,6 +115,48 @@ def test_stack_param_tree_on_a_list():
     assert all(torch.equal(a, b) for a, b in zip(same, stacked))
 
 
+@pytest.mark.parametrize("name", sorted(TREES))
+def test_stack_param_tree_spread_matches_jax(name):
+    """``stack_param_tree(key=, noise=)``: the JAX package's template,
+    structure, shapes and dtypes; each copy spread by ``noise * N(0, 1)``
+    leaf by leaf in leaf order from a generator seeded by the key (an int
+    or the generator itself: the same draws), on the CPU whatever the
+    leaves' device; ``noise=0`` copies, a stacked start is taken as it is,
+    and a spread without a key raises."""
+    tree = TREES[name]()
+    n, noise = 64, 0.5
+    j_tmpl, j_st = jtree.stack_param_tree(jax.tree_util.tree_map(jnp.asarray, tree), n,
+                                          key=jax.random.key(1), noise=noise, stacked=False)
+    t_in = ttree.tree_map(torch.as_tensor, tree)
+    t_tmpl, t_st = ttree.stack_param_tree(t_in, n, key=7, noise=noise, stacked=False)
+    assert ttree.tree_structure(t_st) == ttree.tree_structure(t_in)
+    for jl, tl, base in zip(jax.tree_util.tree_leaves(j_st), ttree.tree_leaves(t_st),
+                            ttree.tree_leaves(t_in)):
+        assert tuple(jl.shape) == tuple(tl.shape) and str(tl.dtype).endswith(str(jl.dtype))
+        assert not torch.equal(tl[0], tl[1])
+    gen = torch.Generator().manual_seed(7)
+    want = [base.unsqueeze(0) + noise * torch.randn((n,) + tuple(base.shape), generator=gen,
+                                                    dtype=base.dtype)
+            for base in ttree.tree_leaves(t_in)]
+    assert all(torch.equal(a, b) for a, b in zip(ttree.tree_leaves(t_st), want))
+    _, from_gen = ttree.stack_param_tree(t_in, n, key=torch.Generator().manual_seed(7),
+                                         noise=noise, stacked=False)
+    assert all(torch.equal(a, b) for a, b in zip(ttree.tree_leaves(from_gen), want))
+    spread = torch.cat([(s - b).reshape(-1) for s, b in zip(ttree.tree_leaves(t_st),
+                                                            ttree.tree_leaves(t_in))])
+    j_spread = np.concatenate([np.asarray(s - np.asarray(b)).reshape(-1) for s, b in
+                               zip(jax.tree_util.tree_leaves(j_st), ttree.tree_leaves(t_in))])
+    assert abs(float(spread.std()) - noise) < 0.15 and abs(float(j_spread.std()) - noise) < 0.15
+    _, copies = ttree.stack_param_tree(t_in, n, key=7, noise=0.0, stacked=False)
+    assert all(torch.equal(c[3], b) for c, b in zip(ttree.tree_leaves(copies),
+                                                     ttree.tree_leaves(t_in)))
+    _, same = ttree.stack_param_tree(t_st, n, key=7, noise=noise)
+    assert all(torch.equal(a, b) for a, b in zip(ttree.tree_leaves(same),
+                                                 ttree.tree_leaves(t_st)))
+    with pytest.raises(ValueError, match="key"):
+        ttree.stack_param_tree(t_in, n, noise=noise, stacked=False)
+
+
 def list_target():
     scale = [np.array([0.5, 1.5], np.float32), np.array([[2.0], [0.8]], np.float32)]
 
