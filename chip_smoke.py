@@ -128,8 +128,29 @@ the kernels are built for sm_90a).  It
    ``tests/test_sgmcmc.py`` at its tolerance; SGLD and SGHMC on the
    regression BNN of ``examples/sgld_bnn_example.py`` in float64, card
    against CPU, identical terms, positions within 1e-8; checkpointed SGLD
-   and SGHMC identical to their straight runs); every phase of this list
-   fails if it launched a fused kernel;
+   and SGHMC identical to their straight runs), the ``tempering`` phase
+   (``tempering_path``: ``run_pt_chains`` on the flagship, 8 ladders of 8
+   replicas = the main path's 64 chains, L=10, step 2e-4, max_temp 30, ladder
+   and step-size adaptation, 60 draws with burn 40, timed in grad-steps/s,
+   gated on finite results, pinned and monotone ladders; the bimodal mixture
+   and the 2-D cross-ensemble R-hat of ``tests/test_tempering.py`` at their
+   gates; float64 card against CPU on injected noise, identical accepts and
+   swaps, positions within 1e-8 at an acceptance target of 0.95 and 1e-5
+   at the default 0.8, beside the drift of a reversed summation order on
+   the CPU alone; ``run_pt_checkpointed`` on the flagship,
+   one ladder and ensembles, identical) and the ``evidence`` phase
+   (``evidence_path``: TI on both models of
+   ``examples/model_comparison_example.py`` within 1.25 of the analytic log
+   Z (the estimator's spread over seeds there: ``EXAMPLE_TOL``), ``waic`` /
+   ``psis_loo`` of the beta=1 rung, the median of 4 SMC runs on the
+   quadratic model within 0.2 of it and 1.25 of TI, the quadratic model
+   winning; ``tests/test_ti.py:309-325``'s regression through
+   ``define_model_prior_and_lik``, TI within 0.15 and SMC within 0.2 of the
+   analytic log Z; TI and SMC
+   on a 784-128-1 ``nn.Sequential`` at the flagship's data shapes, timed,
+   gated on finite evidence, acceptance in [0, 1] and ESS fractions in (0,
+   1]; float64 card against CPU; ``run_ti_checkpointed`` identical); every
+   phase of this list fails if it launched a fused kernel;
 6. checks the tiny flagship on the card against the CPU;
 7. prints one JSON line with every kernel's summary and, last, the device
    line.
@@ -241,6 +262,39 @@ CHEES_CHAINS = 64
 SG_STEPS = 60
 SG_CHAINS = 8
 SG_RECOVERY_STEPS, SG_RECOVERY_CHAINS = 8000, 32
+# Parallel tempering on the flagship: the main path's 64 chains as 8 ladders
+# of 8 replicas, 60 draws with burn 40.  The bimodal mixture of
+# tests/test_tempering.py:12-37 is cut from 4000 draws to 1500 (the same
+# first 500 skipped, 1000 kept) and the cross-ensemble R-hat of :272-285
+# from 1200 draws (burn 200) to 600 (burn 100): a leapfrog step of these
+# tiny targets costs ~1 ms of host time, and both gates still see many mode
+# switches.
+PT_ENSEMBLES, PT_TEMPS, PT_DRAWS, PT_BURN = 8, 8, 60, 40
+PT_BIMODAL_DRAWS = 1500
+PT_RHAT_DRAWS, PT_RHAT_BURN = 600, 100
+# The evidence phase.  TI on examples/model_comparison_example.py's
+# configuration (12 rungs, L=8, step 0.3) runs 500 draws (burn 125) where
+# the example runs 2000 (burn 500): a draw is 9 vmapped evaluations of host
+# time, ~16 ms, and more draws shrink the spread little.  Over 24 seeds on
+# the card (``python3 chip_smoke.py --evidence-spread ti_quadratic``) the
+# stepping-stone estimate spreads with a standard deviation of 0.33 nats
+# (linear model 0.21), with tails to 1.08: its bridge from the prior is
+# heavy-tailed at this ladder, so a gate of 0.15 on one run would fail
+# often; each model is held within EXAMPLE_TOL of the analytic log Z, and
+# SMC within EXAMPLE_TOL of TI where the example reads ~0.5.  The strict
+# gates run on tests/test_ti.py:309-325's regression at its own settings:
+# TI within 0.15 (spread 0.066 over 24 seeds, tail 0.17) and SMC within 0.2
+# (0.070, tail 0.12).  The example's SMC starts at step 0.05 where the
+# example starts at 0.3 (from 0.3 the adaptation needs most of the 20
+# stages to reach the posterior's scale) and the gate holds the median of
+# SMC_RUNS runs, as the pooled test of tests/test_smc.py does: 0.2 against
+# medians that spread 0.055, tail 0.087.  The full-width module: TI 16
+# rungs x 30 draws (burn 20).
+EVIDENCE_DRAWS, EVIDENCE_BURN = 500, 125
+EXAMPLE_TOL = 1.25
+LINREG_TI_DRAWS, LINREG_TI_BURN = 1800, 600
+SMC_STEP, SMC_RUNS = 0.05, 4
+WIDE_TI_DRAWS, WIDE_TI_BURN = 30, 20
 
 
 class SmokeError(RuntimeError):
@@ -2079,6 +2133,466 @@ def sgmcmc_path(torch, device, card):
             raise SmokeError(f"SG-MCMC {name}: the checkpointed run is not the straight run")
 
 
+def tempering_path(torch, device, card):
+    """Parallel tempering (no kernel of its own: it evaluates the generic
+    potential, as the JAX package's does): ``run_pt_chains`` on the flagship
+    at the main path's 64 chains (8 ladders of 8 replicas), timed in
+    grad-steps/s; the bimodal mixture and the cross-ensemble R-hat of
+    ``tests/test_tempering.py``; float64 card against CPU on injected noise;
+    ``run_pt_checkpointed`` on the flagship, one ladder and ensembles."""
+    import dataclasses
+    import tempfile
+
+    from hamiltorch_tpu_torch import PTConfig, run_parallel_tempering, run_pt_chains
+    from hamiltorch_tpu_torch import checkpoint as ck
+    from hamiltorch_tpu_torch.diagnostics import potential_scale_reduction
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential
+
+    # 1. the flagship: E ladders of K replicas as one batch of E*K lanes
+    lp, theta0 = make_flagship_potential(device=device)
+    cfg = PTConfig(num_samples=PT_DRAWS, num_steps_per_sample=10, step_size=2e-4,
+                   num_temps=PT_TEMPS, max_temp=30.0, burn=PT_BURN, adapt_ladder=True,
+                   adapt_step_size=True)
+    lanes = PT_ENSEMBLES * PT_TEMPS
+    # untimed: the first calls of this path in the process
+    run_pt_chains(1, lp, theta0, dataclasses.replace(cfg, num_samples=2, burn=1), PT_ENSEMBLES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_pt_chains(20261017, lp, theta0, cfg, PT_ENSEMBLES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    betas = res.info.betas.double().cpu()  # (E, K)
+    swap = res.info.swap_accept.float().mean(dim=(0, 1)).cpu()  # per pair, post-burn
+    acc = res.info.accept_prob.float().mean(dim=(0, 1)).cpu()  # per slot, post-burn
+    eps = res.info.step_sizes.double().cpu()
+    print(f"tempering: flagship ({theta0.numel():,} parameters) run_pt_chains {PT_ENSEMBLES} "
+          f"ladders x {PT_TEMPS} replicas = {lanes} lanes, L=10, step 2e-4, max_temp 30, "
+          f"adapt_ladder and adapt_step_size, {PT_DRAWS} draws (burn {PT_BURN}): {wall:.2f} s "
+          f"= {lanes * 10 * PT_DRAWS / wall:,.1f} grad-steps/s; adapted betas (ladder 0) "
+          f"{[round(float(b), 5) for b in betas[0]]}, betas over ladders min/max at slot 1 "
+          f"{float(betas[:, 1].min()):.5f}/{float(betas[:, 1].max()):.5f}; post-burn swap rate "
+          f"per pair {[round(float(s), 3) for s in swap]}; accept_prob per slot "
+          f"{[round(float(a), 3) for a in acc]}; step sizes (ladder 0) "
+          f"{[f'{float(e):.3g}' for e in eps[0]]}; peak memory {peak / 2**30:.3f} GiB [{card}]")
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        res.replica_samples, res.info.betas, res.info.step_sizes, res.info.accept_prob))
+    ends = float((betas[:, 0] - 1.0).abs().max()) <= 1e-5 and float(
+        (betas[:, -1] - 1.0 / 30.0).abs().max()) <= 1e-5
+    monotone = bool((torch.diff(betas, dim=-1) < 0).all())
+    if not (finite and ends and monotone):
+        raise SmokeError(f"PT flagship: finite {finite}, pinned ends {ends}, monotone {monotone}")
+
+    # 2. the bimodal 1-D mixture of tests/test_tempering.py:12-37 (cut to
+    # PT_BIMODAL_DRAWS draws; the same first 500 skipped): the cold chain
+    # visits both modes
+    def bimodal(t):
+        return torch.logaddexp(-0.5 * torch.sum(((t + 4.0) / 0.5) ** 2),
+                               -0.5 * torch.sum(((t - 4.0) / 0.5) ** 2))
+
+    t0 = time.perf_counter()
+    r = run_parallel_tempering(21, bimodal, torch.full((1,), -4.0, device=device),
+                               PTConfig(num_samples=PT_BIMODAL_DRAWS, num_steps_per_sample=10,
+                                        step_size=0.1, num_temps=8, max_temp=50.0))
+    cold = r.samples[500:, 0].cpu()
+    frac = float((cold > 0).float().mean())
+    right, left = float(cold[cold > 0].mean()), float(cold[cold < 0].mean())
+    wall_b = time.perf_counter() - t0
+    print(f"tempering: bimodal mixture (+-4, sd 0.5), K=8, max_temp 50, {PT_BIMODAL_DRAWS} draws "
+          f"in {wall_b:.1f} s: cold chain right of 0 {frac:.3f} (0.2-0.8), mode means "
+          f"{right:.3f} / {left:.3f} (within 0.3 of +-4)")
+    if not (0.2 < frac < 0.8 and abs(right - 4.0) < 0.3 and abs(left + 4.0) < 0.3):
+        raise SmokeError(f"PT bimodal: right {frac}, means {right} / {left}")
+
+    # 3. the 2-D cross-ensemble R-hat of tests/test_tempering.py:272-285
+    # (cut to PT_RHAT_DRAWS draws, burn PT_RHAT_BURN)
+    def two_modes(t):
+        return torch.logaddexp(-0.5 * torch.sum((t - 2.0) ** 2), -0.5 * torch.sum((t + 2.0) ** 2))
+
+    t0 = time.perf_counter()
+    r = run_pt_chains(22, two_modes, torch.zeros(2, device=device),
+                      PTConfig(num_samples=PT_RHAT_DRAWS, num_steps_per_sample=8, step_size=0.3,
+                               num_temps=6, max_temp=50.0, burn=PT_RHAT_BURN), 4)
+    rhat = potential_scale_reduction(r.samples).double().cpu()
+    frac_pos = (r.samples[..., 0] > 0).float().mean(dim=1).cpu()
+    print(f"tempering: 2-D modes at +-2, 4 ensembles x K=6, {PT_RHAT_DRAWS} draws (burn "
+          f"{PT_RHAT_BURN}) in {time.perf_counter() - t0:.1f} s: R-hat "
+          f"{[round(float(v), 4) for v in rhat]} (< 1.2), right-mode share per ensemble "
+          f"{[round(float(v), 3) for v in frac_pos]} (0.15-0.85)")
+    if not (bool((rhat < 1.2).all()) and bool(((frac_pos > 0.15) & (frac_pos < 0.85)).all())):
+        raise SmokeError(f"PT R-hat: {rhat.tolist()}, shares {frac_pos.tolist()}")
+
+    # 4. float64 card against CPU on the same injected noise, 2 ladders x 4
+    # replicas on a 4-D two-mode target, ladder and step-size adaptation
+    # across burn 25.  At the acceptance target 0.95 dual averaging does not
+    # amplify a last-bit difference from draw to draw: positions within
+    # 1e-8.  At the default 0.8 it does: the decisions stay identical and
+    # the drift is held within 1e-5, beside the drift that a reversed
+    # summation order makes on the CPU alone (the same mechanism, no card)
+    gen = torch.Generator().manual_seed(23)
+    f64 = dict(generator=gen, dtype=torch.float64)
+    noise = {"z": torch.randn(40, 2, 4, 4, **f64), "u_mh": torch.rand(40, 2, 4, **f64),
+             "u_swap": torch.rand(40, 2, 4, **f64)}
+    start = 1.5 * torch.randn(2, 4, 4, **f64)
+
+    def mixture(t, total=torch.sum):
+        return (torch.logaddexp(-0.5 * total(((t - 1.5) / 0.6) ** 2),
+                                -0.5 * total(((t + 1.5) / 0.6) ** 2))
+                + 0.05 * total(torch.sin(t)))
+
+    def mixture_reversed(t):
+        return mixture(t, lambda v: torch.sum(v.flip(-1)))
+
+    def run64(dev, target, lp=mixture):
+        cfg64 = PTConfig(num_samples=40, num_steps_per_sample=4, step_size=0.25, num_temps=4,
+                         max_temp=12.0, burn=25, adapt_ladder=True, adapt_step_size=True,
+                         desired_accept_rate=target)
+        return run_pt_chains(0, lp, start.to(dev), cfg64, 2,
+                             _noise={k: v.to(dev) for k, v in noise.items()})
+
+    def moved(s):
+        return (s[:, 1:] != s[:, :-1]).any(dim=-1)
+
+    def compare(a, b):
+        """(identical swaps, identical accepts, positions of max |theta|)"""
+        ra, rb = a.replica_samples.cpu(), b.replica_samples.cpu()
+        return (torch.equal(a.info.swap_accept.cpu(), b.info.swap_accept.cpu()),
+                torch.equal(moved(ra), moved(rb)), float((ra - rb).abs().max()) / float(
+                    rb.abs().max()))
+
+    strict = compare(run64(device, 0.95), run64("cpu", 0.95))
+    default = compare(run64(device, 0.8), run64("cpu", 0.8))
+    reordered = compare(run64("cpu", 0.8, mixture_reversed), run64("cpu", 0.8))
+    print(f"tempering: float64 card vs CPU on the same noise, 2 ladders x 4 replicas x 40 draws "
+          f"(adaptation across burn 25): target 0.95 swaps / accepts identical {strict[:2]}, "
+          f"positions {strict[2]:.3e} of max |theta| (<= 1e-8); default target 0.8 identical "
+          f"{default[:2]}, positions {default[2]:.3e} (<= 1e-5), where a reversed summation "
+          f"order on the CPU alone drifts {reordered[2]:.3e} (identical {reordered[:2]})")
+    if not (all(strict[:2]) and strict[2] <= 1e-8 and all(default[:2]) and default[2] <= 1e-5):
+        raise SmokeError(f"PT card vs CPU: target 0.95 {strict}, target 0.8 {default}")
+
+    # 5. run_pt_checkpointed on the flagship, one ladder and 2 ensembles,
+    # stopped at 9 draws and resumed to 12 in chunks of 6: a boundary at burn
+    ck_cfg = dataclasses.replace(cfg, num_samples=12, burn=6)
+    (REPO / "build").mkdir(exist_ok=True)
+    same = {}
+    for name, ens in (("one ladder", None), ("2 ensembles", 2)):
+        if ens is None:
+            want = run_parallel_tempering(24, lp, theta0, ck_cfg)
+        else:
+            want = run_pt_chains(24, lp, theta0, ck_cfg, ens)
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+            ck.run_pt_checkpointed(24, lp, theta0, dataclasses.replace(ck_cfg, num_samples=9),
+                                   tmp, chunk_size=6, num_ensembles=ens)
+            got = ck.run_pt_checkpointed(24, lp, theta0, ck_cfg, tmp, chunk_size=6,
+                                         num_ensembles=ens)
+        same[name] = same_tensors(torch, got.replica_samples, want.replica_samples) and \
+            same_tensors(torch, tuple(got.info), tuple(want.info))
+    print(f"tempering: run_pt_checkpointed on the flagship (stopped at 9, chunks of 6, burn 6) "
+          f"identical {same}")
+    if not all(same.values()):
+        raise SmokeError(f"PT: the checkpointed run is not the straight run: {same}")
+
+
+def example_problem(torch, d, device):
+    """``examples/model_comparison_example.py``'s data (80 points of a
+    quadratic with noise 0.1) and its degree-(d - 1) polynomial model with an
+    N(0, I) prior: ``(data, pointwise, log_lik, log_prior, analytic log Z)``.
+    The prediction is ``features @ t``, the example's ``t[0] x^(d-1) + ... +
+    t[d-1]`` as one product (fewer small operations a gradient on the
+    host); the analytic value is log N(y; 0, Phi Phi^T + I / tau_out), in
+    float64 with numpy."""
+    import math
+
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    xn = np.linspace(-1, 1, 80).astype(np.float32)
+    yn = (0.6 * xn**2 - 0.4 * xn + 0.2) + 0.1 * rng.randn(80).astype(np.float32)
+    tau_out = 100.0
+    x = torch.as_tensor(xn, device=device)
+    data = (torch.stack([x ** p for p in range(d - 1, -1, -1)], dim=1),
+            torch.as_tensor(yn, device=device))
+
+    def pointwise(t, data):
+        phi, yy = data
+        return 0.5 * math.log(tau_out / (2 * math.pi)) - 0.5 * tau_out * (phi @ t - yy) ** 2
+
+    def log_lik(t, data):
+        return torch.sum(pointwise(t, data))
+
+    def log_prior(t):
+        return -0.5 * torch.sum(t ** 2) - 0.5 * t.shape[0] * math.log(2 * math.pi)
+
+    x64, y64 = xn.astype(np.float64), yn.astype(np.float64)
+    phi = np.stack([x64 ** p for p in range(d - 1, -1, -1)], axis=1)
+    k = phi @ phi.T + np.eye(80) / tau_out
+    exact = float(-0.5 * y64 @ np.linalg.solve(k, y64) - 0.5 * np.linalg.slogdet(2 * np.pi * k)[1])
+    return data, pointwise, log_lik, log_prior, exact
+
+
+def linreg_problem(torch, device):
+    """``tests/test_ti.py:289-306``'s Bayesian linear regression (24 points,
+    an ``nn.Linear(1, 1)``, tau 1, tau_out 25) through
+    ``define_model_prior_and_lik``: ``(log_prior, log_lik, prior_sample,
+    template, analytic log Z)``, the analytic value in float64 with numpy."""
+    import numpy as np
+
+    from hamiltorch_tpu_torch.models.bnn import define_model_prior_and_lik
+
+    n, tau, tau_out = 24, 1.0, 25.0
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-1, 1, size=(n, 1)).astype(np.float32)
+    y = (0.8 * x[:, 0] - 0.3 + 0.2 * rng.normal(size=n)).astype(np.float32)[:, None]
+    torch.manual_seed(0)
+    lp, ll, ps, template = define_model_prior_and_lik(
+        torch.nn.Linear(1, 1), "regression", x, y, tau_list=tau, tau_out=tau_out, device=device)
+    phi = np.concatenate([x, np.ones_like(x)], axis=1)  # weight, bias
+    k = phi @ phi.T / tau + np.eye(n) / tau_out
+    exact = float(-0.5 * y[:, 0] @ np.linalg.solve(k, y[:, 0])
+                  - 0.5 * np.linalg.slogdet(2 * np.pi * k)[1])
+    return lp, ll, ps, template, exact
+
+
+def prior_normal(torch, d, device):
+    """``prior_sample_fn(seed, n)`` of an N(0, I) prior in d dimensions."""
+    return lambda seed, n: torch.randn(n, d, generator=torch.Generator(device).manual_seed(seed),
+                                       device=device)
+
+
+# the evidence phase's statistical runs, each against its analytic log Z
+EVIDENCE_CASES = ("ti_linear", "ti_quadratic", "smc_quadratic", "ti_linreg", "smc_linreg")
+
+
+def evidence_case(torch, case, seed, device):
+    """``(log Z, analytic log Z, result)`` of one run of an ``EVIDENCE_CASES``
+    entry: TI (12 rungs, L=8, step 0.3) on the example's linear or quadratic
+    model, SMC (2048 particles, 20 stages, 4 mutations, L=8, step
+    ``SMC_STEP``) on its quadratic model, and TI and SMC on
+    ``tests/test_ti.py:309-325``'s regression at that test's settings."""
+    from hamiltorch_tpu_torch import SMCConfig, TIConfig, run_smc, run_ti
+
+    if case == "ti_linreg":
+        lp, ll, _, template, exact = linreg_problem(torch, device)
+        r = run_ti(seed, lp, ll, template, TIConfig(
+            num_samples=LINREG_TI_DRAWS, num_steps_per_sample=6, step_size=0.3, num_temps=12,
+            burn=LINREG_TI_BURN))
+    elif case == "smc_linreg":
+        lp, ll, ps, _, exact = linreg_problem(torch, device)
+        r = run_smc(seed, lp, ll, ps, SMCConfig(num_particles=1024, num_temps=20, mcmc_steps=4,
+                                                leapfrog_steps=6, step_size=0.3))
+    elif case in ("ti_linear", "ti_quadratic"):
+        d = 2 if case == "ti_linear" else 3
+        data, _, log_lik, log_prior, exact = example_problem(torch, d, device)
+        r = run_ti(seed, log_prior, log_lik, torch.zeros(d, device=device), TIConfig(
+            num_samples=EVIDENCE_DRAWS, num_steps_per_sample=8, step_size=0.3, num_temps=12,
+            burn=EVIDENCE_BURN), data=data)
+    elif case == "smc_quadratic":
+        data, _, log_lik, log_prior, exact = example_problem(torch, 3, device)
+        r = run_smc(seed, log_prior, log_lik, prior_normal(torch, 3, device), SMCConfig(
+            num_particles=2048, num_temps=20, mcmc_steps=4, leapfrog_steps=8,
+            step_size=SMC_STEP), data=data)
+    else:
+        raise ValueError(f"unknown evidence case {case!r}; cases: {', '.join(EVIDENCE_CASES)}")
+    return float(r.log_evidence), exact, r
+
+
+def evidence_path(torch, device, card):
+    """Thermodynamic integration and tempered SMC (no kernel of their own):
+    the configuration of ``examples/model_comparison_example.py`` rebuilt
+    here and ``tests/test_ti.py:309-325``'s regression through
+    ``define_model_prior_and_lik``, each against its analytic conjugate
+    log Z; the 784-128-1 tanh ``nn.Sequential`` at the flagship's data
+    shapes; float64 card against CPU on injected noise;
+    ``run_ti_checkpointed`` stopped and resumed."""
+    import dataclasses
+    import math
+    import tempfile
+
+    from torch import nn
+
+    from hamiltorch_tpu_torch import (
+        SMCConfig,
+        TIConfig,
+        pointwise_log_lik,
+        psis_loo,
+        run_smc,
+        run_ti,
+        waic,
+    )
+    from hamiltorch_tpu_torch import checkpoint as ck
+    from hamiltorch_tpu_torch.models.bnn import define_model_prior_and_lik
+
+    # 1. the model comparison: TI on the linear and the quadratic model,
+    # WAIC and PSIS-LOO of the beta=1 rung
+    found = {}
+    for seed, case in enumerate(("ti_linear", "ti_quadratic"), start=40):
+        name = case[3:]
+        t0 = time.perf_counter()
+        lz, exact, r = evidence_case(torch, case, seed, device)
+        wall = time.perf_counter() - t0
+        data, pointwise, *_ = example_problem(torch, 2 if name == "linear" else 3, device)
+        ll_mat = pointwise_log_lik(pointwise, r.samples, data=data)
+        w, loo = waic(ll_mat), psis_loo(ll_mat)
+        found[name] = lz, exact
+        print(f"evidence: {name} TI ({EVIDENCE_DRAWS} draws, 12 rungs, burn {EVIDENCE_BURN}, "
+              f"L=8, step 0.3) in {wall:.1f} s ({EVIDENCE_DRAWS / wall:,.1f} draws/s): log Z "
+              f"stepping stone {lz:.4f}, corrected trapezoid {float(r.log_evidence_ti):.4f}, plain "
+              f"{float(r.log_evidence_ti_plain):.4f}; analytic {exact:.4f} (tolerance "
+              f"{EXAMPLE_TOL}); swap rate {float(r.info.swap_accept.float().mean()):.3f}; beta=1 "
+              f"rung on {ll_mat.device}: waic elpd {w.elpd:.3f}, psis-loo elpd {loo.elpd:.3f} "
+              f"(max pareto k {float(loo.pareto_k.max()):.3f})")
+        if not (abs(lz - exact) <= EXAMPLE_TOL and ll_mat.device == device
+                and math.isfinite(w.elpd) and math.isfinite(loo.elpd)):
+            raise SmokeError(f"TI {name}: log Z {lz} vs {exact}, waic {w.elpd}, loo {loo.elpd}")
+    if not found["quadratic"][0] > found["linear"][0]:
+        raise SmokeError(f"the quadratic model does not win: {found}")
+    t0 = time.perf_counter()
+    runs = [evidence_case(torch, "smc_quadratic", seed, device)
+            for seed in range(42, 42 + SMC_RUNS)]
+    each = [lz for lz, *_ in runs]
+    lz_smc = statistics.median(each)
+    ti_quad, exact = found["quadratic"]
+    first = runs[0][2]
+    print(f"evidence: quadratic SMC (2048 particles, 20 stages, 4 mutations, L=8, step "
+          f"{SMC_STEP}), {SMC_RUNS} runs in {time.perf_counter() - t0:.1f} s: log Z "
+          f"{[round(v, 4) for v in each]}, median {lz_smc:.4f} (analytic {exact:.4f}, tolerance "
+          f"0.2; TI {ti_quad:.4f}, tolerance {EXAMPLE_TOL}); resampled {int(first.info.resampled.sum())} "
+          f"of 20 stages; mean accept_prob {float(first.info.accept_prob.mean()):.3f}; log Bayes "
+          f"factor quadratic vs linear (TI) {ti_quad - found['linear'][0]:.2f}")
+    if not (abs(lz_smc - exact) <= 0.2 and abs(lz_smc - ti_quad) <= EXAMPLE_TOL):
+        raise SmokeError(f"SMC quadratic: log Z {lz_smc} vs {exact} and TI {ti_quad}")
+
+    # the gates of tests/test_ti.py:309-325 at that test's settings: the
+    # regression through define_model_prior_and_lik, TI within 0.15 and SMC
+    # within 0.2 of the analytic log Z
+    t0 = time.perf_counter()
+    lz_ti, exact, _ = evidence_case(torch, "ti_linreg", 48, device)
+    wall_ti = time.perf_counter() - t0
+    lz_sm, _, _ = evidence_case(torch, "smc_linreg", 49, device)
+    print(f"evidence: tests/test_ti.py:309-325's regression (nn.Linear(1, 1), 24 points) TI "
+          f"({LINREG_TI_DRAWS} draws, 12 rungs, burn {LINREG_TI_BURN}, L=6, step 0.3) in "
+          f"{wall_ti:.1f} s, SMC (1024 particles, 20 stages, 4 mutations, L=6) in "
+          f"{time.perf_counter() - t0 - wall_ti:.1f} s: TI {lz_ti:.4f}, SMC {lz_sm:.4f}, "
+          f"analytic {exact:.4f} (TI within 0.15, SMC within 0.2)")
+    if not (abs(lz_ti - exact) < 0.15 and abs(lz_sm - exact) < 0.2):
+        raise SmokeError(f"TI/SMC regression: TI {lz_ti}, SMC {lz_sm}, analytic {exact}")
+
+    # 2. full width: the 784-128-1 tanh nn.Sequential on the flagship's data
+    # shapes (N = 1024), the tree path through functional_call
+    n, i_dim, h = FLAGSHIP["n"], FLAGSHIP["i"], FLAGSHIP["h"]
+    x, y, *_ = bnn_inputs(torch, n, i_dim, h, 1, seed=41, device=device)
+    torch.manual_seed(41)
+    net = nn.Sequential(nn.Linear(i_dim, h), nn.Tanh(), nn.Linear(h, 1))
+    lprior, llik, psample, template = define_model_prior_and_lik(
+        net, "regression", x, y, tau_list=1.0, tau_out=10.0, device=device)
+    width = sum(t.numel() for t in template)
+    cfg_w = TIConfig(num_samples=WIDE_TI_DRAWS, num_steps_per_sample=10, step_size=1e-3,
+                     num_temps=16, burn=WIDE_TI_BURN)
+    run_ti(43, lprior, llik, template, TIConfig(num_samples=2, num_steps_per_sample=2,
+                                                step_size=1e-3, num_temps=16, burn=1))  # untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rw = run_ti(44, lprior, llik, template, cfg_w)
+    torch.cuda.synchronize()
+    wall_ti = time.perf_counter() - t0
+    grads = 16 * 11 * WIDE_TI_DRAWS  # L + 1 evaluations a draw: the draw's refresh
+    t0 = time.perf_counter()
+    sw = run_smc(45, lprior, llik, psample,
+                 SMCConfig(num_particles=64, num_temps=10, mcmc_steps=2, leapfrog_steps=10,
+                           step_size=1e-3))
+    torch.cuda.synchronize()
+    wall_smc = time.perf_counter() - t0
+    ti_vals = [float(rw.log_evidence), float(rw.log_evidence_ti), float(rw.log_evidence_ti_plain)]
+    acc_ti, acc_smc = rw.info.accept_prob.float(), sw.info.accept_prob.float()
+    ess = sw.info.ess_fraction.float()
+    print(f"evidence: 784-128-1 tanh nn.Sequential ({width:,} parameters, N={n}) TI 16 rungs x "
+          f"{WIDE_TI_DRAWS} draws (burn {WIDE_TI_BURN}, L=10) {wall_ti:.2f} s = "
+          f"{grads / wall_ti:,.1f} grad-steps/s (L + 1 gradients a draw); log Z "
+          f"{[round(v, 2) for v in ti_vals]}; accept_prob per rung min/max "
+          f"{float(acc_ti.mean(0).min()):.3f}/{float(acc_ti.mean(0).max()):.3f}; SMC 64 "
+          f"particles x 10 stages x 2 mutations (L <= 10) {wall_smc:.2f} s: log Z "
+          f"{float(sw.log_evidence):.2f}, ESS fractions min {float(ess.min()):.4f}, "
+          f"accept_prob {[round(float(a), 3) for a in acc_smc]} [{card}]")
+    ok = (all(math.isfinite(v) for v in ti_vals + [float(sw.log_evidence)])
+          and bool(((acc_ti >= 0) & (acc_ti <= 1)).all())
+          and bool(((acc_smc >= 0) & (acc_smc <= 1)).all())
+          and bool(((ess > 0) & (ess <= 1)).all()))
+    if not ok:
+        raise SmokeError(f"full-width evidence: TI {ti_vals}, SMC {float(sw.log_evidence)}, "
+                         f"ESS {ess.tolist()}")
+
+    # 3. float64 card against CPU on the same injected noise: TI (5 rungs,
+    # dual averaging across burn 20) and SMC (64 particles, trajectory
+    # adaptation, resampling below ESS 0.8) on a 3-D ripple target
+    gen = torch.Generator().manual_seed(46)
+    f64 = dict(generator=gen, dtype=torch.float64)
+    ti_noise = {"z": torch.randn(40, 5, 3, **f64), "u_mh": torch.rand(40, 5, **f64),
+                "u_swap": torch.rand(40, 5, **f64)}
+    smc_noise = {"z": torch.randn(8, 3, 64, 3, **f64), "jit": torch.rand(8, 3, **f64),
+                 "u_mh": torch.rand(8, 3, 64, **f64), "u_res": torch.rand(8, **f64)}
+    block = torch.randn(64, 3, **f64)
+
+    def ripple(t):
+        return -2.0 * torch.sum((t - 0.4) ** 2) + 0.3 * torch.sum(torch.cos(3.0 * t))
+
+    def prior64(t):
+        return -0.5 * torch.sum(t ** 2)
+
+    def run64(dev):
+        ti = run_ti(0, prior64, ripple, torch.zeros(3, dtype=torch.float64, device=dev),
+                    TIConfig(num_samples=40, num_steps_per_sample=4, step_size=0.3, num_temps=5,
+                             schedule_power=2.0, burn=20, desired_accept_rate=0.95),
+                    _noise={k: v.to(dev) for k, v in ti_noise.items()})
+        sm = run_smc(0, prior64, ripple, lambda seed, n_: block.to(dev),
+                     SMCConfig(num_particles=64, num_temps=8, mcmc_steps=3, leapfrog_steps=6,
+                               step_size=0.3, resample_threshold=0.8, adapt_trajectory=True),
+                     _noise={k: v.to(dev) for k, v in smc_noise.items()})
+        return ti, sm
+
+    (ti_c, sm_c), (ti_h, sm_h) = run64(device), run64("cpu")
+
+    def moved(s):
+        return (s[1:] != s[:-1]).any(dim=-1)
+
+    same_ti = torch.equal(ti_c.info.swap_accept.cpu(), ti_h.info.swap_accept) and torch.equal(
+        moved(ti_c.samples.cpu()), moved(ti_h.samples))
+    err_ti = float((ti_c.samples.cpu() - ti_h.samples).abs().max()) / float(
+        ti_h.samples.abs().max())
+    same_res = torch.equal(sm_c.info.resampled.cpu(), sm_h.info.resampled)
+    # a different resample index moves a particle by O(1)
+    err_smc = float((sm_c.particles.cpu() - sm_h.particles).abs().max()) / float(
+        sm_h.particles.abs().max())
+    err_z = abs(float(sm_c.log_evidence) - float(sm_h.log_evidence)) / abs(float(
+        sm_h.log_evidence))
+    print(f"evidence: float64 card vs CPU on the same noise: TI swaps and accepts identical "
+          f"{same_ti}, positions {err_ti:.3e} of max |theta|; SMC resample decisions identical "
+          f"{same_res} ({int(sm_h.info.resampled.sum())} of 8 stages), particles {err_smc:.3e} of "
+          f"max |theta|, log Z {err_z:.3e} relative")
+    if not (same_ti and err_ti <= 1e-8 and same_res and err_smc <= 1e-8 and err_z <= 1e-8):
+        raise SmokeError(f"TI/SMC card vs CPU: TI {same_ti} {err_ti:.3e}, SMC {same_res} "
+                         f"{err_smc:.3e} {err_z:.3e}")
+
+    # 4. run_ti_checkpointed on the quadratic model, stopped at 30 draws and
+    # resumed to 60 in chunks of 10 (a boundary at burn 20)
+    ck_cfg = TIConfig(num_samples=60, num_steps_per_sample=8, step_size=0.3, num_temps=12,
+                      burn=20)
+    data, _, log_lik, log_prior, _ = example_problem(torch, 3, device)
+    want = run_ti(47, log_prior, log_lik, torch.zeros(3, device=device), ck_cfg, data=data)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        ck.run_ti_checkpointed(47, log_prior, log_lik, torch.zeros(3, device=device),
+                               dataclasses.replace(ck_cfg, num_samples=30), tmp,
+                               chunk_size=10, data=data)
+        got = ck.run_ti_checkpointed(47, log_prior, log_lik, torch.zeros(3, device=device), ck_cfg,
+                                     tmp, chunk_size=10, data=data)
+    same = same_tensors(torch, tuple(got), tuple(want))
+    print(f"evidence: run_ti_checkpointed (stopped at 30, chunks of 10, burn 20) identical {same}")
+    if not same:
+        raise SmokeError("TI: the checkpointed run is not the straight run")
+
+
 def tiny_card_vs_cpu(torch, device):
     """The port's tensor path is the same on the card as on the CPU."""
     from hamiltorch_tpu_torch import MCMCConfig, run_hmc_chains
@@ -2096,6 +2610,64 @@ def tiny_card_vs_cpu(torch, device):
     print(f"run_hmc_chains tiny flagship, card vs CPU: max_abs_err {path_err:.3e}")
     if not path_err <= ATOL:
         raise SmokeError(f"run_hmc_chains on the card disagrees with the CPU: {path_err:.3e}")
+
+
+def _spread_run(case, seed):
+    """One seed of ``evidence_spread`` in a worker process: ``(log Z,
+    analytic log Z, seconds)``."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    t0 = time.perf_counter()
+    est, exact, _ = evidence_case(torch, case, seed, torch.device("cuda:0"))
+    return est, exact, time.perf_counter() - t0
+
+
+def evidence_spread(argv) -> int:
+    """``python3 chip_smoke.py --evidence-spread CASE [SEED ...]``: the
+    seed-to-seed spread on the card of one of the ``evidence`` phase's
+    statistical runs (``EVIDENCE_CASES``, at the phase's settings), against
+    which its gates are set.  The seeds run in one process a CPU core (the
+    runs are host-bound).  Each seed's error against the analytic log Z is
+    printed, then their mean, standard deviation and largest |error|, and
+    for an SMC case the same of the medians of consecutive groups of
+    ``SMC_RUNS`` seeds (the phase gates such a median).  Seeds 1-16 by
+    default."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    if not argv or argv[0] not in EVIDENCE_CASES:
+        print(f"usage: chip_smoke.py --evidence-spread {{{','.join(EVIDENCE_CASES)}}} [SEED ...]",
+              file=sys.stderr)
+        return 2
+    if not (REPO / "hamiltorch_tpu_torch").is_dir() or not torch.cuda.is_available():
+        print("--evidence-spread runs on a GPU from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    case, seeds = argv[0], [int(s) for s in argv[1:]] or list(range(1, 17))
+    workers = min(len(seeds), os.cpu_count() or 1)
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        runs = list(pool.map(_spread_run, [case] * len(seeds), seeds))
+    errs = []
+    for seed, (est, exact, sec) in zip(seeds, runs):
+        errs.append(est - exact)
+        print(f"{case} seed {seed}: log Z {est:.4f}, analytic {exact:.4f}, error "
+              f"{est - exact:+.4f} ({sec:.1f} s beside {workers - 1} other processes)")
+
+    def stats(v):
+        sd = statistics.stdev(v) if len(v) > 1 else float("nan")
+        return (f"mean error {statistics.fmean(v):+.4f}, sd {sd:.4f}, max |error| "
+                f"{max(map(abs, v)):.4f}")
+
+    print(f"{case} on the card [{card_line()}]: {len(errs)} seeds, {stats(errs)}")
+    if case.startswith("smc") and len(errs) >= SMC_RUNS:
+        meds = [statistics.median(errs[i:i + SMC_RUNS])
+                for i in range(0, len(errs) - SMC_RUNS + 1, SMC_RUNS)]
+        print(f"{case}: medians of {SMC_RUNS} consecutive seeds, {len(meds)} groups, "
+              f"{stats(meds)}")
+    return 0
 
 
 def main() -> int:
@@ -2238,11 +2810,12 @@ def main() -> int:
     bnn_model_path(torch, device, card)
     print(f"bnn_model phase: {time.perf_counter() - t_model:.1f} s, kernel launches "
           f"{ {kernel.__name__: kernel.launches for kernel in kernel_fns} }")
-    # tree-doubling NUTS, checkpoint/resume, RMHMC, split HMC, ChEES and
-    # SG-MCMC: no kernel of the port on them
+    # tree-doubling NUTS, checkpoint/resume, RMHMC, split HMC, ChEES,
+    # SG-MCMC, parallel tempering, TI and SMC: no kernel of the port on them
     for phase, fn in (("nuts", nuts_path), ("checkpoint", checkpoint_path),
                       ("rmhmc", rmhmc_path), ("split", split_path), ("chees", chees_path),
-                      ("sgmcmc", sgmcmc_path)):
+                      ("sgmcmc", sgmcmc_path), ("tempering", tempering_path),
+                      ("evidence", evidence_path)):
         for kernel in kernel_fns:
             kernel.launches = 0
         t_phase = time.perf_counter()
@@ -2272,4 +2845,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--evidence-spread"]:
+        sys.exit(evidence_spread(sys.argv[2:]))
     sys.exit(main())

@@ -19,8 +19,11 @@ symmetric-split minibatch HMC (``samplers.run_split_hmc``,
 ``run_split_hmc_host_offload``; ``sample_split_model``); ChEES-HMC
 (``run_chees``); stochastic-gradient MCMC (``run_sgld``, ``run_sghmc``,
 their ``_chains`` forms, cyclical ``run_csgmcmc`` / ``run_csgmcmc_chains``);
-checkpoint/resume for HMC, NUTS, MCLMC, MAMS, RMHMC, split HMC, ChEES, SGLD
-and SGHMC (``checkpoint``); MCLMC
+parallel tempering (``run_parallel_tempering``, ``run_pt_chains``) and the
+evidence estimators, thermodynamic integration (``run_ti``) and tempered
+SMC (``run_smc``, ``smc_posterior_sample``); checkpoint/resume for HMC,
+NUTS, MCLMC, MAMS, RMHMC, split HMC, ChEES, SGLD, SGHMC, PT and TI
+(``checkpoint``); MCLMC
 (``run_mclmc``, ``run_mclmc_chains``); MAMS
 (``run_mams``, ``run_mams_chains``); the diagnostics (``diagnostics``:
 ESS, R-hat, ``summary``); model comparison (``waic``, ``psis_loo``,
@@ -31,7 +34,7 @@ ESS, R-hat, ``summary``); model comparison (``waic``, ``psis_loo``,
 CUDA kernels for Hopper.  ROADMAP.md lists what is still to port.
 """
 
-__version__ = "0.8.0"
+__version__ = "0.9.0"
 
 from . import util
 from .api import sample
@@ -50,6 +53,9 @@ from .samplers.mams import MAMSConfig, MAMSResult, run_mams, run_mams_chains
 from .samplers.mclmc import MCLMCConfig, MCLMCResult, run_mclmc, run_mclmc_chains
 from .samplers.nuts import NUTSConfig, run_nuts, run_nuts_chains, run_nuts_ensemble
 from .samplers.rmhmc import run_rmhmc, run_rmhmc_chains
+from .samplers.smc import SMCConfig, run_smc, smc_posterior_sample
+from .samplers.tempering import PTConfig, run_parallel_tempering, run_pt_chains
+from .samplers.ti import TIConfig, run_ti
 from .samplers.sgmcmc import (
     CSGMCMCConfig,
     SGHMCConfig,
@@ -86,6 +92,12 @@ __all__ = [
     "ChEESConfig",
     "ChEESResult",
     "run_chees",
+    "PTConfig",
+    "run_parallel_tempering",
+    "run_pt_chains",
+    "SMCConfig",
+    "run_smc",
+    "smc_posterior_sample",
     "MCMCConfig",
     "MCMCResult",
     "MCMCStats",
@@ -97,6 +109,8 @@ __all__ = [
     "MAMSResult",
     "run_mams",
     "run_mams_chains",
+    "TIConfig",
+    "run_ti",
     "waic",
     "psis_loo",
     "compare",

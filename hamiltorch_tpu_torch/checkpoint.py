@@ -6,16 +6,18 @@ has: single-chain and batched HMC (``run_hmc_checkpointed``,
 (``run_nuts_checkpointed``) and its pooled ensemble
 (``run_nuts_ensemble_checkpointed``), MCLMC (``run_mclmc_checkpointed``),
 MAMS (``run_mams_checkpointed``), RMHMC (``run_rmhmc_checkpointed``),
-split HMC (``run_split_hmc_checkpointed``), ChEES (``run_chees_checkpointed``)
-and SG-MCMC (``run_sgld_checkpointed``, ``run_sghmc_checkpointed``).
+split HMC (``run_split_hmc_checkpointed``), ChEES (``run_chees_checkpointed``),
+SG-MCMC (``run_sgld_checkpointed``, ``run_sghmc_checkpointed``), parallel
+tempering (``run_pt_checkpointed``, one ladder or ensembles) and
+thermodynamic integration (``run_ti_checkpointed``).
 Sampling proceeds in chunks; after every chunk its trace goes to
 ``chunk_XXXXXXXX.npz`` and the whole resume carry (chain state with its
 cached potential evaluation, dual averaging, the windowed-warmup carry where
 there is one, MCLMC's tuned (eps, L) and velocity, ChEES's trajectory
-adaptation, SGHMC's momentum or pSGLD's accumulator) to ``state.npz``,
-written atomically, with the integer seed and the draw counter.  Calling
-again with the same arguments continues where the last completed chunk
-stopped.
+adaptation, SGHMC's momentum or pSGLD's accumulator, PT's ladder) to
+``state.npz``, written atomically, with the integer seed and the draw
+counter.  Calling again with the same arguments continues where the last
+completed chunk stopped.
 
 Every draw's noise is keyed on (seed, chain, global draw index)
 (``utils/rng.py``) and the port runs eagerly, so a resumed or chunked run
@@ -925,3 +927,136 @@ def _run_sgmcmc_checkpointed(which, key, term_fn, num_terms, theta0, config, ckp
         final_aux=_first(carry[1]),
         final_step=torch.tensor(config.num_samples, dtype=torch.int32, device=device),
     )
+
+
+def run_pt_checkpointed(
+    key: int,
+    log_prob_fn,
+    theta0,
+    config,  # PTConfig
+    ckpt_dir: str,
+    chunk_size: int = 100,
+    inv_mass=None,
+    resume: bool = True,
+    num_ensembles=None,
+    theta0_is_stacked: bool | None = None,
+    mesh=None,
+):
+    """Parallel tempering with per-chunk checkpointing of the whole ladder
+    carry (replica positions with their cached potential evaluations, the
+    log temperature gaps, the swap-rate EMA and the per-slot dual
+    averaging).  The global draw index keys the noise and the even/odd swap
+    parity, so the result is ``run_parallel_tempering``'s (or, with
+    ``num_ensembles``, ``run_pt_chains``'s) bit for bit at any chunking.
+    ``mesh=`` (the sharded ensembles) is not ported and raises.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the sharded PT ensembles) is not ported to hamiltorch_tpu_torch; "
+            "see ROADMAP.md, queue 1 item 15"
+        )
+    from .ops.potential import resolve_potential
+    from .samplers.tempering import (
+        PTCarry,
+        _pt_ensemble_stack,
+        _run_pt,
+        assemble_pt_ensemble_result,
+        assemble_pt_result,
+        init_pt_carry,
+        prepare_pt,
+    )
+
+    if num_ensembles is None:
+        theta0s, mass = prepare_pt(theta0, config, inv_mass, theta0_is_stacked)
+    else:
+        theta0s, mass = _pt_ensemble_stack(theta0, config, num_ensembles, inv_mass)
+    # no burn < num_samples guard: an interrupted run may stop inside the
+    # burn window; burn slicing happens at assembly
+    lp = resolve_potential(log_prob_fn, None)
+
+    # the state file holds the dual-averaging state as a tuple of tensors
+    def stored(carry):
+        return carry._replace(da=_da_tuple(carry.da))
+
+    def restored(carry):
+        return PTCarry(*carry[:5], da=_da_of(carry.da))
+
+    leaf = tree_leaves(theta0s)[0]
+    lead = tuple(leaf.shape[:1 if num_ensembles is None else 2])
+    zeros = leaf.new_zeros(lead[:-1] + (config.num_temps,))
+    gaps = leaf.new_zeros(lead[:-1] + (config.num_temps - 1,))
+    template = PTCarry(theta0s, zeros, tree_map(torch.zeros_like, theta0s), gaps, gaps,
+                       (zeros,) * 4)
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        traj, alphas, swaps, carry_f = _run_pt(seed, theta0s, lp, cfg, mass,
+                                               init_carry=restored(carry), start_iter=n_done,
+                                               ensembles=num_ensembles)
+        return (traj, alphas, swaps), stored(carry_f)
+
+    def save_chunk(result):
+        traj, alphas, swaps = result
+        return {"traj": traj, "alphas": alphas, "swaps": swaps}
+
+    zs, carry = _checkpoint_loop(
+        chunk_runner, key, template,
+        lambda: stored(init_pt_carry(lp, theta0s, config, num_ensembles)), config, ckpt_dir,
+        chunk_size, resume, _fingerprint(config, theta0s, extra=num_ensembles), save_chunk)
+    carry = restored(carry)
+    axis = 0 if num_ensembles is None else 1
+    kept = config.num_samples  # burn slicing happens at assembly
+    traj = _cat(zs, "traj", axis, kept, leaf.device, like=theta0s)
+    alphas = _cat(zs, "alphas", axis, kept, leaf.device)
+    swaps = _cat(zs, "swaps", axis, kept, leaf.device)
+    assemble = assemble_pt_result if num_ensembles is None else assemble_pt_ensemble_result
+    return assemble(traj, alphas, swaps, carry, config)
+
+
+def run_ti_checkpointed(
+    key: int,
+    log_prior_fn: Callable,
+    log_lik_fn: Callable,
+    theta0,
+    config,  # TIConfig
+    ckpt_dir: str,
+    chunk_size: int = 500,
+    data=None,
+    resume: bool = True,
+):
+    """Thermodynamic integration (``run_ti``) with per-chunk checkpointing.
+
+    The rung states and the per-rung dual-averaging state are in the state
+    file; the global draw index keys the noise and the swap parity, so the
+    assembled result (the evidence estimators run once, over the joined
+    post-burn log-likelihood trace) is ``run_ti``'s with the same key, bit
+    for bit, and an interrupted run resumes exactly.  A directory left by a
+    longer completed run gives exactly the requested draws.  A bfloat16
+    state keeps its dtype on disk.
+    """
+    from .ops.potential import resolve_potential
+    from .samplers.ti import _run_ti, assemble_ti_result, init_ti_da, stack_ti_rungs, ti_ladder
+
+    if config.burn >= config.num_samples:
+        raise RuntimeError("burn must be less than num_samples.")
+    theta0s = stack_ti_rungs(theta0, config)
+    lik = resolve_potential(log_lik_fn, None)
+    leaf = tree_leaves(theta0s)[0]
+    k, dtype, device = leaf.shape[0], leaf.dtype, leaf.device
+    carry0 = (theta0s, _da_tuple(init_ti_da(config, k, dtype, device)))
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        out = _run_ti(seed, carry[0], log_prior_fn, lik, cfg, data=data,
+                      init_da=_da_of(carry[1]), start_iter=n_done)
+        return out, (out[6], _da_tuple(out[7]))
+
+    def save_chunk(out):
+        return {"cold": out[0], "llik": out[1], "alphas": out[2], "swaps": out[3]}
+
+    zs, carry = _checkpoint_loop(chunk_runner, key, carry0, lambda: carry0, config, ckpt_dir,
+                                 chunk_size, resume, _fingerprint(config, theta0s), save_chunk)
+    kept = config.num_samples
+    cold = _cat(zs, "cold", 0, kept, device, like=tree_map(lambda t: t[0], theta0s))
+    out = (cold, _cat(zs, "llik", 0, kept, device), _cat(zs, "alphas", 0, kept, device),
+           _cat(zs, "swaps", 0, kept, device), ti_ladder(k, config.schedule_power, dtype, device),
+           _da_of(carry[1]).step_size)
+    return assemble_ti_result(out, config)

@@ -280,10 +280,16 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
       length, shared by the chains, broadcast to (C, N);
     - ``SGMCMCResult`` / ``CSGMCMCResult`` (``run_sgld*``, ``run_sghmc*``,
       ``run_csgmcmc*``): divergences, step size and gradient-estimate norm,
-      and for the cyclical samplers each snapshot's cycle.
+      and for the cyclical samplers each snapshot's cycle;
+    - ``PTResult`` (``run_parallel_tempering``, ``run_pt_chains``): the
+      cold chain and its acceptance, chains first for ensembles;
+    - ``TIResult`` (``run_ti``): the beta=1 rung as one chain, its
+      acceptance and the last pair's swap outcomes;
+    - ``SMCResult`` (``run_smc``): the final particles as one chain of N
+      draws, with their normalised log-weights.
 
-    Other families (tempering, SMC, ...) are not ported yet and raise
-    ``NotImplementedError``.  ``like`` is accepted for symmetry with
+    Other families (Barker, stretch, elliptical, ...) are not ported yet
+    and raise ``NotImplementedError``.  ``like`` is accepted for symmetry with
     ``summary``: the stats' shapes give the chain and draw axes.
     """
     del like
@@ -292,6 +298,9 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
         arr = _np(x)
         return arr if chains_first else arr[None]
 
+    if hasattr(result, "log_weights"):  # SMCResult (weighted particles)
+        return {"posterior": _posterior_vars(result.particles, chains_first=False),
+                "sample_stats": {"log_weight": cn(result.log_weights, False)}}
     # run_nuts / run_nuts_chains / run_nuts_ensemble return (result, info)
     if not hasattr(result, "samples") and isinstance(result, tuple) and len(result) == 2:
         result, info = result
@@ -300,9 +309,22 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
             "to_inference_dict takes the results of the samplers ported to "
             "hamiltorch_tpu_torch (MCMCResult, with a NUTSInfo for NUTS, "
             "MCLMCResult, MAMSResult, ChEESResult, SGMCMCResult, "
-            "CSGMCMCResult); the other families are not ported yet, see "
-            "ROADMAP.md"
+            "CSGMCMCResult, PTResult, TIResult, SMCResult); the other "
+            "families are not ported yet, see ROADMAP.md"
         )
+    if hasattr(result, "loglik_draws"):  # TIResult
+        acc = _np(result.info.accept_prob)
+        # the kept samples are the beta=1 (last) rung's
+        return {"posterior": _posterior_vars(result.samples, chains_first=False),
+                "sample_stats": {"acceptance_rate": acc[None, :, -1],
+                                 "swap_accepted": _np(result.info.swap_accept)[None, :, -1]}}
+    if hasattr(result, "replica_samples"):  # PTResult
+        acc = _np(result.info.accept_prob)
+        ensemble = acc.ndim == 3  # (E, N, K) from run_pt_chains
+        post = _posterior_vars(result.samples, chains_first=ensemble)
+        n_kept = next(iter(post.values())).shape[1]
+        return {"posterior": post, "sample_stats": {
+            "acceptance_rate": cn(acc[..., -n_kept:, 0], ensemble)}}
     if hasattr(result, "final_trajectory_length"):  # ChEESResult
         info = result.info
         post = _posterior_vars(result.samples, chains_first=True)
@@ -365,7 +387,8 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
         }}
     raise NotImplementedError(
         f"to_inference_dict: {type(result).__name__} is not a result of a sampler "
-        "ported to hamiltorch_tpu_torch yet; see ROADMAP.md"
+        "ported to hamiltorch_tpu_torch yet (Barker, stretch and elliptical are "
+        "still to come); see ROADMAP.md"
     )
 
 

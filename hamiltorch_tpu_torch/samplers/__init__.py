@@ -16,7 +16,10 @@ from .sgmcmc import (
     run_sgld,
     run_sgld_chains,
 )
+from .smc import SMCConfig, SMCResult, run_smc, smc_posterior_sample
 from .splitting import run_split_hmc, run_split_hmc_chains, run_split_hmc_stacked
+from .tempering import PTConfig, PTResult, run_parallel_tempering, run_pt_chains
+from .ti import TIConfig, TIResult, evidence_from_loglik_draws, run_ti
 
 # the JAX package's list (hamiltorch_tpu/samplers/__init__.py), in its order,
 # for the samplers ported so far
@@ -46,6 +49,14 @@ __all__ = [
     "run_nuts_host_offload",
     "run_rmhmc_host_offload",
     "run_split_hmc_host_offload",
+    "PTConfig",
+    "PTResult",
+    "run_parallel_tempering",
+    "run_pt_chains",
+    "SMCConfig",
+    "SMCResult",
+    "run_smc",
+    "smc_posterior_sample",
     "MCLMCConfig",
     "MCLMCResult",
     "MCLMCStats",
@@ -56,6 +67,10 @@ __all__ = [
     "MAMSStats",
     "run_mams",
     "run_mams_chains",
+    "TIConfig",
+    "TIResult",
+    "run_ti",
+    "evidence_from_loglik_draws",
     "SGLDConfig",
     "SGHMCConfig",
     "SGMCMCResult",

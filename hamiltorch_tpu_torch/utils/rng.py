@@ -31,6 +31,16 @@ _MASK64 = (1 << 64) - 1
 # the seed of ChEES's start spread; SG_STREAM the SG-MCMC normals, one
 # generator a thinning window keyed on the window's first step, and
 # SG_INDEX_STREAM the SG-MCMC minibatch indices, one hash a step.
+# PT_STREAM and TI_STREAM hold a replica ladder's noise: at global draw n
+# ONE generator a ladder, seeded by draw_seed(key, ladder, stream + n),
+# draws the momenta, the Metropolis uniforms and the swap uniforms of every
+# replica of the ladder (``draw_ladder_noise``; the ladder index is the
+# ensemble of ``run_pt_chains``, 0 otherwise).  SMC_STREAM holds tempered
+# SMC's: stage k's device noise (resample uniform, momenta, Metropolis
+# uniforms of every mutation) from draw_seed(key, 0, SMC_STREAM + k), its
+# trajectory jitter on the host from draw_seed(key, 1, SMC_STREAM + k), the
+# prior draw's seed draw_seed(key, 2, SMC_STREAM) and the uniform of
+# ``smc_posterior_sample`` from draw_seed(key, 3, SMC_STREAM).
 MAMS_STREAM = 2**40
 NUTS_STREAM = 2**41
 AUX_STREAM = 2**42
@@ -38,6 +48,9 @@ CHEES_JITTER_STREAM = 2**43
 SG_STREAM = 2**44
 SG_INDEX_STREAM = 2**45
 SPREAD_STREAM = 2**46
+PT_STREAM = 2**47
+TI_STREAM = 2**48
+SMC_STREAM = 2**49
 
 _global_gen: torch.Generator | None = None
 
@@ -201,3 +214,45 @@ def draw_sg_window(key: int, first_step: int, leaves: list, steps: int,
             if extra:
                 buf[c].normal_(generator=gen)
     return z, fresh
+
+
+def draw_ladder_noise(key: int, n: int, ladder: int, lanes: int, dim: int, stream: int,
+                      dtype=torch.float32, device=None) -> tuple:
+    """One draw of a replica ladder at global draw ``n``: ``(z, u_mh,
+    u_swap)``, a (lanes, dim) standard normal for the momenta and (lanes,)
+    uniforms for the Metropolis tests and the swaps, all from ONE generator
+    on ``device`` seeded by ``draw_seed(key, ladder, stream + n)``
+    (``stream`` is ``PT_STREAM`` or ``TI_STREAM``)."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(draw_seed(key, ladder, stream + n))
+    z = torch.empty((lanes, dim), dtype=dtype, device=device).normal_(generator=gen)
+    u = torch.empty((2, lanes), dtype=dtype, device=device).uniform_(generator=gen)
+    return z, u[0], u[1]
+
+
+def draw_smc_stage_noise(key: int, stage: int, steps: int, n: int, dim: int,
+                         dtype=torch.float32, device=None) -> dict:
+    """The device noise of SMC stage ``stage``: ``u_res`` (the systematic
+    resample's uniform, 0-d), ``z`` (steps, n, dim) momentum normals and
+    ``u_mh`` (steps, n) Metropolis uniforms, from one generator on
+    ``device`` seeded by ``draw_seed(key, 0, SMC_STREAM + stage)``; and
+    ``jit``, the ``steps`` trajectory jitters of the stage as host float64
+    values from a CPU generator seeded by ``draw_seed(key, 1, SMC_STREAM +
+    stage)`` (a trajectory length needs no device read)."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(draw_seed(key, 0, SMC_STREAM + stage))
+    u = torch.empty((1 + steps * n,), dtype=dtype, device=device).uniform_(generator=gen)
+    z = torch.empty((steps, n, dim), dtype=dtype, device=device).normal_(generator=gen)
+    host = torch.Generator().manual_seed(draw_seed(key, 1, SMC_STREAM + stage))
+    jit = torch.rand((steps,), generator=host, dtype=torch.float64).tolist()
+    return {"u_res": u[0], "z": z, "u_mh": u[1:].reshape(steps, n), "jit": jit}
+
+
+def draw_smc_posterior_uniform(key: int) -> float:
+    """The uniform of ``smc_posterior_sample``'s systematic resample, a host
+    float64 value from a CPU generator seeded by ``draw_seed(key, 3,
+    SMC_STREAM)``."""
+    gen = torch.Generator().manual_seed(draw_seed(key, 3, SMC_STREAM))
+    return float(torch.rand((), generator=gen, dtype=torch.float64))

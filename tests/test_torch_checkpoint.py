@@ -440,3 +440,114 @@ def test_sgmcmc_refuses_a_changed_option_and_keeps_bfloat16(name, tmp_path):
                  inv_mass=pre)
     assert tree_leaves(got.samples)[0].dtype == torch.bfloat16
     assert_same(got, run(5, sg_term, SG_TERMS, bf, cfg(12), inv_mass=pre))
+
+
+# --- parallel tempering and thermodynamic integration -----------------------------
+
+# name -> (log_prob, start, num_ensembles, num_temps)
+PT = {
+    "single-K3": (log_prob, start, None, 3),
+    "ensembles-K4": (log_prob, start, 2, 4),
+    "tree-K4": (tree_log_prob, tree_start, None, 4),
+    "tree-ensembles-K3": (tree_log_prob, tree_start, 2, 3),
+}
+
+
+def pt_config(name, num_samples, **kw):
+    """Ladder and step-size adaptation over burn 20: the chunkings of 7 and
+    16 draws put a boundary inside the burn window and at an odd draw (the
+    swap parity)."""
+    fields = dict(num_steps_per_sample=3, step_size=0.3, num_temps=PT[name][3], max_temp=10.0,
+                  burn=20, adapt_ladder=True, adapt_step_size=True)
+    return tht.PTConfig(num_samples=num_samples, **dict(fields, **kw))
+
+
+def pt_straight(name, num_samples):
+    lp, theta0, ens, _ = PT[name]
+    if ens is None:
+        return tht.run_parallel_tempering(5, lp, theta0(), pt_config(name, num_samples))
+    return tht.run_pt_chains(5, lp, theta0(), pt_config(name, num_samples), ens)
+
+
+def pt_checkpointed(name, num_samples, ckpt_dir, chunk, **kw):
+    lp, theta0, ens, _ = PT[name]
+    return ck.run_pt_checkpointed(5, lp, theta0(), pt_config(name, num_samples), ckpt_dir,
+                                  chunk_size=chunk, num_ensembles=ens, **kw)
+
+
+@pytest.mark.parametrize("name", sorted(PT))
+def test_pt_resume_equals_the_straight_run_at_two_chunkings(name, tmp_path):
+    want = plain(pt_straight(name, 40))
+    for chunk in (7, 16):
+        d = str(tmp_path / f"c{chunk}")
+        assert_same(plain(pt_checkpointed(name, 25, d, chunk)), plain(pt_straight(name, 25)))
+        assert_same(plain(pt_checkpointed(name, 40, d, chunk)), want)
+
+
+def test_pt_refuses_a_changed_option_a_jax_directory_and_mesh(tmp_path, jax_written_dir):
+    d = str(tmp_path / "a")
+    pt_checkpointed("single-K3", 8, d, 4)
+    with pytest.raises(ValueError, match="fingerprint"):
+        ck.run_pt_checkpointed(5, log_prob, start(), pt_config("single-K3", 8, max_temp=20.0), d)
+    with pytest.raises(ValueError, match="fingerprint"):  # the same ladder as two ensembles
+        ck.run_pt_checkpointed(5, log_prob, start(), pt_config("single-K3", 8), d,
+                               num_ensembles=2)
+    pt_checkpointed("single-K3", 12, d, 4, resume=True)  # num_samples is cosmetic
+    j = str(tmp_path / "jax")
+    shutil.copytree(jax_written_dir, j)
+    with pytest.raises(ValueError, match="fingerprint"):
+        pt_checkpointed("single-K3", 8, j, 4)
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        pt_checkpointed("ensembles-K4", 8, str(tmp_path / "m"), 4, mesh=object())
+    with pytest.raises(ValueError, match="replicas"):
+        ck.run_pt_checkpointed(5, log_prob, torch.zeros(4, 2),
+                               tht.PTConfig(num_samples=8, num_temps=8), str(tmp_path / "r"))
+
+
+def ti_prior(t):
+    flat = torch.cat([t["a"], t["b"].reshape(-1)]) if isinstance(t, dict) else t
+    return -0.5 * torch.sum(flat ** 2)
+
+
+def ti_lik(t):
+    return tree_log_prob(t) if isinstance(t, dict) else log_prob(t)
+
+
+def ti_config(num_samples):
+    return tht.TIConfig(num_samples=num_samples, num_steps_per_sample=3, step_size=0.3,
+                        num_temps=4, burn=20)
+
+
+TI_STARTS = {"flat": start, "tree": tree_start, "bfloat16": lambda: start(torch.bfloat16)}
+
+
+@pytest.mark.parametrize("name", sorted(TI_STARTS))
+def test_ti_resume_equals_the_straight_run_at_two_chunkings(name, tmp_path):
+    """Chunks of 7 and 16 split the dual-averaging window (burn 20); a
+    bfloat16 state keeps its dtype through the files."""
+    theta0 = TI_STARTS[name]
+    want = tht.run_ti(5, ti_prior, ti_lik, theta0(), ti_config(40))
+    for chunk in (7, 16):
+        d = str(tmp_path / f"c{chunk}")
+        assert_same(ck.run_ti_checkpointed(5, ti_prior, ti_lik, theta0(), ti_config(25), d,
+                                           chunk_size=chunk),
+                    tht.run_ti(5, ti_prior, ti_lik, theta0(), ti_config(25)))
+        got = ck.run_ti_checkpointed(5, ti_prior, ti_lik, theta0(), ti_config(40), d,
+                                     chunk_size=chunk)
+        assert_same(got, want)
+    assert tree_leaves(want.samples)[0].dtype == tree_leaves(theta0())[0].dtype
+
+
+def test_ti_resume_from_a_longer_completed_run_truncates(tmp_path, jax_written_dir):
+    d = str(tmp_path / "long")
+    ck.run_ti_checkpointed(5, ti_prior, ti_lik, start(), ti_config(40), d, chunk_size=16)
+    short = ck.run_ti_checkpointed(5, ti_prior, ti_lik, start(), ti_config(30), d, chunk_size=16)
+    want = tht.run_ti(5, ti_prior, ti_lik, start(), ti_config(30))
+    assert short.samples.shape == (10, 4)
+    assert_same(short, want)
+    j = str(tmp_path / "jax")
+    shutil.copytree(jax_written_dir, j)
+    with pytest.raises(ValueError, match="fingerprint"):
+        ck.run_ti_checkpointed(5, ti_prior, ti_lik, start(), ti_config(30), j)
+    with pytest.raises(RuntimeError, match="burn"):
+        ck.run_ti_checkpointed(5, ti_prior, ti_lik, start(), ti_config(20), str(tmp_path / "b"))

@@ -8,6 +8,8 @@ float32; the results agree within rtol 1e-5 (ESS, MCSE, R-hat, means)
 and the structures (tree splits, ArviZ dicts) are identical.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -132,8 +134,10 @@ def test_half_precision_trace_upcasts_to_float32():
     assert tdiag.effective_sample_size(x).dtype == torch.float64
 
 
+@functools.lru_cache(maxsize=None)
 def _runs(form):
-    """(port result, JAX result) of one small run of each family."""
+    """(port result, JAX result) of one small run of each family (run once
+    a module: the results are read, never changed)."""
     scale = np.array([0.5, 1.0, 2.0], np.float32)
     j_lp = lambda t: -0.5 * jnp.sum((t["w"] / scale) ** 2) if form == "tree" else \
         -0.5 * jnp.sum((t / scale) ** 2)  # noqa: E731
@@ -149,6 +153,24 @@ def _runs(form):
     chees = dict(num_samples=6, step_size=0.3, burn=3)
     sgld = dict(num_samples=6, step_size=0.01)
     cyc = dict(num_cycles=2, cycle_length=6, step_size=0.05, exploration_frac=0.5)
+
+    pt = dict(num_samples=6, num_steps_per_sample=3, step_size=0.3, num_temps=3, burn=2)
+    ti = dict(num_samples=6, num_steps_per_sample=3, step_size=0.3, num_temps=3, burn=2)
+    smc = dict(num_particles=8, num_temps=3, mcmc_steps=2, leapfrog_steps=3)
+
+    def j_prior(t):
+        return -0.5 * sum(jnp.sum(leaf ** 2) for leaf in jax.tree_util.tree_leaves(t))
+
+    def t_prior(t):
+        return -0.5 * sum(torch.sum(leaf ** 2) for leaf in (t.values() if form == "tree" else [t]))
+
+    def j_prior_sample(k, n):
+        z = jax.random.normal(k, (n, 3))
+        return {"w": z} if form == "tree" else z
+
+    def t_prior_sample(seed, n):
+        z = torch.randn(n, 3, generator=torch.Generator().manual_seed(seed))
+        return {"w": z} if form == "tree" else z
 
     def j_term(t, m):
         return 0.5 * j_lp(t)
@@ -177,6 +199,14 @@ def _runs(form):
                     jht.run_csgmcmc_chains(key, j_term, 2, j0, jht.CSGMCMCConfig(**cyc), 2)),
         "csgmcmc_single": (tht.run_csgmcmc(0, t_term, 2, t0, tht.CSGMCMCConfig(**cyc)),
                            jht.run_csgmcmc(key, j_term, 2, j0, jht.CSGMCMCConfig(**cyc))),
+        "pt": (tht.run_parallel_tempering(0, t_lp, t0, tht.PTConfig(**pt)),
+               jht.run_parallel_tempering(key, j_lp, j0, jht.PTConfig(**pt))),
+        "pt_chains": (tht.run_pt_chains(0, t_lp, t0, tht.PTConfig(**pt), 2),
+                      jht.run_pt_chains(key, j_lp, j0, jht.PTConfig(**pt), 2)),
+        "ti": (tht.run_ti(0, t_prior, t_lp, t0, tht.TIConfig(**ti)),
+               jht.run_ti(key, j_prior, j_lp, j0, jht.TIConfig(**ti))),
+        "smc": (tht.run_smc(0, t_prior, t_lp, t_prior_sample, tht.SMCConfig(**smc)),
+                jht.run_smc(key, j_prior, j_lp, j_prior_sample, jht.SMCConfig(**smc))),
     }
 
 
@@ -211,11 +241,38 @@ def test_inference_dict_of_a_bfloat16_trace(family):
     np.testing.assert_array_equal(post, trace.float().numpy())
 
 
+def test_inference_dict_of_the_tempered_families():
+    """The PT, TI and SMC branches read the cold chain's acceptance (the
+    last burn-sliced draws, chains first for ensembles), the beta=1 rung's
+    acceptance and its pair's swaps, and the particles' log-weights."""
+    runs = _runs("flat")
+    pt = runs["pt"][0]
+    d = tdiag.to_inference_dict(pt)
+    np.testing.assert_array_equal(d["posterior"]["theta"], pt.samples.numpy()[None])
+    np.testing.assert_array_equal(d["sample_stats"]["acceptance_rate"],
+                                  pt.info.accept_prob.numpy()[None, :, 0])
+    ens = runs["pt_chains"][0]
+    d = tdiag.to_inference_dict(ens)
+    assert d["posterior"]["theta"].shape == (2, 4, 3)
+    np.testing.assert_array_equal(d["sample_stats"]["acceptance_rate"],
+                                  ens.info.accept_prob.numpy()[:, :, 0])
+    ti = runs["ti"][0]
+    d = tdiag.to_inference_dict(ti)
+    np.testing.assert_array_equal(d["sample_stats"]["acceptance_rate"],
+                                  ti.info.accept_prob.numpy()[None, :, -1])
+    np.testing.assert_array_equal(d["sample_stats"]["swap_accepted"],
+                                  ti.info.swap_accept.numpy()[None, :, -1])
+    smc = runs["smc"][0]
+    d = tdiag.to_inference_dict(smc)
+    assert d["posterior"]["theta"].shape == (1, 8, 3)
+    np.testing.assert_array_equal(d["sample_stats"]["log_weight"], smc.log_weights.numpy()[None])
+
+
 def test_inference_dict_refuses_families_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdiag.to_inference_dict(("result", "info"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdiag.to_inference_dict(type("PTResult", (), {"samples": 0, "stats": 0})())
+        tdiag.to_inference_dict(type("BarkerResult", (), {"samples": 0, "stats": 0})())
 
 
 def test_to_arviz_needs_arviz():

@@ -100,7 +100,7 @@ def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
 def test_exports_mirror_the_jax_package(module):
     """``__all__`` of ``samplers`` lists the JAX package's names that the
     port has, in the JAX package's order, and nothing else; the top level
-    exports MAMS, ChEES and SG-MCMC as the JAX package does.  Every name
+    exports MAMS, ChEES, SG-MCMC, PT, TI and SMC as the JAX package does.  Every name
     resolves."""
     import importlib
 
@@ -117,10 +117,16 @@ def test_exports_mirror_the_jax_package(module):
                                      "run_mams_chains", "ChEESConfig", "ChEESResult",
                                      "run_chees", "SGLDConfig", "SGHMCConfig", "SGMCMCResult",
                                      "run_sgld", "run_sgld_chains", "run_sghmc",
-                                     "run_sghmc_chains"}
+                                     "run_sghmc_chains", "PTConfig", "PTResult",
+                                     "run_parallel_tempering", "run_pt_chains", "TIConfig",
+                                     "TIResult", "evidence_from_loglik_draws", "run_ti",
+                                     "SMCConfig", "SMCResult", "run_smc",
+                                     "smc_posterior_sample"}
     else:
         assert {"MAMSConfig", "MAMSResult", "run_mams", "run_mams_chains", "ChEESConfig",
                 "ChEESResult", "run_chees", "SGLDConfig", "SGHMCConfig", "CSGMCMCConfig",
                 "run_csgmcmc", "run_csgmcmc_chains", "run_sgld", "run_sgld_chains",
-                "run_sghmc", "run_sghmc_chains"} <= set(port.__all__)
+                "run_sghmc", "run_sghmc_chains", "PTConfig", "run_parallel_tempering",
+                "run_pt_chains", "SMCConfig", "run_smc", "smc_posterior_sample", "TIConfig",
+                "run_ti"} <= set(port.__all__)
     assert set(port.__all__) <= set(jax_mod.__all__) | {"next_key"}
