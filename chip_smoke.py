@@ -149,8 +149,28 @@ the kernels are built for sm_90a).  It
    analytic log Z; TI and SMC
    on a 784-128-1 ``nn.Sequential`` at the flagship's data shapes, timed,
    gated on finite evidence, acceptance in [0, 1] and ESS fractions in (0,
-   1]; float64 card against CPU; ``run_ti_checkpointed`` identical); every
-   phase of this list fails if it launched a fused kernel;
+   1]; float64 card against CPU; ``run_ti_checkpointed`` identical), the
+   ``gradient_free`` phase (``gradient_free_path``: ``run_barker_chains``
+   on the flagship at 64 chains with step-size adaptation over a burn,
+   timed in grad-steps/s with its peak memory, gated on finite states and
+   acceptance in (0, 1]; ``run_elliptical_chains`` on a 784-128-1
+   ``nn.Sequential`` through ``define_model_prior_and_lik`` at 64 chains,
+   timed in likelihood evaluations/s with its mean shrinks and cap hits,
+   gated on a finite log-likelihood and shrinks within the cap; the stretch
+   move on a D=64 Gaussian at 256 walkers, timed in log-density
+   evaluations/s; the statistical gates of ``tests/test_barker.py:38,59``,
+   ``tests/test_stretch.py:29,43``, the staircase of
+   ``examples/gradient_free_example.py`` and ``tests/test_elliptical.py:24``;
+   float64 card against CPU on injected noise for the three samplers,
+   identical accepts and shrink counts, positions within 1e-10 of max
+   |theta|; ``run_barker_checkpointed`` and ``run_stretch_checkpointed``
+   stopped and resumed, identical) and the ``optim`` phase (``optim_path``:
+   ``map_estimate`` and mean-field ``advi`` on the flagship, timed in
+   steps/s; ``laplace_approx``'s evidence on ``tests/test_ti.py:309-325``'s
+   regression within 1e-3 of the exact log Z; full-rank ``advi`` within
+   0.15 of a correlated D=6 Gaussian's covariance; ADVI's stds as Barker's
+   ``scale=``, ``examples/barker_robustness_example.py``'s third part);
+   every phase of this list fails if it launched a fused kernel;
 6. checks the tiny flagship on the card against the CPU;
 7. prints one JSON line with every kernel's summary and, last, the device
    line.
@@ -234,13 +254,16 @@ MODEL_LOGP_RTOL = 1e-6
 MODEL_CARD_RTOL = 1e-5
 COMPARISON_RTOL = 1e-6
 # RMHMC (bench.py:377-401): D=64, 64 chains, L=5; the draws of a timed run are
-# cut from bench.py's 20 (a metric evaluation costs ~70 ms on the card, most
-# of it the batched 64x64 eigh: PERF.md section 5).  The banana of BASELINE
-# config 3 at 64 chains, its 150 draws cut the same way; card vs CPU in
-# float64 at L=2 (the CPU computes the D=64 Hessians itself).
-RMHMC_DIM, RMHMC_CHAINS, RMHMC_STEPS, RMHMC_DRAWS = 64, 64, 5, 4
-BANANA_BURN, BANANA_DRAWS = 6, 18
-RMHMC_CPU_STEPS = 2
+# cut from bench.py's 20 to 1 (a metric evaluation costs ~70 ms on the card,
+# most of it the batched 64x64 eigh: PERF.md section 5).  The banana of
+# BASELINE config 3 at 64 chains, its 150 draws cut to 4 + 6 (its gates are
+# loose beside 384 pooled draws); card vs CPU in float64 at L=2 over 2 draws
+# (the CPU computes the D=64 Hessians itself); sample()'s offload 4 draws.
+# With 2 timed draws and 8 offloaded the phase took 69.7 s on a fast host,
+# and 109.9 s at 4, 6 + 18, 3 and 8 draws (PERF.md section 5).
+RMHMC_DIM, RMHMC_CHAINS, RMHMC_STEPS, RMHMC_DRAWS = 64, 64, 5, 1
+BANANA_BURN, BANANA_DRAWS = 4, 6
+RMHMC_CPU_STEPS, RMHMC_CPU_DRAWS = 2, 2
 # split HMC (BASELINE config 5): the example's 100 draws cut to 10 a timed
 # run; the sum of the 6 terms against the full-data potential: float32 sums
 # over 1,000 and 6,000 rows in another order
@@ -295,6 +318,26 @@ EXAMPLE_TOL = 1.25
 LINREG_TI_DRAWS, LINREG_TI_BURN = 1800, 600
 SMC_STEP, SMC_RUNS = 0.05, 4
 WIDE_TI_DRAWS, WIDE_TI_BURN = 30, 20
+# The gradient_free phase.  Barker on the flagship at the main path's 64
+# chains, step-size adaptation over BARKER_BURN of BARKER_DRAWS draws (one
+# gradient a draw); elliptical slice on the 784-128-1 module at 64 chains,
+# ESS_WIDE_DRAWS draws (its shrink loop runs to the cap where the likelihood
+# is sharp).  The statistical gates of tests/test_barker.py:38,59 at 32
+# chains where the test has 8 and 2500 draws (burn 1000) where it has
+# 4000-6000; tests/test_stretch.py:29,43 and the staircase of
+# examples/gradient_free_example.py at 2000 / 1500 iterations where they run
+# 3000-4000; tests/test_elliptical.py:24 at 16 chains x 1000 draws where it
+# has 4 x 3000.  Stretch at D=64 is timed with K=256 walkers.
+BARKER_CHAINS, BARKER_DRAWS, BARKER_BURN = 64, 300, 150
+ESS_WIDE_DRAWS = 20
+GATE_DRAWS, GATE_BURN = 2500, 1000
+STRETCH_GATE_ITERS, STRETCH_AFFINE_ITERS = 2000, 1500
+ESS_GATE_CHAINS, ESS_GATE_DRAWS = 16, 1000
+STRETCH_DIM, STRETCH_WALKERS, STRETCH_ITERS = 64, 256, 200
+# The optim phase: Adam on the flagship (MAP_STEPS steps; mean-field ADVI
+# ADVI_WIDE_STEPS steps at 4 Monte Carlo draws), full-rank ADVI on a D=6
+# Gaussian (tests/test_optim.py:228's 4000 steps at D=2, its 0.15 gate)
+MAP_STEPS, ADVI_WIDE_STEPS, FULLRANK_STEPS = 200, 100, 3000
 
 
 class SmokeError(RuntimeError):
@@ -1549,7 +1592,7 @@ def rmhmc_path(torch, device, card):
                              f"mean x {mean_x}, residual std {std_r}")
 
     # 3. card against CPU, float64, injected noise, on the D=64 target
-    c64, draws64 = 4, 3
+    c64, draws64 = 4, RMHMC_CPU_DRAWS
     gen = torch.Generator().manual_seed(43)
     noise = (torch.randn(draws64, c64, d, generator=gen, dtype=torch.float64),
              torch.rand(draws64, c64, generator=gen, dtype=torch.float64).log(),
@@ -1632,7 +1675,7 @@ def rmhmc_path(torch, device, card):
         raise SmokeError("rmhmc: a non-SPD metric was not rejected as a divergence")
 
     # 6. sample(sampler=RMHMC): store_on_GPU=False gives the on-card trace
-    kw = dict(num_samples=8, num_steps_per_sample=3, step_size=0.15, burn=2,
+    kw = dict(num_samples=4, num_steps_per_sample=3, step_size=0.15, burn=1,
               sampler=Sampler.RMHMC, integrator=Integrator.IMPLICIT, metric=Metric.SOFTABS,
               softabs_const=1e2, fixed_point_max_iterations=8, key=47, verbose=False)
     on_card = sample(banana_lp, torch.zeros(2, device=device), **kw)
@@ -2593,6 +2636,377 @@ def evidence_path(torch, device, card):
         raise SmokeError("TI: the checkpointed run is not the straight run")
 
 
+def gradient_free_path(torch, device, card):
+    """Barker, the stretch move and elliptical slice (no kernel of their own:
+    the generic potential, one vmapped evaluation a draw or a shrink
+    iteration): Barker and elliptical slice at full width, timed; the stretch
+    move on the examples' targets and at D=64, timed; the statistical gates
+    of the JAX tests; float64 card against CPU on injected noise; the
+    checkpointed Barker and stretch runs identical to the straight ones."""
+    import dataclasses
+    import math
+    import tempfile
+
+    from torch import nn
+
+    from hamiltorch_tpu_torch import (
+        BarkerConfig,
+        EllipticalConfig,
+        StretchConfig,
+        run_barker,
+        run_barker_chains,
+        run_elliptical_chains,
+        run_stretch,
+    )
+    from hamiltorch_tpu_torch import checkpoint as ck
+    from hamiltorch_tpu_torch.models.bnn import define_model_prior_and_lik
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
+
+    # 1. Barker on the flagship at 64 chains, dual averaging over the burn
+    lp, theta0 = make_flagship_potential_tree(device=device)
+    width = sum(t.numel() for t in theta0.values())
+    cfg = BarkerConfig(num_samples=BARKER_DRAWS, burn=BARKER_BURN, step_size=1e-3)
+    run_barker_chains(1, lp, theta0, BarkerConfig(num_samples=3, burn=1, step_size=1e-3),
+                      BARKER_CHAINS)  # untimed: the first calls of this path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_barker_chains(2, lp, theta0, cfg, BARKER_CHAINS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    acc = res.acc_rate.float().cpu()
+    eps = res.step_size.float().cpu()
+    finite = all(bool(torch.isfinite(t).all()) for t in res.samples.values())
+    print(f"gradient_free: Barker on the flagship ({width:,} parameters) run_barker_chains "
+          f"{BARKER_CHAINS} chains x {BARKER_DRAWS} draws (burn {BARKER_BURN}, dual averaging "
+          f"from 1e-3): {wall:.2f} s = {BARKER_CHAINS * BARKER_DRAWS / wall:,.1f} grad-steps/s "
+          f"(one gradient a draw); post-burn acceptance min/median/max {float(acc.min()):.3f}/"
+          f"{float(acc.median()):.3f}/{float(acc.max()):.3f} (target 0.574); adapted eps median "
+          f"{float(eps.median()):.3e}; divergent draws {int(res.stats.divergent.sum())}; peak "
+          f"memory {peak / 2**30:.3f} GiB [{card}]")
+    if not (finite and bool(((acc > 0) & (acc <= 1)).all())):
+        raise SmokeError(f"Barker flagship: finite {finite}, acceptance {acc.tolist()}")
+
+    # 2. elliptical slice on the 784-128-1 module at the flagship's data shapes
+    n, i_dim, h = FLAGSHIP["n"], FLAGSHIP["i"], FLAGSHIP["h"]
+    x, y, *_ = bnn_inputs(torch, n, i_dim, h, 1, seed=61, device=device)
+    torch.manual_seed(61)
+    net = nn.Sequential(nn.Linear(i_dim, h), nn.Tanh(), nn.Linear(h, 1))
+    tau = 1.0
+    _, llik, _, template = define_model_prior_and_lik(net, "regression", x, y, tau_list=tau,
+                                                      tau_out=10.0, device=device)
+    calls = [0]
+
+    def counted(t):
+        calls[0] += 1
+        return llik(t)
+
+    ess_cfg = EllipticalConfig(num_samples=ESS_WIDE_DRAWS)
+    prior_std = [1.0 / math.sqrt(tau)] * len(template)  # per leaf
+    run_elliptical_chains(3, llik, template, EllipticalConfig(num_samples=1), BARKER_CHAINS,
+                          prior_scale=prior_std)  # untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    es = run_elliptical_chains(4, counted, template, ess_cfg, BARKER_CHAINS,
+                               prior_scale=prior_std)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shrinks = es.stats.shrinks.float().cpu()
+    ll_final = es.final_loglik.float().cpu()
+    evals = calls[0] * BARKER_CHAINS  # each call one vmapped batch of every lane
+    print(f"gradient_free: elliptical slice on a 784-128-1 tanh nn.Sequential "
+          f"({sum(t.numel() for t in template):,} parameters, N={n}, prior std 1/sqrt(tau) per "
+          f"leaf) run_elliptical_chains {BARKER_CHAINS} chains x {ESS_WIDE_DRAWS} draws: "
+          f"{wall:.2f} s, {calls[0]} vmapped likelihood calls = {evals / wall:,.1f} likelihood "
+          f"evaluations/s; mean shrinks a draw {float(shrinks.mean()):.2f} (max "
+          f"{int(shrinks.max())}), cap hits {int(es.stats.divergent.sum())}; final log-likelihood "
+          f"median {float(ll_final.median()):.1f} [{card}]")
+    if not (bool(torch.isfinite(ll_final).all()) and float(shrinks.max()) <= ess_cfg.max_shrink):
+        raise SmokeError(f"elliptical full width: log-likelihood {ll_final.tolist()}, shrinks "
+                         f"max {float(shrinks.max())}")
+
+    # 3. the stretch move: D=64 correlated Gaussian at 256 walkers, timed
+    gen = torch.Generator().manual_seed(62)
+    a = torch.randn(STRETCH_DIM, STRETCH_DIM, generator=gen, dtype=torch.float64)
+    prec64 = torch.linalg.inv(a @ a.T / STRETCH_DIM + torch.eye(STRETCH_DIM, dtype=torch.float64))
+    prec = prec64.float().to(device)
+    evals = [0]
+
+    def gauss64(t):
+        evals[0] += 1
+        return -0.5 * t @ prec @ t
+
+    run_stretch(5, gauss64, torch.zeros(STRETCH_DIM, device=device), StretchConfig(2),
+                STRETCH_WALKERS)  # untimed
+    evals[0] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run_stretch(6, gauss64, torch.zeros(STRETCH_DIM, device=device),
+                     StretchConfig(STRETCH_ITERS), STRETCH_WALKERS, init_jitter=0.5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_evals = STRETCH_ITERS * STRETCH_WALKERS
+    print(f"gradient_free: stretch move on a D={STRETCH_DIM} correlated Gaussian, "
+          f"{STRETCH_WALKERS} walkers x {STRETCH_ITERS} iterations: {wall:.2f} s = "
+          f"{n_evals / wall:,.1f} log-density evaluations/s ({evals[0]} vmapped calls of "
+          f"{STRETCH_WALKERS // 2}), acceptance {float(st.acc_rate):.3f} [{card}]")
+    if not (bool(torch.isfinite(st.samples).all()) and 0.0 < float(st.acc_rate) <= 1.0):
+        raise SmokeError(f"stretch D=64: acceptance {float(st.acc_rate)}")
+
+    # 4. statistical gates, from the JAX tests
+    t0 = time.perf_counter()
+    stds = torch.linspace(0.5, 3.0, 8, device=device)
+    rb = run_barker_chains(7, lambda t: -0.5 * torch.sum((t / stds) ** 2),
+                           torch.zeros(8, device=device) + 0.1,
+                           BarkerConfig(num_samples=GATE_DRAWS, burn=GATE_BURN, adapt_scale=True),
+                           32)
+    pooled = rb.samples[:, GATE_BURN:].reshape(-1, 8).double()
+    rec = pooled.std(0).cpu() / stds.double().cpu()
+    acc = float(rb.acc_rate.mean())
+    corr = float(torch.corrcoef(torch.stack([rb.scale.double().mean(0).cpu(),
+                                             stds.double().cpu()]))[0, 1])
+    ok_b = (bool(((rec - 1).abs() < 0.12).all()) and float(pooled.mean(0).abs().max()) < 0.25
+            and 0.45 < acc < 0.70 and not bool(rb.stats.divergent[:, GATE_BURN:].any())
+            and corr > 0.95)
+    quartic = run_barker_chains(8, lambda t: -0.25 * torch.sum(t ** 4),
+                                torch.zeros(4, device=device) + 0.2,
+                                BarkerConfig(num_samples=GATE_DRAWS, burn=GATE_BURN,
+                                             step_size=50.0), 32)
+    var = quartic.samples[:, GATE_BURN:].reshape(-1, 4).double().var(0).cpu()
+    ok_q = bool(((var / 0.675978 - 1).abs() < 0.15).all()) and not bool(
+        quartic.stats.divergent.any())
+    print(f"gradient_free: Barker 8-D Gaussian with scale adaptation (32 chains x {GATE_DRAWS}, "
+          f"burn {GATE_BURN}): std / true {[round(float(r), 3) for r in rec]} (within 0.12), "
+          f"acceptance {acc:.3f} (0.45-0.70), scale-truth correlation {corr:.4f} (> 0.95); quartic "
+          f"from step 50: variances {[round(float(v), 4) for v in var]} (0.6760 within 15%), "
+          f"adapted eps median {float(quartic.step_size.median()):.3f}, divergent draws "
+          f"{int(quartic.stats.divergent.sum())}; {time.perf_counter() - t0:.1f} s")
+    if not (ok_b and ok_q):
+        raise SmokeError(f"Barker gates: Gaussian {ok_b} (std ratio {rec.tolist()}, acceptance "
+                         f"{acc}, correlation {corr}), quartic {ok_q} ({var.tolist()})")
+
+    t0 = time.perf_counter()
+    sd3 = torch.tensor([0.5, 1.0, 2.0], device=device)
+    sg = run_stretch(9, lambda t: -0.5 * torch.sum((t / sd3) ** 2), torch.zeros(3, device=device),
+                     StretchConfig(STRETCH_GATE_ITERS), 32)
+    pooled = sg.samples[STRETCH_GATE_ITERS // 4:].reshape(-1, 3).double()
+    rec_s = pooled.std(0).cpu() / sd3.double().cpu()
+    ok_s = (bool(((rec_s - 1).abs() < 0.10).all()) and float(pooled.mean(0).abs().max()) < 0.15
+            and 0.2 < float(sg.acc_rate) < 0.8)
+    rot = torch.tensor([[0.8, -0.6], [0.6, 0.8]], dtype=torch.float64)
+    amat = rot @ torch.diag(torch.tensor([10.0, 0.1], dtype=torch.float64))  # condition 1e4
+    hard_prec = torch.linalg.inv(amat @ amat.T).float().to(device)
+    hard = run_stretch(10, lambda t: -0.5 * t @ hard_prec @ t, torch.zeros(2, device=device),
+                       StretchConfig(STRETCH_AFFINE_ITERS), 32, init_jitter=1.0)
+    white = run_stretch(10, lambda t: -0.5 * torch.sum(t ** 2), torch.zeros(2, device=device),
+                        StretchConfig(STRETCH_AFFINE_ITERS), 32, init_jitter=1.0)
+    z = hard.samples[STRETCH_AFFINE_ITERS // 3:].reshape(-1, 2).double().cpu() @ torch.linalg.inv(
+        amat).T
+    acc_gap = abs(float(hard.acc_rate) - float(white.acc_rate))
+    ok_a = acc_gap < 0.05 and bool(((z.std(0) - 1).abs() < 0.1).all())
+    stair = run_stretch(11, lambda t: -0.5 * torch.floor(torch.sum(t ** 2) * 4.0) / 4.0,
+                        torch.zeros(2, device=device), StretchConfig(STRETCH_GATE_ITERS), 32)
+    stair_std = stair.samples[STRETCH_GATE_ITERS // 4:].reshape(-1, 2).double().std(0).cpu()
+    ok_t = bool(((stair_std - 1).abs() < 0.15).all()) and float(stair.acc_rate) > 0.2
+    print(f"gradient_free: stretch 3-D Gaussian (32 walkers x {STRETCH_GATE_ITERS}): std / true "
+          f"{[round(float(r), 3) for r in rec_s]} (within 0.10), acceptance "
+          f"{float(sg.acc_rate):.3f}; condition-1e4 Gaussian vs its whitened twin "
+          f"({STRETCH_AFFINE_ITERS}): acceptance {float(hard.acc_rate):.3f} / "
+          f"{float(white.acc_rate):.3f} (gap < 0.05), z-scored std "
+          f"{[round(float(v), 3) for v in z.std(0)]}; staircase std "
+          f"{[round(float(v), 3) for v in stair_std]} (1 within 0.15), acceptance "
+          f"{float(stair.acc_rate):.3f}; {time.perf_counter() - t0:.1f} s")
+    if not (ok_s and ok_a and ok_t):
+        raise SmokeError(f"stretch gates: Gaussian {ok_s}, affine {ok_a}, staircase {ok_t}")
+
+    t0 = time.perf_counter()
+    ea = run_elliptical_chains(12, lambda t: -0.5 * torch.sum(((t - 1.0) / 0.5) ** 2),
+                               torch.zeros(3, device=device), EllipticalConfig(ESS_GATE_DRAWS),
+                               ESS_GATE_CHAINS)
+    kept = ea.samples[:, ESS_GATE_DRAWS // 5:].reshape(-1, 3).double()
+    mean_e, var_e = kept.mean(0).cpu(), kept.var(0).cpu()
+    mean_shrinks = float(ea.stats.shrinks.float().mean())
+    ok_e = (bool(((mean_e - 0.8).abs() < 0.05).all()) and bool(((var_e - 0.2).abs() < 0.03).all())
+            and 0.5 < mean_shrinks < 5.0 and not bool(ea.stats.divergent.any()))
+    print(f"gradient_free: elliptical slice, N(0, 1) prior x N(1, 0.5^2) likelihood "
+          f"({ESS_GATE_CHAINS} chains x {ESS_GATE_DRAWS}): mean "
+          f"{[round(float(v), 4) for v in mean_e]} (0.8 within 0.05), variance "
+          f"{[round(float(v), 4) for v in var_e]} (0.2 within 0.03), "
+          f"mean shrinks {mean_shrinks:.2f}; {time.perf_counter() - t0:.1f} s")
+    if not ok_e:
+        raise SmokeError(f"elliptical gate: mean {mean_e.tolist()}, variance {var_e.tolist()}, "
+                         f"shrinks {mean_shrinks}")
+
+    # 5. float64 card against CPU on the same injected noise
+    gen = torch.Generator().manual_seed(63)
+    f64 = dict(generator=gen, dtype=torch.float64)
+
+    def ripple(t):
+        return (-0.5 * torch.sum((t / torch.linspace(0.5, 2.0, t.shape[-1], dtype=t.dtype,
+                                                     device=t.device)) ** 2)
+                + 0.2 * torch.sum(torch.cos(t)))
+
+    c, d = 4, 6
+    b_noise = {"z": torch.randn(48, c, d, **f64), "u_keep": torch.rand(48, c, d, **f64),
+               "u_mh": torch.rand(48, c, generator=gen)}
+    s_noise = {"u_z": torch.rand(60, 2, 8, **f64),
+               "j": torch.randint(0, 8, (60, 2, 8), generator=gen),
+               "u_mh": torch.rand(60, 2, 8, generator=gen)}
+    e_noise = {"nu": torch.randn(40, c, d, **f64), "u": torch.rand(40, c, generator=gen),
+               "t0": torch.rand(40, c, generator=gen),
+               "t_shrink": torch.rand(40, c, 64, generator=gen)}
+    walkers = torch.randn(16, d, **f64)
+    chol = torch.linalg.cholesky(torch.eye(d, dtype=torch.float64) + 0.5)
+
+    def run64(dev):
+        def on(nz):
+            return {k: v.to(dev) for k, v in nz.items()}
+        t0_ = torch.full((d,), 0.3, dtype=torch.float64, device=dev)
+        rb_ = run_barker_chains(0, ripple, t0_, BarkerConfig(48, burn=16, adapt_scale=True,
+                                                             desired_accept_rate=0.95), c,
+                                _noise=on(b_noise))
+        rs_ = run_stretch(0, ripple, walkers.to(dev), StretchConfig(60), 16, _noise=on(s_noise))
+        re_ = run_elliptical_chains(0, lambda t: -0.5 * torch.sum(((t - 1.0) / 0.5) ** 2), t0_,
+                                    EllipticalConfig(40), c, prior_scale=chol.to(dev),
+                                    _noise=on(e_noise))
+        return rb_, rs_, re_
+
+    (bc, sc, ec), (bh, sh, eh) = run64(device), run64("cpu")
+
+    def rel(a_, b_):
+        return float((a_.cpu() - b_).abs().max()) / float(b_.abs().max())
+
+    same = {"barker accepts": torch.equal(bc.stats.accepted.cpu(), bh.stats.accepted),
+            "stretch accepts": torch.equal(sc.stats.accept_frac.cpu(), sh.stats.accept_frac),
+            "elliptical shrinks": torch.equal(ec.stats.shrinks.cpu(), eh.stats.shrinks)}
+    errs = {"barker": rel(bc.samples, bh.samples), "stretch": rel(sc.samples, sh.samples),
+            "elliptical": rel(ec.samples, eh.samples)}
+    print(f"gradient_free: float64 card vs CPU on the same noise (Barker 4 chains x 48 draws with "
+          f"both adaptations, stretch 16 walkers x 60, elliptical 4 chains x 40 under a Cholesky "
+          f"prior): identical {same}; positions of max |theta| "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (<= 1e-10); Barker acceptance "
+          f"{float(bh.stats.accepted.float().mean()):.3f}, elliptical shrinks max "
+          f"{int(eh.stats.shrinks.max())}")
+    if not (all(same.values()) and max(errs.values()) <= 1e-10):
+        raise SmokeError(f"gradient-free card vs CPU: {same}, {errs}")
+
+    # 6. the checkpointed runners on the card: stopped at 25, resumed to 40,
+    # chunks of 7 (Barker's Welford window [5, 15) and scale switch cross them)
+    (REPO / "build").mkdir(exist_ok=True)
+    t_start = torch.zeros(6, device=device)
+    b_cfg = BarkerConfig(num_samples=40, burn=20, adapt_scale=True)
+    s_cfg = StretchConfig(num_samples=40)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        ck.run_barker_checkpointed(13, ripple, t_start, dataclasses.replace(b_cfg, num_samples=25),
+                                   tmp + "/b", chunk_size=7)
+        got_b = ck.run_barker_checkpointed(13, ripple, t_start, b_cfg, tmp + "/b", chunk_size=7)
+        ck.run_stretch_checkpointed(13, ripple, t_start, dataclasses.replace(s_cfg, num_samples=25),
+                                    tmp + "/s", chunk_size=7, num_walkers=16)
+        got_s = ck.run_stretch_checkpointed(13, ripple, t_start, s_cfg, tmp + "/s", chunk_size=7,
+                                            num_walkers=16)
+    want_b = run_barker(13, ripple, t_start, b_cfg)
+    want_s = run_stretch(13, ripple, t_start, s_cfg, 16)
+    same = {"barker": same_tensors(torch, tuple(got_b), tuple(want_b)),
+            "stretch": same_tensors(torch, tuple(got_s), tuple(want_s))}
+    print(f"gradient_free: run_barker_checkpointed / run_stretch_checkpointed (stopped at 25, "
+          f"chunks of 7) identical {same}")
+    if not all(same.values()):
+        raise SmokeError(f"gradient-free checkpoints: {same}")
+
+
+def optim_path(torch, device, card):
+    """MAP, Laplace and ADVI (no kernel of their own: torch.optim's Adam over
+    the generic potential): Adam and mean-field ADVI on the flagship, timed;
+    the Laplace evidence of tests/test_ti.py:309-325's conjugate regression
+    against its exact log Z; full-rank ADVI against a correlated Gaussian's
+    covariance; ADVI's stds as Barker's scale (examples/
+    barker_robustness_example.py, part 3)."""
+    from hamiltorch_tpu_torch import (
+        BarkerConfig,
+        advi,
+        advi_cov,
+        laplace_approx,
+        map_estimate,
+        run_barker_chains,
+    )
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential
+
+    # 1. the flagship: Adam (MAP) and mean-field ADVI over all 100,609 parameters
+    lp, theta0 = make_flagship_potential(device=device)
+    map_estimate(lp, theta0, num_steps=2, learning_rate=1e-3)  # untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = map_estimate(lp, theta0, num_steps=MAP_STEPS, learning_rate=1e-3)
+    torch.cuda.synchronize()
+    wall_map = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fit = advi(lp, theta0, num_steps=ADVI_WIDE_STEPS, learning_rate=1e-3)
+    torch.cuda.synchronize()
+    wall_advi = time.perf_counter() - t0
+    trace = fit.elbo_trace.double().cpu()
+    tail = max(ADVI_WIDE_STEPS // 10, 1)
+    print(f"optim: map_estimate on the flagship ({theta0.numel():,} parameters, Adam lr 1e-3) "
+          f"{MAP_STEPS} steps {wall_map:.2f} s = {MAP_STEPS / wall_map:,.1f} steps/s, log p "
+          f"{float(m.log_prob_trace[0]):.1f} -> {float(m.log_prob):.1f}, rejected "
+          f"{int(m.num_rejected)}; mean-field advi {ADVI_WIDE_STEPS} steps x 4 Monte Carlo draws "
+          f"{wall_advi:.2f} s = {ADVI_WIDE_STEPS / wall_advi:,.1f} steps/s, ELBO "
+          f"{float(trace[:tail].mean()):.1f} -> {float(fit.elbo):.1f} [{card}]")
+    if not (bool(torch.isfinite(m.theta).all()) and float(m.log_prob) > float(m.log_prob_trace[0])
+            and bool(torch.isfinite(trace).all()) and float(fit.elbo) > float(trace[:tail].mean())):
+        raise SmokeError(f"optim flagship: MAP {float(m.log_prob)}, ELBO {float(fit.elbo)}")
+
+    # 2. Laplace on the conjugate regression: the posterior is Gaussian, so
+    # the Laplace evidence is the exact log Z
+    lprior, llik, _, template, exact = linreg_problem(torch, device)
+    post = map_estimate(lambda t: lprior(t) + llik(t), template, num_steps=2000,
+                        learning_rate=0.05)
+    lap = laplace_approx(lambda t: lprior(t) + llik(t), post.theta)
+    err = abs(float(lap.log_evidence) - exact)
+    print(f"optim: laplace_approx on tests/test_ti.py:309-325's regression (MAP by Adam, 2000 "
+          f"steps): log Z {float(lap.log_evidence):.5f} against the exact {exact:.5f} (diff "
+          f"{err:.2e}, within 1e-3)")
+    if not err <= 1e-3:
+        raise SmokeError(f"Laplace evidence {float(lap.log_evidence)} against {exact}")
+
+    # 3. full-rank ADVI against a correlated D=6 Gaussian's covariance
+    d = 6
+    cov = 0.7 ** torch.abs(torch.arange(d)[:, None] - torch.arange(d)[None, :]).double()
+    prec = torch.linalg.inv(cov).float().to(device)
+    mu = torch.linspace(-1.0, 1.0, d, device=device)
+    t0 = time.perf_counter()
+    fr = advi(lambda t: -0.5 * (t - mu) @ prec @ (t - mu), torch.zeros(d, device=device),
+              num_steps=FULLRANK_STEPS, learning_rate=0.02, num_mc_samples=8, method="fullrank")
+    fit_cov = advi_cov(fr).double().cpu()
+    err_cov = float((fit_cov - cov).abs().max())
+    err_mu = float((fr.mean - mu).abs().max())
+    print(f"optim: full-rank advi on a D={d} Gaussian (rho 0.7^|i-j|), {FULLRANK_STEPS} steps x 8 "
+          f"draws in {time.perf_counter() - t0:.1f} s: covariance within {err_cov:.4f} (0.15), "
+          f"mean within {err_mu:.4f} (0.1)")
+    if not (err_cov <= 0.15 and err_mu <= 0.1):
+        raise SmokeError(f"full-rank ADVI: covariance {err_cov}, mean {err_mu}")
+
+    # 4. examples/barker_robustness_example.py part 3: ADVI's stds as Barker's scale
+    stds = torch.linspace(0.25, 9.0, 6, device=device)
+
+    def aniso(t):
+        return -0.5 * torch.sum((t / stds) ** 2)
+
+    t0 = time.perf_counter()
+    vi = advi(aniso, torch.zeros(6, device=device), num_steps=2000)
+    vi_std = torch.exp(vi.log_std)
+    rb = run_barker_chains(14, aniso, vi.mean, BarkerConfig(num_samples=2000, burn=500), 16,
+                           scale=vi_std)
+    rec = rb.samples[:, 500:].reshape(-1, 6).double().std(0).cpu() / stds.double().cpu()
+    ratio = (vi_std / stds).double().cpu()
+    print(f"optim: ADVI-seeded Barker scale (the 36:1 Gaussian): ADVI std / true "
+          f"{[round(float(v), 3) for v in ratio]} (within 0.15), Barker 16 chains x 2000 (burn "
+          f"500) recovered std / true {[round(float(v), 3) for v in rec]} (within 0.2), acceptance "
+          f"{float(rb.acc_rate.mean()):.3f}; {time.perf_counter() - t0:.1f} s")
+    if not (bool(((ratio - 1).abs() < 0.15).all()) and bool(((rec - 1).abs() < 0.2).all())):
+        raise SmokeError(f"ADVI-seeded Barker: ADVI {ratio.tolist()}, Barker {rec.tolist()}")
+
+
 def tiny_card_vs_cpu(torch, device):
     """The port's tensor path is the same on the card as on the CPU."""
     from hamiltorch_tpu_torch import MCMCConfig, run_hmc_chains
@@ -2811,11 +3225,13 @@ def main() -> int:
     print(f"bnn_model phase: {time.perf_counter() - t_model:.1f} s, kernel launches "
           f"{ {kernel.__name__: kernel.launches for kernel in kernel_fns} }")
     # tree-doubling NUTS, checkpoint/resume, RMHMC, split HMC, ChEES,
-    # SG-MCMC, parallel tempering, TI and SMC: no kernel of the port on them
+    # SG-MCMC, parallel tempering, TI, SMC, Barker, the stretch move,
+    # elliptical slice and optim: no kernel of the port on them
     for phase, fn in (("nuts", nuts_path), ("checkpoint", checkpoint_path),
                       ("rmhmc", rmhmc_path), ("split", split_path), ("chees", chees_path),
                       ("sgmcmc", sgmcmc_path), ("tempering", tempering_path),
-                      ("evidence", evidence_path)):
+                      ("evidence", evidence_path), ("gradient_free", gradient_free_path),
+                      ("optim", optim_path)):
         for kernel in kernel_fns:
             kernel.launches = 0
         t_phase = time.perf_counter()

@@ -21,9 +21,12 @@ symmetric-split minibatch HMC (``samplers.run_split_hmc``,
 their ``_chains`` forms, cyclical ``run_csgmcmc`` / ``run_csgmcmc_chains``);
 parallel tempering (``run_parallel_tempering``, ``run_pt_chains``) and the
 evidence estimators, thermodynamic integration (``run_ti``) and tempered
-SMC (``run_smc``, ``smc_posterior_sample``); checkpoint/resume for HMC,
-NUTS, MCLMC, MAMS, RMHMC, split HMC, ChEES, SGLD, SGHMC, PT and TI
-(``checkpoint``); MCLMC
+SMC (``run_smc``, ``smc_posterior_sample``); the Barker proposal
+(``run_barker``, ``run_barker_chains``), the gradient-free stretch move
+(``run_stretch``) and elliptical slice sampling (``run_elliptical``,
+``run_elliptical_chains``); MAP, Laplace and ADVI (``optim``:
+``map_estimate``, ``laplace_approx``, ``advi``, ...); checkpoint/resume for
+every family the JAX package checkpoints (``checkpoint``); MCLMC
 (``run_mclmc``, ``run_mclmc_chains``); MAMS
 (``run_mams``, ``run_mams_chains``); the diagnostics (``diagnostics``:
 ESS, R-hat, ``summary``); model comparison (``waic``, ``psis_loo``,
@@ -46,6 +49,18 @@ from .model_comparison import (
     psis_loo,
     waic,
 )
+from .optim import (
+    ADVIResult,
+    LaplaceResult,
+    MAPResult,
+    advi,
+    advi_cov,
+    advi_sample,
+    laplace_approx,
+    laplace_sample,
+    map_estimate,
+)
+from .samplers.barker import BarkerConfig, BarkerResult, run_barker, run_barker_chains
 from .samplers.chees import ChEESConfig, ChEESResult, run_chees
 from .samplers.driver import MCMCConfig, MCMCResult, MCMCStats
 from .samplers.hmc import run_hmc, run_hmc_chains, run_hmc_host_offload
@@ -53,7 +68,14 @@ from .samplers.mams import MAMSConfig, MAMSResult, run_mams, run_mams_chains
 from .samplers.mclmc import MCLMCConfig, MCLMCResult, run_mclmc, run_mclmc_chains
 from .samplers.nuts import NUTSConfig, run_nuts, run_nuts_chains, run_nuts_ensemble
 from .samplers.rmhmc import run_rmhmc, run_rmhmc_chains
+from .samplers.elliptical import (
+    EllipticalConfig,
+    EllipticalResult,
+    run_elliptical,
+    run_elliptical_chains,
+)
 from .samplers.smc import SMCConfig, run_smc, smc_posterior_sample
+from .samplers.stretch import StretchConfig, StretchResult, run_stretch
 from .samplers.tempering import PTConfig, run_parallel_tempering, run_pt_chains
 from .samplers.ti import TIConfig, run_ti
 from .samplers.sgmcmc import (
@@ -105,10 +127,21 @@ __all__ = [
     "run_mclmc_chains",
     "MCLMCConfig",
     "MCLMCResult",
+    "BarkerConfig",
+    "BarkerResult",
+    "run_barker",
+    "run_barker_chains",
     "MAMSConfig",
     "MAMSResult",
     "run_mams",
     "run_mams_chains",
+    "StretchConfig",
+    "StretchResult",
+    "run_stretch",
+    "EllipticalConfig",
+    "EllipticalResult",
+    "run_elliptical",
+    "run_elliptical_chains",
     "TIConfig",
     "run_ti",
     "waic",
@@ -125,6 +158,15 @@ __all__ = [
     "run_sgld_chains",
     "run_sghmc",
     "run_sghmc_chains",
+    "map_estimate",
+    "MAPResult",
+    "laplace_approx",
+    "laplace_sample",
+    "LaplaceResult",
+    "advi",
+    "advi_cov",
+    "advi_sample",
+    "ADVIResult",
 ]
 
 

@@ -8,14 +8,17 @@ has: single-chain and batched HMC (``run_hmc_checkpointed``,
 MAMS (``run_mams_checkpointed``), RMHMC (``run_rmhmc_checkpointed``),
 split HMC (``run_split_hmc_checkpointed``), ChEES (``run_chees_checkpointed``),
 SG-MCMC (``run_sgld_checkpointed``, ``run_sghmc_checkpointed``), parallel
-tempering (``run_pt_checkpointed``, one ladder or ensembles) and
-thermodynamic integration (``run_ti_checkpointed``).
+tempering (``run_pt_checkpointed``, one ladder or ensembles),
+thermodynamic integration (``run_ti_checkpointed``), the Barker proposal
+(``run_barker_checkpointed``) and the stretch move
+(``run_stretch_checkpointed``): all fifteen drivers of the JAX module.
 Sampling proceeds in chunks; after every chunk its trace goes to
 ``chunk_XXXXXXXX.npz`` and the whole resume carry (chain state with its
 cached potential evaluation, dual averaging, the windowed-warmup carry where
 there is one, MCLMC's tuned (eps, L) and velocity, ChEES's trajectory
-adaptation, SGHMC's momentum or pSGLD's accumulator, PT's ladder) to
-``state.npz``, written atomically, with the integer seed and the draw
+adaptation, SGHMC's momentum or pSGLD's accumulator, PT's ladder,
+Barker's Welford state, the stretch move's walkers) to ``state.npz``,
+written atomically, with the integer seed and the draw
 counter.  Calling again with the same arguments continues where the last
 completed chunk stopped.
 
@@ -1060,3 +1063,148 @@ def run_ti_checkpointed(
            _cat(zs, "swaps", 0, kept, device), ti_ladder(k, config.schedule_power, dtype, device),
            _da_of(carry[1]).step_size)
     return assemble_ti_result(out, config)
+
+
+def run_barker_checkpointed(
+    key: int,
+    log_prob_fn: Callable,
+    theta0,
+    config,  # BarkerConfig
+    ckpt_dir: str,
+    chunk_size: int = 1000,
+    scale=None,
+    data=None,
+    resume: bool = True,
+    pass_grad=None,
+):
+    """Barker proposal (``run_barker``) with per-chunk checkpointing.
+
+    The state file holds the chain's position, its dual-averaging state and
+    its Welford state; ``config.burn`` is a GLOBAL draw index, so the
+    step-size adaptation, the Welford window and the scale switch at
+    ``3*burn//4`` land on the draws of the straight run, and each draw's
+    noise is keyed on the global draw index: the result is ``run_barker``'s
+    with the same key bit for bit, at any chunking.  ``chunk_size`` counts
+    draws (rounded to a ``thin`` multiple); ``theta0`` may be flat or a
+    parameter tree (``scale`` may then be a per-leaf tree).
+    """
+    from .samplers.barker import (
+        BarkerResult,
+        BarkerStats,
+        _draw_scale,
+        _ravel_scale,
+        _run_barker,
+        init_barker_da,
+    )
+    from .samplers.mclmc import _bind_data, _prep_flat
+    from .samplers.warmup import WelfordState, welford_init
+
+    if config.burn >= config.num_samples:
+        raise RuntimeError("burn must be less than num_samples.")
+    theta0 = place_start(theta0)
+    scale_f = (_ravel_scale(scale, theta0) if is_param_tree(theta0)
+               else (1.0 if scale is None else scale))
+    theta0f, fn, unravel = _prep_flat(_bind_data(log_prob_fn, data), theta0, pass_grad)
+    dtype, device = theta0f.dtype, theta0f.device
+    carry0 = (theta0f[None], _da_tuple(init_barker_da(config, 1, device, dtype)),
+              tuple(welford_init(theta0f.shape[0], dtype, device, (1,))))
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        theta, da, wf = carry
+        r = _run_barker(seed, theta, fn, cfg, scale_f, init_da=_da_of(da),
+                        init_welford=WelfordState(*wf), start_step=n_done)
+        return r, (r.final_theta, _da_tuple(r.final_da), tuple(r.final_welford))
+
+    def save_chunk(r):
+        out = {"samples": r.samples[0]}
+        out.update({f: getattr(r.stats, f)[0] for f in BarkerStats._fields})
+        return out
+
+    zs, carry = _checkpoint_loop(chunk_runner, key, carry0, lambda: carry0, config, ckpt_dir,
+                                 chunk_size, resume,
+                                 _fingerprint(config, theta0, extra="barker"), save_chunk)
+    kept = config.num_samples // config.thin
+    stats = BarkerStats(**{f: _cat(zs, f, 0, kept, device) for f in BarkerStats._fields})
+    samples = _cat(zs, "samples", 0, kept, device)
+    theta, wf = carry[0][0], WelfordState(*carry[2])
+    da = DualAveragingState(*(t[0] for t in carry[1]))
+    burn_kept = config.burn // config.thin
+    tail = stats.accept_prob[burn_kept:] if kept > burn_kept else stats.accept_prob
+    # reduced as the straight run reduces its (1, N) row
+    acc_rate = torch.mean(tail[None], dim=1)[0]
+    scale_arr = torch.as_tensor(scale_f, dtype=dtype, device=device).expand(theta0f.shape)
+    if unravel is not None:
+        samples, theta = unravel(samples), unravel(theta)
+    return BarkerResult(
+        samples=samples, stats=stats,
+        step_size=torch.exp(da.log_eps_bar) if config.adapt_step_size else da.step_size,
+        acc_rate=acc_rate, final_theta=theta, final_da=da,
+        final_welford=WelfordState(*(t[0] for t in wf)),
+        final_step=torch.tensor(config.num_samples, dtype=torch.int32, device=device),
+        scale=_draw_scale(config, scale_arr, wf, config.num_samples, dtype)[0])
+
+
+def run_stretch_checkpointed(
+    key: int,
+    log_prob_fn: Callable,
+    theta0,
+    config,  # StretchConfig
+    ckpt_dir: str,
+    chunk_size: int = 1000,
+    num_walkers: int = 64,
+    data=None,
+    init_jitter: float = 1e-2,
+    resume: bool = True,
+):
+    """Stretch-move ensemble (``run_stretch``) with per-chunk checkpointing.
+
+    The state file holds the walker matrix and its cached log-densities;
+    each iteration's noise is keyed on the global iteration index, so the
+    result is ``run_stretch``'s with the same key bit for bit, at any
+    chunking.  ``chunk_size`` counts iterations (rounded to a ``thin``
+    multiple); ``theta0`` may be flat, an explicit walker matrix, or a
+    parameter tree.
+    """
+    from .samplers.mclmc import _bind_data
+    from .samplers.stretch import (
+        StretchResult,
+        StretchStats,
+        _prep_walkers,
+        _run_stretch,
+        logp_dtype,
+    )
+
+    theta0 = place_start(theta0)
+    walkers0, fn, unravel = _prep_walkers(key, _bind_data(log_prob_fn, data), theta0,
+                                          num_walkers, init_jitter)
+    device = walkers0.device
+    template = (walkers0, torch.zeros((num_walkers,), dtype=logp_dtype(walkers0.dtype),
+                                      device=device))
+
+    def init_carry_fn():
+        return (walkers0, None)
+
+    def chunk_runner(seed, carry, n_done, cfg):
+        r = _run_stretch(seed, carry[0], fn, cfg, num_walkers, init_logp=carry[1],
+                         start_step=n_done)
+        return r, (r.final_walkers, r.final_logp)
+
+    def save_chunk(r):
+        out = {"samples": r.samples}
+        out.update({f: getattr(r.stats, f) for f in StretchStats._fields})
+        return out
+
+    zs, carry = _checkpoint_loop(chunk_runner, key, template, init_carry_fn, config, ckpt_dir,
+                                 chunk_size, resume,
+                                 _fingerprint(config, theta0, extra=("stretch", num_walkers)),
+                                 save_chunk)
+    kept = config.num_samples // config.thin
+    stats = StretchStats(**{f: _cat(zs, f, 0, kept, device) for f in StretchStats._fields})
+    samples = _cat(zs, "samples", 0, kept, device)
+    walkers, logp = carry
+    if unravel is not None:
+        samples, walkers = unravel(samples), unravel(walkers)
+    return StretchResult(
+        samples=samples, stats=stats, acc_rate=torch.mean(stats.accept_frac),
+        final_walkers=walkers, final_logp=logp,
+        final_step=torch.tensor(config.num_samples, dtype=torch.int32, device=device))

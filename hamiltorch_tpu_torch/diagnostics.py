@@ -20,7 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .utils.pytree import tree_leaves, unravel_last_axis_fn
+from .utils.pytree import tree_leaves, tree_map, unravel_last_axis_fn
 
 
 def as_flat_samples(samples, like=None) -> torch.Tensor:
@@ -286,10 +286,16 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
     - ``TIResult`` (``run_ti``): the beta=1 rung as one chain, its
       acceptance and the last pair's swap outcomes;
     - ``SMCResult`` (``run_smc``): the final particles as one chain of N
-      draws, with their normalised log-weights.
+      draws, with their normalised log-weights;
+    - ``StretchResult`` (``run_stretch``): the walkers as chains, the
+      ensemble's acceptance fraction and divergence flag broadcast to every
+      walker;
+    - ``EllipticalResult`` (``run_elliptical*``): shrink counts, the kept
+      state's log-likelihood and divergences (no acceptance series);
+    - ``BarkerResult`` (``run_barker*``): acceptance, divergences and step
+      size.
 
-    Other families (Barker, stretch, elliptical, ...) are not ported yet
-    and raise ``NotImplementedError``.  ``like`` is accepted for symmetry with
+    SVGD, still to port, raises ``NotImplementedError``.  ``like`` is accepted for symmetry with
     ``summary``: the stats' shapes give the chain and draw axes.
     """
     del like
@@ -309,8 +315,9 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
             "to_inference_dict takes the results of the samplers ported to "
             "hamiltorch_tpu_torch (MCMCResult, with a NUTSInfo for NUTS, "
             "MCLMCResult, MAMSResult, ChEESResult, SGMCMCResult, "
-            "CSGMCMCResult, PTResult, TIResult, SMCResult); the other "
-            "families are not ported yet, see ROADMAP.md"
+            "CSGMCMCResult, PTResult, TIResult, SMCResult, StretchResult, "
+            "EllipticalResult, BarkerResult); SVGD is not ported yet, see "
+            "ROADMAP.md"
         )
     if hasattr(result, "loglik_draws"):  # TIResult
         acc = _np(result.info.accept_prob)
@@ -358,6 +365,32 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
             "trajectory_length": np.broadcast_to(
                 _np(result.trajectory_length).reshape(-1, 1), shape),
         }}
+    # the JAX package's order of checks: a BarkerResult carries final_da and
+    # final_theta too, so it is tested before MAMS
+    if hasattr(result, "final_walkers"):  # StretchResult: walkers export as chains
+        samples = tree_map(lambda leaf: torch.movedim(torch.as_tensor(leaf), 0, 1),
+                           result.samples)
+        post = _posterior_vars(samples, True)
+        k_walk, n_kept = next(iter(post.values())).shape[:2]
+        # the accept fraction is ensemble-wide a kept iteration
+        return {"posterior": post, "sample_stats": {
+            "acceptance_rate": np.broadcast_to(_np(s.accept_frac)[None, :], (k_walk, n_kept)),
+            "diverging": np.broadcast_to(_np(s.divergent)[None, :], (k_walk, n_kept)),
+        }}
+    if hasattr(result, "final_loglik"):  # EllipticalResult: no acceptance series
+        chains_first = s.shrinks.ndim == 2
+        return {"posterior": _posterior_vars(result.samples, chains_first), "sample_stats": {
+            "diverging": cn(s.divergent, chains_first),
+            "n_shrinks": cn(s.shrinks, chains_first),
+            "loglik": cn(s.loglik, chains_first),
+        }}
+    if hasattr(result, "final_welford"):  # BarkerResult: acceptance, no energies
+        chains_first = s.accept_prob.ndim == 2
+        return {"posterior": _posterior_vars(result.samples, chains_first), "sample_stats": {
+            "acceptance_rate": cn(s.accept_prob, chains_first),
+            "diverging": cn(s.divergent, chains_first),
+            "step_size": cn(s.step_size, chains_first),
+        }}
     if hasattr(result, "final_da") and hasattr(result, "final_theta"):  # MAMSResult
         chains_first = s.accept_prob.ndim == 2
         return {"posterior": _posterior_vars(result.samples, chains_first), "sample_stats": {
@@ -387,8 +420,7 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
         }}
     raise NotImplementedError(
         f"to_inference_dict: {type(result).__name__} is not a result of a sampler "
-        "ported to hamiltorch_tpu_torch yet (Barker, stretch and elliptical are "
-        "still to come); see ROADMAP.md"
+        "ported to hamiltorch_tpu_torch yet (SVGD is still to come); see ROADMAP.md"
     )
 
 

@@ -1,6 +1,13 @@
 from .adaptation import DualAveragingState, da_init, da_update
 from .chees import ChEESConfig, ChEESResult, run_chees
 from .driver import ChainState, MCMCConfig, MCMCResult, MCMCStats, run_mcmc
+from .elliptical import (
+    EllipticalConfig,
+    EllipticalResult,
+    EllipticalStats,
+    run_elliptical,
+    run_elliptical_chains,
+)
 from .hmc import hmc_transition, run_hmc, run_hmc_chains, run_hmc_host_offload
 from .mams import MAMSConfig, MAMSResult, MAMSStats, run_mams, run_mams_chains
 from .mclmc import MCLMCConfig, MCLMCResult, MCLMCStats, run_mclmc, run_mclmc_chains
@@ -18,11 +25,13 @@ from .sgmcmc import (
 )
 from .smc import SMCConfig, SMCResult, run_smc, smc_posterior_sample
 from .splitting import run_split_hmc, run_split_hmc_chains, run_split_hmc_stacked
+from .stretch import StretchConfig, StretchResult, StretchStats, run_stretch
 from .tempering import PTConfig, PTResult, run_parallel_tempering, run_pt_chains
 from .ti import TIConfig, TIResult, evidence_from_loglik_draws, run_ti
 
 # the JAX package's list (hamiltorch_tpu/samplers/__init__.py), in its order,
-# for the samplers ported so far
+# for the samplers ported so far; every name listed is imported above (the
+# JAX list names Stretch* without importing them)
 __all__ = [
     "ChainState",
     "MCMCConfig",
@@ -67,6 +76,15 @@ __all__ = [
     "MAMSStats",
     "run_mams",
     "run_mams_chains",
+    "StretchConfig",
+    "StretchResult",
+    "StretchStats",
+    "run_stretch",
+    "EllipticalConfig",
+    "EllipticalResult",
+    "EllipticalStats",
+    "run_elliptical",
+    "run_elliptical_chains",
     "TIConfig",
     "TIResult",
     "run_ti",

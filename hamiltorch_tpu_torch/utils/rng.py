@@ -41,6 +41,16 @@ _MASK64 = (1 << 64) - 1
 # trajectory jitter on the host from draw_seed(key, 1, SMC_STREAM + k), the
 # prior draw's seed draw_seed(key, 2, SMC_STREAM) and the uniform of
 # ``smc_posterior_sample`` from draw_seed(key, 3, SMC_STREAM).
+# The next four follow the same design (``stream_generator``): at global
+# draw n ONE generator seeded by draw_seed(key, 0, stream + n) draws the
+# noise of every chain or walker.  BARKER_STREAM holds a Barker draw's
+# increments, keep uniforms and Metropolis uniforms; STRETCH_STREAM a
+# stretch-move iteration's z uniforms, partner indices and Metropolis
+# uniforms, and its start jitter from draw_seed(key, 1, STRETCH_STREAM);
+# ELLIPTICAL_STREAM an elliptical-slice draw's prior normals, slice-level
+# and angle uniforms, then one uniform a lane a shrink iteration, in order;
+# OPTIM_STREAM ADVI's Monte Carlo normals at step i, and the draws of
+# ``laplace_sample`` / ``advi_sample`` from draw_seed(key, 1, OPTIM_STREAM).
 MAMS_STREAM = 2**40
 NUTS_STREAM = 2**41
 AUX_STREAM = 2**42
@@ -51,6 +61,10 @@ SPREAD_STREAM = 2**46
 PT_STREAM = 2**47
 TI_STREAM = 2**48
 SMC_STREAM = 2**49
+BARKER_STREAM = 2**50
+STRETCH_STREAM = 2**51
+ELLIPTICAL_STREAM = 2**52
+OPTIM_STREAM = 2**53
 
 _global_gen: torch.Generator | None = None
 
@@ -256,3 +270,16 @@ def draw_smc_posterior_uniform(key: int) -> float:
     SMC_STREAM)``."""
     gen = torch.Generator().manual_seed(draw_seed(key, 3, SMC_STREAM))
     return float(torch.rand((), generator=gen, dtype=torch.float64))
+
+
+def stream_generator(key: int, stream: int, n: int, device=None, slot: int = 0
+                     ) -> torch.Generator:
+    """ONE generator on ``device`` (the CPU when None) seeded by
+    ``draw_seed(key, slot, stream + n)``: the noise of every chain of draw
+    ``n`` of a stream.  Callers draw with ``device=gen.device`` and move the
+    result to their own device, so a CPU generator put in its place (as the
+    card tests do) gives the card the CPU's numbers."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(draw_seed(key, slot, stream + n))
+    return gen

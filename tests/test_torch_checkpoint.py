@@ -3,8 +3,8 @@
 For each of the six runners (HMC, HMC chains, NUTS, the pooled NUTS
 ensemble, MCLMC, MAMS), on a small Gaussian with windowed warmup where the
 sampler has it (burn 160 puts a slow window across the chunks), and for
-RMHMC, split HMC, ChEES (flat, tree, dense warmup with ``thin``) and
-SGLD / pSGLD / SGHMC:
+RMHMC, split HMC, ChEES (flat, tree, dense warmup with ``thin``),
+SGLD / pSGLD / SGHMC, PT, TI, Barker and the stretch move:
 
 * a run stopped part-way and resumed equals the straight sampler call with
   the same key bit for bit, at two chunkings (every draw's noise is keyed
@@ -551,3 +551,88 @@ def test_ti_resume_from_a_longer_completed_run_truncates(tmp_path, jax_written_d
         ck.run_ti_checkpointed(5, ti_prior, ti_lik, start(), ti_config(30), j)
     with pytest.raises(RuntimeError, match="burn"):
         ck.run_ti_checkpointed(5, ti_prior, ti_lik, start(), ti_config(20), str(tmp_path / "b"))
+
+
+def barker_config(num_samples, **kw):
+    # burn 20 puts the Welford window [5, 15) and the scale switch at 15 across chunks
+    return tht.BarkerConfig(num_samples=num_samples, burn=20, step_size=0.8, adapt_scale=True,
+                            **kw)
+
+
+GRADIENT_FREE_STARTS = {"flat": start, "tree": tree_start,
+                        "bfloat16": lambda: start(torch.bfloat16)}
+
+
+def barker_pair(name, num_samples, ckpt_dir, chunk, **kw):
+    lp = tree_log_prob if name == "tree" else log_prob
+    theta0 = GRADIENT_FREE_STARTS[name]
+    return (ck.run_barker_checkpointed(5, lp, theta0(), barker_config(num_samples, **kw),
+                                       ckpt_dir, chunk_size=chunk),
+            tht.run_barker(5, lp, theta0(), barker_config(num_samples, **kw)))
+
+
+def stretch_pair(name, num_samples, ckpt_dir, chunk, **kw):
+    lp = tree_log_prob if name == "tree" else log_prob
+    theta0 = GRADIENT_FREE_STARTS[name]
+    cfg = tht.StretchConfig(num_samples=num_samples, **kw)
+    return (ck.run_stretch_checkpointed(5, lp, theta0(), cfg, ckpt_dir, chunk_size=chunk,
+                                        num_walkers=8),
+            tht.run_stretch(5, lp, theta0(), cfg, num_walkers=8))
+
+
+@pytest.mark.parametrize("sampler", ["barker", "stretch"])
+@pytest.mark.parametrize("name", sorted(GRADIENT_FREE_STARTS))
+def test_gradient_free_resume_equals_the_straight_run_at_two_chunkings(sampler, name, tmp_path):
+    """A run stopped after 25 draws and resumed to 40 equals the straight
+    run, at chunks of 7 and 16 (Barker's adaptation windows cross them); a
+    bfloat16 state keeps its dtype through the files."""
+    pair = barker_pair if sampler == "barker" else stretch_pair
+    for chunk in (7, 16):
+        d = str(tmp_path / f"c{chunk}")
+        assert_same(*pair(name, 25, d, chunk))
+        got, want = pair(name, 40, d, chunk)
+        assert_same(got, want)
+        assert "chunk_00000025.npz" in os.listdir(d)  # the second call resumed at draw 25
+    assert tree_leaves(want.samples)[0].dtype == tree_leaves(GRADIENT_FREE_STARTS[name]())[0].dtype
+
+
+def test_gradient_free_thin_and_longer_directories(tmp_path):
+    got, want = barker_pair("flat", 40, str(tmp_path / "b"), 9, thin=2)
+    assert_same(got, want)
+    assert got.samples.shape == (20, 4)
+    got, want = stretch_pair("flat", 40, str(tmp_path / "s"), 9, thin=4)
+    assert_same(got, want)
+    assert got.samples.shape == (10, 8, 4)
+    # a directory left by a longer completed run gives exactly the requested
+    # draws (its final state is the longer run's, as in the JAX package)
+    short, want = stretch_pair("flat", 32, str(tmp_path / "s"), 9, thin=4)
+    assert same_bits(short.samples, want.samples)
+    assert_same(short.stats, want.stats)
+
+
+def test_gradient_free_refuse_a_changed_option_and_a_jax_directory(tmp_path, jax_written_dir):
+    d = str(tmp_path / "b")
+    barker_pair("flat", 25, d, 10)
+    with pytest.raises(ValueError, match="fingerprint"):
+        ck.run_barker_checkpointed(5, log_prob, start(), barker_config(40, thin=5), d)
+    with pytest.raises(ValueError, match="fingerprint"):  # another start dtype
+        ck.run_barker_checkpointed(5, log_prob, start(torch.float64), barker_config(40), d)
+    d = str(tmp_path / "s")
+    stretch_pair("flat", 25, d, 10)
+    with pytest.raises(ValueError, match="fingerprint"):
+        ck.run_stretch_checkpointed(5, log_prob, start(), tht.StretchConfig(num_samples=40),
+                                    d, num_walkers=10)
+    with pytest.raises(ValueError, match="fingerprint"):
+        ck.run_stretch_checkpointed(5, log_prob, start(), tht.StretchConfig(num_samples=40, a=3.0),
+                                    d, num_walkers=8)
+    for runner in ("barker", "stretch"):
+        j = str(tmp_path / f"jax_{runner}")
+        shutil.copytree(jax_written_dir, j)
+        with pytest.raises(ValueError, match="fingerprint"):
+            if runner == "barker":
+                ck.run_barker_checkpointed(5, log_prob, start(), barker_config(40), j)
+            else:
+                ck.run_stretch_checkpointed(5, log_prob, start(), tht.StretchConfig(num_samples=40),
+                                            j, num_walkers=8)
+    with pytest.raises(RuntimeError, match="burn"):
+        ck.run_barker_checkpointed(5, log_prob, start(), barker_config(20), str(tmp_path / "x"))

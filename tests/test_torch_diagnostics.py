@@ -157,6 +157,7 @@ def _runs(form):
     pt = dict(num_samples=6, num_steps_per_sample=3, step_size=0.3, num_temps=3, burn=2)
     ti = dict(num_samples=6, num_steps_per_sample=3, step_size=0.3, num_temps=3, burn=2)
     smc = dict(num_particles=8, num_temps=3, mcmc_steps=2, leapfrog_steps=3)
+    barker = dict(num_samples=6, burn=2)
 
     def j_prior(t):
         return -0.5 * sum(jnp.sum(leaf ** 2) for leaf in jax.tree_util.tree_leaves(t))
@@ -207,6 +208,17 @@ def _runs(form):
                jht.run_ti(key, j_prior, j_lp, j0, jht.TIConfig(**ti))),
         "smc": (tht.run_smc(0, t_prior, t_lp, t_prior_sample, tht.SMCConfig(**smc)),
                 jht.run_smc(key, j_prior, j_lp, j_prior_sample, jht.SMCConfig(**smc))),
+        "barker": (tht.run_barker(0, t_lp, t0, tht.BarkerConfig(**barker)),
+                   jht.run_barker(key, j_lp, j0, jht.BarkerConfig(**barker))),
+        "barker_chains": (tht.run_barker_chains(0, t_lp, t0, tht.BarkerConfig(**barker), 2),
+                          jht.run_barker_chains(key, j_lp, j0, jht.BarkerConfig(**barker), 2)),
+        "stretch": (tht.run_stretch(0, t_lp, t0, tht.StretchConfig(num_samples=5), 8),
+                    jht.run_stretch(key, j_lp, j0, jht.StretchConfig(num_samples=5), 8)),
+        "elliptical": (tht.run_elliptical(0, t_lp, t0, tht.EllipticalConfig(num_samples=5)),
+                       jht.run_elliptical(key, j_lp, j0, jht.EllipticalConfig(num_samples=5))),
+        "elliptical_chains": (
+            tht.run_elliptical_chains(0, t_lp, t0, tht.EllipticalConfig(num_samples=5), 2),
+            jht.run_elliptical_chains(key, j_lp, j0, jht.EllipticalConfig(num_samples=5), 2)),
     }
 
 
@@ -268,11 +280,36 @@ def test_inference_dict_of_the_tempered_families():
     np.testing.assert_array_equal(d["sample_stats"]["log_weight"], smc.log_weights.numpy()[None])
 
 
+def test_inference_dict_of_the_gradient_free_families():
+    """The stretch move's walkers export as chains with the ensemble's
+    acceptance fraction broadcast to each; elliptical slice gives shrinks
+    and log-likelihoods; Barker its acceptance and step size (tested before
+    MAMS's branch: a BarkerResult also has final_da and final_theta)."""
+    runs = _runs("flat")
+    st = runs["stretch"][0]
+    d = tdiag.to_inference_dict(st)
+    np.testing.assert_array_equal(d["posterior"]["theta"], st.samples.numpy().swapaxes(0, 1))
+    np.testing.assert_array_equal(d["sample_stats"]["acceptance_rate"],
+                                  np.broadcast_to(st.stats.accept_frac.numpy(), (8, 5)))
+    el = runs["elliptical_chains"][0]
+    d = tdiag.to_inference_dict(el)
+    np.testing.assert_array_equal(d["sample_stats"]["n_shrinks"], el.stats.shrinks.numpy())
+    np.testing.assert_array_equal(d["sample_stats"]["loglik"], el.stats.loglik.numpy())
+    el = runs["elliptical"][0]
+    assert tdiag.to_inference_dict(el)["sample_stats"]["n_shrinks"].shape == (1, 5)
+    ba = runs["barker"][0]
+    d = tdiag.to_inference_dict(ba)
+    assert sorted(d["sample_stats"]) == ["acceptance_rate", "diverging", "step_size"]
+    np.testing.assert_array_equal(d["sample_stats"]["step_size"], ba.stats.step_size.numpy()[None])
+    tree = tdiag.to_inference_dict(_runs("tree")["stretch"][0])
+    assert tree["posterior"]["w"].shape == (8, 5, 3)
+
+
 def test_inference_dict_refuses_families_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdiag.to_inference_dict(("result", "info"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdiag.to_inference_dict(type("BarkerResult", (), {"samples": 0, "stats": 0})())
+    with pytest.raises(NotImplementedError, match="SVGD"):
+        tdiag.to_inference_dict(type("SVGDResult", (), {"samples": 0, "stats": 0})())
 
 
 def test_to_arviz_needs_arviz():

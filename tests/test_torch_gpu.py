@@ -497,7 +497,10 @@ SAMPLER_ENTRIES = ["sample", "sample_nuts", "sample_offload", "run_hmc", "run_hm
                    "run_sgld", "run_sgld_chains", "run_sghmc", "run_sghmc_chains",
                    "run_csgmcmc", "run_csgmcmc_chains", "run_sgld_checkpointed",
                    "run_sghmc_checkpointed", "run_parallel_tempering", "run_pt_chains",
-                   "run_pt_checkpointed", "run_ti", "run_ti_checkpointed", "run_smc"]
+                   "run_pt_checkpointed", "run_ti", "run_ti_checkpointed", "run_smc",
+                   "run_barker", "run_barker_chains", "run_barker_checkpointed", "run_stretch",
+                   "run_stretch_checkpointed", "run_elliptical", "run_elliptical_chains",
+                   "map_estimate", "laplace_approx", "advi"]
 # entry points that take a flat start only, as in the JAX package
 FLAT_ONLY = ("run_rmhmc_host_offload", "run_rmhmc_checkpointed")
 
@@ -530,6 +533,9 @@ def call_entry(entry, theta0, ckpt_dir):
     ti = tht.TIConfig(num_samples=3, num_steps_per_sample=2, step_size=0.2, num_temps=3,
                       burn=1)
     smc = tht.SMCConfig(num_particles=4, num_temps=2, mcmc_steps=1, leapfrog_steps=2)
+    barker = tht.BarkerConfig(num_samples=3, burn=1)
+    stretch = tht.StretchConfig(num_samples=3)
+    ess = tht.EllipticalConfig(num_samples=3)
 
     def split_term(t, m):
         return 0.5 * _leaf_lp(t)
@@ -610,12 +616,28 @@ def call_entry(entry, theta0, ckpt_dir):
         "run_ti_checkpointed": lambda: ck.run_ti_checkpointed(0, _leaf_lp, _leaf_lp, theta0, ti,
                                                               ckpt_dir),
         "run_smc": lambda: tht.run_smc(0, _leaf_lp, _leaf_lp, prior_sample, smc),
+        "run_barker": lambda: tht.run_barker(0, _leaf_lp, theta0, barker),
+        "run_barker_chains": lambda: tht.run_barker_chains(0, _leaf_lp, theta0, barker, 2),
+        "run_barker_checkpointed": lambda: ck.run_barker_checkpointed(0, _leaf_lp, theta0,
+                                                                      barker, ckpt_dir),
+        "run_stretch": lambda: tht.run_stretch(0, _leaf_lp, theta0, stretch, 4),
+        "run_stretch_checkpointed": lambda: ck.run_stretch_checkpointed(
+            0, _leaf_lp, theta0, stretch, ckpt_dir, num_walkers=4),
+        "run_elliptical": lambda: tht.run_elliptical(0, _leaf_lp, theta0, ess),
+        "run_elliptical_chains": lambda: tht.run_elliptical_chains(0, _leaf_lp, theta0, ess, 2),
+        "map_estimate": lambda: tht.map_estimate(_leaf_lp, theta0, num_steps=3),
+        "laplace_approx": lambda: tht.laplace_approx(_leaf_lp, theta0),
+        "advi": lambda: tht.advi(_leaf_lp, theta0, num_steps=3),
     }
     out = calls[entry]()
     if hasattr(out, "log_weights"):  # SMC: the final population
         return out.particles, out.particles
     if hasattr(out, "loglik_draws"):  # TI: the beta=1 rung's trace
         return out.samples, out.samples
+    if isinstance(out, (tht.MAPResult, tht.LaplaceResult, tht.ADVIResult)):
+        return (out.theta, out.final_theta) if hasattr(out, "theta") else (out.mean, out.mean)
+    if hasattr(out, "final_walkers"):
+        return out.samples, out.final_walkers
     if hasattr(out, "final_state"):
         final = out.final_state.theta
     elif hasattr(out, "final_carry"):  # ChEES, PT
@@ -1139,3 +1161,187 @@ def test_checkpointed_tempering_on_card_matches_cpu_in_float64(cuda_device, tmp_
 
 def tree_equal(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+
+# --- Barker, the stretch move, elliptical slice and optim: card against CPU -------------
+
+
+def _ripple_lp(t):
+    return -0.5 * torch.sum((t / torch.linspace(0.5, 2.0, t.shape[-1], dtype=t.dtype,
+                                                device=t.device)) ** 2) + 0.2 * torch.sum(
+        torch.cos(t))
+
+
+def _max_rel(card, host):
+    return float((card.cpu() - host).abs().max()) / float(host.abs().max())
+
+
+# (name, chains, config kwargs)
+BARKER_CARD = [("single-both-adaptations", None, dict(num_samples=48, burn=16, adapt_scale=True,
+                                                       desired_accept_rate=0.95)),
+               ("chains-scale-fixed-step", 4, dict(num_samples=60, burn=40, adapt_scale=True,
+                                                   adapt_step_size=False, step_size=0.9))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,chains,cfg_kw", BARKER_CARD, ids=[c[0] for c in BARKER_CARD])
+def test_barker_on_card_matches_cpu_in_float64(cuda_device, name, chains, cfg_kw):
+    """run_barker / run_barker_chains, float64, the same injected noise:
+    identical accepts and divergences, positions within 1e-10 of max
+    |theta| (dual averaging at an acceptance target of 0.95, as the other
+    float64 comparisons with adaptation run)."""
+    import hamiltorch_tpu_torch as tht
+
+    d, draws = 6, cfg_kw["num_samples"]
+    lead = (draws,) if chains is None else (draws, chains)
+    rng = np.random.RandomState(21)
+    noise = {"z": torch.as_tensor(rng.randn(*lead, d)),
+             "u_keep": torch.as_tensor(rng.rand(*lead, d)),
+             "u_mh": torch.as_tensor(rng.rand(*lead).astype(np.float32))}
+    cfg = tht.BarkerConfig(**cfg_kw)
+
+    def go(device):
+        t0 = torch.full((d,), 0.3, dtype=torch.float64, device=device)
+        nz = {k: v.to(device) for k, v in noise.items()}
+        if chains is None:
+            return tht.run_barker(0, _ripple_lp, t0, cfg, _noise=nz)
+        return tht.run_barker_chains(0, _ripple_lp, t0, cfg, chains, _noise=nz)
+
+    card, host = go(cuda_device), go("cpu")
+    assert torch.equal(card.stats.accepted.cpu(), host.stats.accepted)
+    assert torch.equal(card.stats.divergent.cpu(), host.stats.divergent)
+    assert 0.0 < float(host.stats.accepted.float().mean()) < 1.0
+    assert _max_rel(card.samples, host.samples) <= 1e-10
+    assert _max_rel(card.scale, host.scale) <= 1e-10
+
+
+@pytest.mark.gpu
+def test_stretch_on_card_matches_cpu_in_float64(cuda_device):
+    import hamiltorch_tpu_torch as tht
+
+    k, d, iters = 16, 4, 60
+    rng = np.random.RandomState(22)
+    noise = {"u_z": torch.as_tensor(rng.rand(iters, 2, k // 2)),
+             "j": torch.as_tensor(rng.randint(0, k // 2, (iters, 2, k // 2))),
+             "u_mh": torch.as_tensor(rng.rand(iters, 2, k // 2).astype(np.float32))}
+    walkers = rng.randn(k, d)
+
+    def go(device):
+        return tht.run_stretch(0, _ripple_lp, torch.as_tensor(walkers, device=device),
+                               tht.StretchConfig(num_samples=iters, thin=2), k,
+                               _noise={n: v.to(device) for n, v in noise.items()})
+
+    card, host = go(cuda_device), go("cpu")
+    assert torch.equal(card.stats.accept_frac.cpu(), host.stats.accept_frac)
+    assert _max_rel(card.samples, host.samples) <= 1e-10
+    assert _max_rel(card.final_logp, host.final_logp) <= 1e-10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prior", ["diag-mean", "cholesky"])
+def test_elliptical_on_card_matches_cpu_in_float64(cuda_device, prior):
+    """run_elliptical_chains, float64: identical shrink counts, positions
+    within 1e-10 of max |theta| (the likelihood in float32, as the JAX
+    package keeps it, is compared with its slice level in float32 on both
+    sides)."""
+    import hamiltorch_tpu_torch as tht
+
+    c, d, draws, cap = 4, 5, 40, 64
+    rng = np.random.RandomState(23)
+    noise = {"nu": torch.as_tensor(rng.randn(draws, c, d)),
+             "u": torch.as_tensor(rng.rand(draws, c).astype(np.float32)),
+             "t0": torch.as_tensor(rng.rand(draws, c).astype(np.float32)),
+             "t_shrink": torch.as_tensor(rng.rand(draws, c, cap).astype(np.float32))}
+    a = rng.randn(d, d)
+    scale = (np.linalg.cholesky(a @ a.T / d + np.eye(d)) if prior == "cholesky"
+             else np.linspace(0.5, 2.0, d))
+    mean = None if prior == "cholesky" else rng.randn(d)
+
+    def go(device):
+        return tht.run_elliptical_chains(
+            0, lambda t: -0.5 * torch.sum(((t - 1.0) / 0.5) ** 2),
+            torch.zeros(d, dtype=torch.float64, device=device), tht.EllipticalConfig(draws), c,
+            prior_scale=torch.as_tensor(scale, device=device),
+            prior_mean=None if mean is None else torch.as_tensor(mean, device=device),
+            _noise={n: v.to(device) for n, v in noise.items()})
+
+    card, host = go(cuda_device), go("cpu")
+    assert torch.equal(card.stats.shrinks.cpu(), host.stats.shrinks)
+    assert int(host.stats.shrinks.max()) >= 2
+    assert _max_rel(card.samples, host.samples) <= 1e-10
+
+
+@pytest.mark.gpu
+def test_gradient_free_default_noise_on_card_equals_cpu_with_cpu_generators(cuda_device,
+                                                                          monkeypatch):
+    """The samplers' own streams: with the generator put on the CPU, the card
+    runs the CPU's draws (one generator a draw for every chain)."""
+    import hamiltorch_tpu_torch as tht
+    from hamiltorch_tpu_torch.samplers import barker, elliptical, stretch
+    from hamiltorch_tpu_torch.utils import rng as trng
+
+    def cpu_generator(key, stream, n, device=None, slot=0):
+        return trng.stream_generator(key, stream, n, "cpu", slot)
+
+    for mod in (barker, elliptical, stretch):
+        monkeypatch.setattr(mod, "stream_generator", cpu_generator)
+
+    def go(device):
+        t0 = torch.zeros(4, dtype=torch.float64, device=device)
+        return (tht.run_barker_chains(1, _ripple_lp, t0, tht.BarkerConfig(30, burn=10), 3).samples,
+                tht.run_stretch(1, _ripple_lp, t0, tht.StretchConfig(30), 8).samples,
+                tht.run_elliptical_chains(1, _ripple_lp, t0, tht.EllipticalConfig(30), 3).samples)
+
+    for card, host in zip(go(cuda_device), go("cpu")):
+        assert card.device.type == "cuda" and _max_rel(card, host) <= 1e-10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("runner", ["barker", "stretch"])
+def test_gradient_free_checkpoints_on_card(cuda_device, tmp_path, runner):
+    """Stopped part-way and resumed on the card: the straight run bit for bit."""
+    import dataclasses
+
+    import hamiltorch_tpu_torch as tht
+    from hamiltorch_tpu_torch import checkpoint as ck
+
+    t0 = torch.zeros(4, device=cuda_device)
+    if runner == "barker":
+        cfg = tht.BarkerConfig(num_samples=40, burn=20, adapt_scale=True)
+        want = tht.run_barker(2, _ripple_lp, t0, cfg)
+        ck.run_barker_checkpointed(2, _ripple_lp, t0, dataclasses.replace(cfg, num_samples=25),
+                                   str(tmp_path), chunk_size=7)
+        got = ck.run_barker_checkpointed(2, _ripple_lp, t0, cfg, str(tmp_path), chunk_size=7)
+        assert torch.equal(got.scale, want.scale)
+    else:
+        cfg = tht.StretchConfig(num_samples=40)
+        want = tht.run_stretch(2, _ripple_lp, t0, cfg, 8)
+        ck.run_stretch_checkpointed(2, _ripple_lp, t0, dataclasses.replace(cfg, num_samples=25),
+                                    str(tmp_path), chunk_size=7, num_walkers=8)
+        got = ck.run_stretch_checkpointed(2, _ripple_lp, t0, cfg, str(tmp_path), chunk_size=7,
+                                          num_walkers=8)
+    assert got.samples.device.type == "cuda" and torch.equal(got.samples, want.samples)
+
+
+@pytest.mark.gpu
+def test_optim_on_card_matches_cpu_in_float64(cuda_device):
+    """map_estimate (Adam on the card, the same update), advi mean-field and
+    full-rank on injected normals, laplace_approx: within 1e-10."""
+    import hamiltorch_tpu_torch as tht
+
+    rng = np.random.RandomState(24)
+    noise = torch.as_tensor(rng.randn(150, 4, 5))
+
+    def go(device):
+        t0 = torch.zeros(5, dtype=torch.float64, device=device)
+        m = tht.map_estimate(_ripple_lp, t0, num_steps=200, learning_rate=0.05)
+        lap = tht.laplace_approx(_ripple_lp, m.theta)
+        fits = [tht.advi(_ripple_lp, t0, num_steps=150, learning_rate=0.05, method=method,
+                         _noise=noise.to(device)) for method in ("meanfield", "fullrank")]
+        return [m.theta, lap.cov, lap.log_evidence] + [f.mean for f in fits] + [
+            fits[0].log_std, fits[1].scale_tril]
+
+    for card, host in zip(go(cuda_device), go("cpu")):
+        assert card.device.type == "cuda"
+        assert float((card.cpu() - host).abs().max()) <= 1e-10 * max(float(host.abs().max()), 1.0)

@@ -100,7 +100,8 @@ def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
 def test_exports_mirror_the_jax_package(module):
     """``__all__`` of ``samplers`` lists the JAX package's names that the
     port has, in the JAX package's order, and nothing else; the top level
-    exports MAMS, ChEES, SG-MCMC, PT, TI and SMC as the JAX package does.  Every name
+    exports MAMS, ChEES, SG-MCMC, PT, TI, SMC, Barker, the stretch move,
+    elliptical slice and ``optim`` as the JAX package does.  Every name
     resolves."""
     import importlib
 
@@ -121,12 +122,55 @@ def test_exports_mirror_the_jax_package(module):
                                      "run_parallel_tempering", "run_pt_chains", "TIConfig",
                                      "TIResult", "evidence_from_loglik_draws", "run_ti",
                                      "SMCConfig", "SMCResult", "run_smc",
-                                     "smc_posterior_sample"}
+                                     "smc_posterior_sample", "StretchConfig", "StretchResult",
+                                     "StretchStats", "run_stretch", "EllipticalConfig",
+                                     "EllipticalResult", "EllipticalStats", "run_elliptical",
+                                     "run_elliptical_chains"}
     else:
         assert {"MAMSConfig", "MAMSResult", "run_mams", "run_mams_chains", "ChEESConfig",
                 "ChEESResult", "run_chees", "SGLDConfig", "SGHMCConfig", "CSGMCMCConfig",
                 "run_csgmcmc", "run_csgmcmc_chains", "run_sgld", "run_sgld_chains",
                 "run_sghmc", "run_sghmc_chains", "PTConfig", "run_parallel_tempering",
                 "run_pt_chains", "SMCConfig", "run_smc", "smc_posterior_sample", "TIConfig",
-                "run_ti"} <= set(port.__all__)
+                "run_ti", "BarkerConfig", "BarkerResult", "run_barker", "run_barker_chains",
+                "StretchConfig", "StretchResult", "run_stretch", "EllipticalConfig",
+                "EllipticalResult", "run_elliptical", "run_elliptical_chains", "map_estimate",
+                "MAPResult", "laplace_approx", "laplace_sample", "LaplaceResult", "advi",
+                "advi_cov", "advi_sample", "ADVIResult"} <= set(port.__all__)
+        # what the top level still lacks is SVGD alone
+        assert set(jax_mod.__all__) - set(port.__all__) == {"SVGDConfig", "SVGDResult",
+                                                            "run_svgd"}
     assert set(port.__all__) <= set(jax_mod.__all__) | {"next_key"}
+    if module == "":  # the checkpoint module has every driver of the JAX module
+        import hamiltorch_tpu.checkpoint as jck
+        import hamiltorch_tpu_torch.checkpoint as tck
+
+        drivers = {n for n in dir(jck) if n.startswith("run_") and n.endswith("_checkpointed")}
+        assert len(drivers) == 15
+        assert all(callable(getattr(tck, n, None)) for n in drivers), drivers - set(dir(tck))
+
+
+# this slice's entry points: (module, name)
+SIGNATURES = [("samplers.barker", "run_barker"), ("samplers.barker", "run_barker_chains"),
+              ("samplers.stretch", "run_stretch"), ("samplers.elliptical", "run_elliptical"),
+              ("samplers.elliptical", "run_elliptical_chains"),
+              ("checkpoint", "run_barker_checkpointed"), ("checkpoint", "run_stretch_checkpointed"),
+              ("optim", "map_estimate"), ("optim", "laplace_approx"), ("optim", "laplace_sample"),
+              ("optim", "advi"), ("optim", "advi_cov"), ("optim", "advi_sample")]
+
+
+@pytest.mark.parametrize("module,name", SIGNATURES, ids=[n for _, n in SIGNATURES])
+def test_signatures_keep_the_jax_parameters(module, name):
+    """Every JAX parameter, in its order and with its default; the port adds
+    only its test hooks (``_noise``, ``_margins``) and ``device``."""
+    import importlib
+    import inspect
+
+    jax_params = inspect.signature(getattr(importlib.import_module(f"hamiltorch_tpu.{module}"),
+                                           name)).parameters
+    port_params = inspect.signature(getattr(importlib.import_module(
+        f"hamiltorch_tpu_torch.{module}"), name)).parameters
+    assert [k for k in port_params if k in jax_params] == list(jax_params)
+    for k, p in jax_params.items():
+        assert port_params[k].default == p.default, k
+    assert set(port_params) - set(jax_params) <= {"_noise", "_margins", "device"}
