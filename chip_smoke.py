@@ -170,6 +170,20 @@ the kernels are built for sm_90a).  It
    regression within 1e-3 of the exact log Z; full-rank ``advi`` within
    0.15 of a correlated D=6 Gaussian's covariance; ADVI's stds as Barker's
    ``scale=``, ``examples/barker_robustness_example.py``'s third part);
+   the ``svgd`` phase (``svgd_path``: ``run_svgd`` on the flagship at the
+   JAX default's 100 particles, 30 steps, timed in steps/s with its peak
+   memory and gated on no rejected step; ``examples/svgd_example.py``'s
+   correlated Gaussian, 200 particles x 500 steps, at
+   ``tests/test_svgd.py``'s tolerances; float64 card against CPU from the
+   same cloud, within 1e-5 of max |x| since the update runs in float32)
+   and the ``parallel`` phase (``parallel_path``: a one-rank NCCL mesh,
+   failing unless the backend is ``nccl`` and the trace on ``cuda``;
+   ``run_hmc_chains_sharded`` at the main path's 64 chains x 10 x 50,
+   step 2e-4, bit for bit ``run_hmc_chains``, grad-steps/s of both;
+   ``sample_chains_sharded`` with the flagship likelihood within 1e-6 of
+   max |theta| of the full-batch run, both timed, and one batched
+   evaluation with and without the all-reduce; ``run_chees_sharded`` at
+   64 chains and ``run_svgd_sharded`` identical to their local runs);
    every phase of this list fails if it launched a fused kernel;
 6. checks the tiny flagship on the card against the CPU;
 7. prints one JSON line with every kernel's summary and, last, the device
@@ -296,12 +310,14 @@ PT_ENSEMBLES, PT_TEMPS, PT_DRAWS, PT_BURN = 8, 8, 60, 40
 PT_BIMODAL_DRAWS = 1500
 PT_RHAT_DRAWS, PT_RHAT_BURN = 600, 100
 # The evidence phase.  TI on examples/model_comparison_example.py's
-# configuration (12 rungs, L=8, step 0.3) runs 500 draws (burn 125) where
+# configuration (12 rungs, L=8, step 0.3) runs 350 draws (burn 90) where
 # the example runs 2000 (burn 500): a draw is 9 vmapped evaluations of host
 # time, ~16 ms, and more draws shrink the spread little.  Over 24 seeds on
-# the card (``python3 chip_smoke.py --evidence-spread ti_quadratic``) the
-# stepping-stone estimate spreads with a standard deviation of 0.33 nats
-# (linear model 0.21), with tails to 1.08: its bridge from the prior is
+# the card at 500 draws (``python3 chip_smoke.py --evidence-spread
+# ti_quadratic``) the stepping-stone estimate spreads with a standard
+# deviation of 0.33 nats (linear model 0.21), with tails to 1.08, and over
+# 16 seeds at 350 (``--evidence-spread ti_quadratic --draws 350 90``) 0.31
+# (tail 0.57) and 0.22 (tail 0.41): its bridge from the prior is
 # heavy-tailed at this ladder, so a gate of 0.15 on one run would fail
 # often; each model is held within EXAMPLE_TOL of the analytic log Z, and
 # SMC within EXAMPLE_TOL of TI where the example reads ~0.5.  The strict
@@ -312,8 +328,12 @@ PT_RHAT_DRAWS, PT_RHAT_BURN = 600, 100
 # stages to reach the posterior's scale) and the gate holds the median of
 # SMC_RUNS runs, as the pooled test of tests/test_smc.py does: 0.2 against
 # medians that spread 0.055, tail 0.087.  The full-width module: TI 16
-# rungs x 30 draws (burn 20).
-EVIDENCE_DRAWS, EVIDENCE_BURN = 500, 125
+# rungs x 30 draws (burn 20).  The example's 350 draws were cut from 500
+# (burn 125) to pay for the svgd and parallel phases.  The regression's
+# 1800 draws stay: over 16 seeds at 1200 (``--evidence-spread ti_linreg
+# --draws 1200 400``) its TI spread 0.11, tail 0.19, past its own 0.15
+# gate (on an NVIDIA H100 80GB HBM3 at 700 W).
+EVIDENCE_DRAWS, EVIDENCE_BURN = 350, 90
 EXAMPLE_TOL = 1.25
 LINREG_TI_DRAWS, LINREG_TI_BURN = 1800, 600
 SMC_STEP, SMC_RUNS = 0.05, 4
@@ -338,6 +358,21 @@ STRETCH_DIM, STRETCH_WALKERS, STRETCH_ITERS = 64, 256, 200
 # ADVI_WIDE_STEPS steps at 4 Monte Carlo draws), full-rank ADVI on a D=6
 # Gaussian (tests/test_optim.py:228's 4000 steps at D=2, its 0.15 gate)
 MAP_STEPS, ADVI_WIDE_STEPS, FULLRANK_STEPS = 200, 100, 3000
+# The svgd phase: SVGD_STEPS steps of the JAX default's 100 particles on the
+# flagship; examples/svgd_example.py's correlated Gaussian at its own 200
+# particles, step 0.2 and 500 steps (0.5 s on the card), held to
+# tests/test_svgd.py:28's gates; float64 card against CPU within
+# SVGD_CARD_TOL of max |x|.  The update runs in float32 whatever the
+# particles' dtype (as the JAX package's), so the card's and the CPU's
+# float32 products differ in their last bits and AdaGrad's division grows
+# the difference: 7.49e-07 after 20 steps on the H100, so the float32 class
+# of ATOL, not the float64 paths' 1e-8.
+SVGD_PARTICLES, SVGD_STEPS, SVGD_GAUSS_STEPS = 100, 30, 500
+SVGD_CARD_TOL = ATOL
+# The parallel phase: the sharded runs beside the local ones, PARALLEL_DRAWS
+# draws (SVGD steps) each but the main path's HMC (10 x 50)
+PARALLEL_DRAWS = 4
+PARALLEL_HMC = (10, 50, 2e-4)  # the main path's draws, steps a draw and step size
 
 
 class SmokeError(RuntimeError):
@@ -3007,6 +3042,233 @@ def optim_path(torch, device, card):
         raise SmokeError(f"ADVI-seeded Barker: ADVI {ratio.tolist()}, Barker {rec.tolist()}")
 
 
+def flagship_shards(torch, device, dtype=None):
+    """The flagship in the data-sharded contract: ``(loglik_shard_fn,
+    log_prior_fn, x, y, theta0)``, the data and start of
+    ``make_flagship_potential`` (seed 0), whose potential is the prior plus
+    the likelihood of every row."""
+    from hamiltorch_tpu_torch.models.flagship import HIDDEN, IN_DIM, N_DATA, _data
+
+    dtype = dtype or torch.float32
+    x, y, theta0 = _data(IN_DIM, HIDDEN, N_DATA, dtype, 0, None, None, None, device)
+    s0, s1 = IN_DIM * HIDDEN, IN_DIM * HIDDEN + HIDDEN
+    s2 = s1 + HIDDEN
+
+    def loglik_shard(theta, xs, ys):
+        h = torch.tanh(xs @ theta[:s0].reshape(IN_DIM, HIDDEN) + theta[s0:s1])
+        out = h @ theta[s1:s2].reshape(HIDDEN, 1) + theta[s2:]
+        return -0.5 * 10.0 * torch.sum((out - ys) ** 2)
+
+    def log_prior(theta):
+        return -0.5 * torch.dot(theta, theta)
+
+    return loglik_shard, log_prior, x, y, theta0
+
+
+def svgd_path(torch, device, card):
+    """SVGD (no kernel of its own: its three products a step are plain
+    float32 matmuls, as the JAX package's are XLA's): ``run_svgd`` on the
+    flagship at the JAX default of 100 particles, timed in steps/s with its
+    peak memory and gated on no rejected step; the correlated Gaussian of
+    ``examples/svgd_example.py`` at ``tests/test_svgd.py``'s tolerances;
+    float64 card against CPU on a small target from the same cloud."""
+    import numpy as np
+
+    from hamiltorch_tpu_torch import SVGDConfig, run_svgd
+    from hamiltorch_tpu_torch.models.flagship import make_flagship_potential
+
+    # 1. the flagship, 100 particles; the JAX defaults (AdaGrad, step 0.1,
+    # the median heuristic, a cloud of scale 0.1 around theta0)
+    lp, theta0 = make_flagship_potential(device=device)
+    run_svgd(0, lp, theta0, SVGDConfig(num_steps=2), SVGD_PARTICLES)  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = run_svgd(1, lp, theta0, SVGDConfig(num_steps=SVGD_STEPS), SVGD_PARTICLES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    phi = r.phi_norm_trace
+    print(f"svgd: flagship ({theta0.numel():,} parameters, N={FLAGSHIP['n']}), {SVGD_PARTICLES} "
+          f"particles x {SVGD_STEPS} steps in {wall:.2f} s = {SVGD_STEPS / wall:.1f} steps/s "
+          f"({SVGD_PARTICLES * SVGD_STEPS / wall:,.1f} gradients/s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; mean |phi| {float(phi[0]):.4g} -> "
+          f"{float(phi[-1]):.4g}, bandwidth h {float(r.bandwidth_trace[-1]):.4g}, rejected "
+          f"{int(r.num_rejected)} [{card}]")
+    if not (int(r.num_rejected) == 0 and bool(torch.isfinite(r.particles).all())
+            and r.particles.shape == (SVGD_PARTICLES, theta0.numel())):
+        raise SmokeError(f"svgd flagship: rejected {int(r.num_rejected)}, shape "
+                         f"{tuple(r.particles.shape)}")
+
+    # 2. examples/svgd_example.py's correlated Gaussian at tests/test_svgd.py:28's gates
+    cov = torch.tensor([[1.0, 0.8], [0.8, 2.0]], device=device)
+    prec = torch.linalg.inv(cov)
+    t0 = time.perf_counter()
+    g = run_svgd(0, lambda t: -0.5 * t @ prec @ t, torch.zeros(2, device=device),
+                 SVGDConfig(num_steps=SVGD_GAUSS_STEPS, step_size=0.2), 200)
+    x = g.particles.double().cpu().numpy()
+    emp = np.cov(x.T)
+    ptr = g.phi_norm_trace
+    print(f"svgd: correlated Gaussian, 200 particles x {SVGD_GAUSS_STEPS} steps in "
+          f"{time.perf_counter() - t0:.2f} s: mean {np.round(x.mean(0), 4).tolist()}, cov "
+          f"{np.round(emp, 4).tolist()} (target [[1, 0.8], [0.8, 2]]); mean |phi| last "
+          f"{float(ptr[-1]):.4f} against {float(ptr[:10].max()):.4f} early")
+    if not (np.allclose(x.mean(0), 0.0, atol=0.15)
+            and np.allclose(emp, cov.cpu().numpy(), rtol=0.15, atol=0.15)
+            and int(g.num_rejected) == 0 and float(ptr[-1]) < 0.2 * float(ptr[:10].max())):
+        raise SmokeError(f"svgd Gaussian: mean {x.mean(0)}, cov {emp}")
+
+    # 3. float64 card against CPU from the same cloud (the update runs in
+    # float32 as the JAX package's does; the cloud keeps float64:
+    # SVGD_CARD_TOL)
+    gen = torch.Generator().manual_seed(7)
+    p0 = torch.randn(16, 3, generator=gen, dtype=torch.float64)
+    scales = torch.tensor([1.0, 0.5, 2.0], dtype=torch.float64)
+
+    def small(dev):
+        s = scales.to(dev)
+        return run_svgd(0, lambda t: -0.5 * torch.sum((t / s) ** 2) + 0.2 * torch.sum(torch.sin(t)),
+                        torch.zeros(3, dtype=torch.float64, device=dev),
+                        SVGDConfig(num_steps=20, step_size=0.05), 16, particles0=p0.to(dev))
+
+    on_card, on_host = small(device), small("cpu")
+    err = float((on_card.particles.cpu() - on_host.particles).abs().max()) / float(
+        on_host.particles.abs().max())
+    print(f"svgd: float64 card vs CPU, 16 particles x 20 steps: {err:.3e} of max |x|")
+    if not err <= SVGD_CARD_TOL:
+        raise SmokeError(f"svgd card vs CPU: {err:.3e}")
+
+
+def parallel_path(torch, device, card):
+    """The sharded samplers (no kernel of their own) on a one-rank NCCL mesh:
+    ``run_hmc_chains_sharded`` at the main path's configuration bit for bit
+    against ``run_hmc_chains``, timed beside it; ``sample_chains_sharded``
+    with the flagship likelihood against the full-batch run;
+    ``run_chees_sharded`` and ``run_svgd_sharded`` against their local runs.
+    One card cannot hold more than one rank (NCCL refuses two ranks on one
+    GPU): the multi-rank collectives are held by the CPU tests."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from hamiltorch_tpu_torch import (
+        ChEESConfig,
+        MCMCConfig,
+        SVGDConfig,
+        run_chees,
+        run_hmc_chains,
+        run_svgd,
+    )
+    from hamiltorch_tpu_torch.models.flagship import (
+        make_flagship_potential,
+        make_flagship_potential_tree,
+    )
+    from hamiltorch_tpu_torch.parallel import sharding as sh
+
+    mesh = sh.make_mesh()
+    try:
+        backend, dev = dist.get_backend(), sh.mesh_device(mesh)
+        print(f"parallel: mesh {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}, backend {backend}, "
+              f"world {dist.get_world_size()}, device {dev}")
+        if backend != "nccl" or dev.type != "cuda":
+            raise SmokeError(f"the mesh runs on {backend} / {dev}, not nccl / cuda")
+
+        # 1. the main path's HMC, sharded and not, in turns (64 chains x 10 x 50)
+        lp_tree, params0 = make_flagship_potential_tree(device=device)
+        draws, steps, eps = PARALLEL_HMC
+        cfg = MCMCConfig(num_samples=draws, num_steps_per_sample=steps, step_size=eps)
+        c = FLAGSHIP["c"]
+        sh.run_hmc_chains_sharded(0, lp_tree, params0, dataclasses.replace(cfg, num_samples=1),
+                                  mesh, c)  # warm up
+        walls, runs = {}, {}
+        for turn in ("sharded", "local"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if turn == "local":
+                runs[turn] = run_hmc_chains(1, lp_tree, params0, cfg, c)
+            else:
+                runs[turn] = sh.run_hmc_chains_sharded(1, lp_tree, params0, cfg, mesh, c)
+            torch.cuda.synchronize()
+            walls[turn] = time.perf_counter() - t0
+        trace_dev = runs["sharded"].samples["w1"].device
+        same = same_tensors(torch, runs["sharded"], runs["local"])
+        rate = {k: c * draws * steps / v for k, v in walls.items()}
+        print(f"parallel: run_hmc_chains_sharded flagship tree {c} chains {draws}x{steps} on the "
+              f"1x1 mesh: identical to run_hmc_chains {same}, trace on {trace_dev}; "
+              f"{rate['sharded']:,.1f} grad-steps/s sharded, {rate['local']:,.1f} unsharded "
+              f"[{card}]")
+        if not (same and trace_dev.type == "cuda"):
+            raise SmokeError(f"run_hmc_chains_sharded: identical {same}, trace on {trace_dev}")
+
+        # 2. the data-summed flagship likelihood against the full-batch potential
+        loglik, prior, x, y, theta0 = flagship_shards(torch, device)
+        lp_flat, _ = make_flagship_potential(device=device)
+        cfg_d = dataclasses.replace(cfg, num_samples=PARALLEL_DRAWS)
+        # warm up both: the data group's first all-reduce creates its NCCL
+        # communicator, a one-time cost that is not a gradient's
+        warm = dataclasses.replace(cfg, num_samples=1)
+        sh.sample_chains_sharded(2, loglik, prior, x, y, theta0, warm, mesh, c)
+        run_hmc_chains(2, lp_flat, theta0, warm, c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sh.sample_chains_sharded(2, loglik, prior, x, y, theta0, cfg_d, mesh, c)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = run_hmc_chains(2, lp_flat, theta0, cfg_d, c)
+        torch.cuda.synchronize()
+        wall_l = time.perf_counter() - t0
+        err = float((got.samples - want.samples).abs().max()) / float(want.samples.abs().max())
+        n_grad = c * PARALLEL_DRAWS * steps
+        print(f"parallel: sample_chains_sharded flagship likelihood (1x1 mesh, {c} chains x "
+              f"{PARALLEL_DRAWS} x {steps}): {err:.3e} of max |theta| from the full-batch run, accepts "
+              f"identical {torch.equal(got.stats.accepted, want.stats.accepted)}; "
+              f"{n_grad / wall_s:,.1f} grad-steps/s with the all-reduce a gradient, "
+              f"{n_grad / wall_l:,.1f} without [{card}]")
+        if not err <= 1e-6:
+            raise SmokeError(f"sample_chains_sharded: {err:.3e} from the full-batch run")
+        # one batched evaluation (value and gradient of 64 chains) with and
+        # without the data-summing autograd.Function and its all-reduce
+        from hamiltorch_tpu_torch.ops.potential import value_and_grad
+
+        thetas = theta0.expand(c, -1).contiguous()
+        lp_psum = sh.make_psum_log_prob(loglik, prior, x, y, mesh.get_group("data"))
+        per_eval = {}
+        for name, fn in (("psum", lp_psum), ("plain", lp_flat), ("psum", lp_psum),
+                         ("plain", lp_flat)):
+            vg = torch.func.vmap(value_and_grad(fn))
+            vg(thetas)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                vg(thetas)
+            torch.cuda.synchronize()
+            per_eval[name] = min(per_eval.get(name, 1e9), (time.perf_counter() - t0) / 20 * 1e3)
+        print(f"parallel: one batched value and gradient of {c} flagship chains: "
+              f"{per_eval['psum']:.3f} ms through make_psum_log_prob (one all-reduce of "
+              f"{c} x {theta0.numel() + 1} float32), {per_eval['plain']:.3f} ms plain (host "
+              f"clock after a sync, 20 calls, best of 2 in turns) [{card}]")
+
+        # 3. the pooled ensemble and SVGD on the flagship, against their local runs
+        cfg_c = ChEESConfig(num_samples=PARALLEL_DRAWS, step_size=2e-4, burn=PARALLEL_DRAWS // 2,
+                            init_trajectory_length=0.01)
+        got = sh.run_chees_sharded(3, lp_flat, theta0, cfg_c, mesh, c)
+        want = run_chees(3, lp_flat, theta0, cfg_c, c)
+        same_c = same_tensors(torch, got, want)
+        cfg_v = SVGDConfig(num_steps=PARALLEL_DRAWS)
+        got_v = sh.run_svgd_sharded(4, loglik, prior, x, y, theta0, cfg_v, mesh, SVGD_PARTICLES)
+        want_v = run_svgd(4, lp_flat, theta0, cfg_v, SVGD_PARTICLES)
+        err_v = float((got_v.particles - want_v.particles).abs().max()) / float(
+            want_v.particles.abs().max())
+        print(f"parallel: run_chees_sharded {c} chains x {PARALLEL_DRAWS} identical to run_chees "
+              f"{same_c} (leapfrogs {got.info.num_leapfrog.tolist()}); run_svgd_sharded "
+              f"{SVGD_PARTICLES} particles x {PARALLEL_DRAWS} steps {err_v:.3e} of max |x| from "
+              f"run_svgd on the full potential, identical {torch.equal(got_v.particles, want_v.particles)}")
+        if not (same_c and err_v <= 1e-6 and int(got_v.num_rejected) == 0):
+            raise SmokeError(f"run_chees_sharded identical {same_c}; run_svgd_sharded {err_v:.3e}")
+    finally:
+        dist.destroy_process_group()
+
+
 def tiny_card_vs_cpu(torch, device):
     """The port's tensor path is the same on the card as on the CPU."""
     from hamiltorch_tpu_torch import MCMCConfig, run_hmc_chains
@@ -3026,27 +3288,35 @@ def tiny_card_vs_cpu(torch, device):
         raise SmokeError(f"run_hmc_chains on the card disagrees with the CPU: {path_err:.3e}")
 
 
-def _spread_run(case, seed):
+def _spread_run(case, seed, draws=None):
     """One seed of ``evidence_spread`` in a worker process: ``(log Z,
-    analytic log Z, seconds)``."""
+    analytic log Z, seconds)``; ``draws = (draws, burn)`` overrides a TI
+    case's."""
     import torch
 
     sys.path.insert(0, str(REPO))
+    if draws is not None:
+        global EVIDENCE_DRAWS, EVIDENCE_BURN, LINREG_TI_DRAWS, LINREG_TI_BURN
+        if case == "ti_linreg":
+            LINREG_TI_DRAWS, LINREG_TI_BURN = draws
+        else:
+            EVIDENCE_DRAWS, EVIDENCE_BURN = draws
     t0 = time.perf_counter()
     est, exact, _ = evidence_case(torch, case, seed, torch.device("cuda:0"))
     return est, exact, time.perf_counter() - t0
 
 
 def evidence_spread(argv) -> int:
-    """``python3 chip_smoke.py --evidence-spread CASE [SEED ...]``: the
-    seed-to-seed spread on the card of one of the ``evidence`` phase's
-    statistical runs (``EVIDENCE_CASES``, at the phase's settings), against
-    which its gates are set.  The seeds run in one process a CPU core (the
-    runs are host-bound).  Each seed's error against the analytic log Z is
-    printed, then their mean, standard deviation and largest |error|, and
-    for an SMC case the same of the medians of consecutive groups of
-    ``SMC_RUNS`` seeds (the phase gates such a median).  Seeds 1-16 by
-    default."""
+    """``python3 chip_smoke.py --evidence-spread CASE [--draws N BURN]
+    [SEED ...]``: the seed-to-seed spread on the card of one of the
+    ``evidence`` phase's statistical runs (``EVIDENCE_CASES``, at the
+    phase's settings, or for a TI case at ``--draws`` draws with ``BURN``
+    burned), against which its gates are set.  The seeds run in one
+    process a CPU core (the runs are host-bound).  Each seed's error
+    against the analytic log Z is printed, then their mean, standard
+    deviation and largest |error|, and for an SMC case the same of the
+    medians of consecutive groups of ``SMC_RUNS`` seeds (the phase gates
+    such a median).  Seeds 1-16 by default."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -3060,10 +3330,16 @@ def evidence_spread(argv) -> int:
         print("--evidence-spread runs on a GPU from a checkout of the repository",
               file=sys.stderr)
         return 2
-    case, seeds = argv[0], [int(s) for s in argv[1:]] or list(range(1, 17))
+    case, rest, draws = argv[0], argv[1:], None
+    if rest[:1] == ["--draws"]:
+        if not case.startswith("ti"):
+            print("--draws applies to the TI cases", file=sys.stderr)
+            return 2
+        draws, rest = (int(rest[1]), int(rest[2])), rest[3:]
+    seeds = [int(s) for s in rest] or list(range(1, 17))
     workers = min(len(seeds), os.cpu_count() or 1)
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        runs = list(pool.map(_spread_run, [case] * len(seeds), seeds))
+        runs = list(pool.map(_spread_run, [case] * len(seeds), seeds, [draws] * len(seeds)))
     errs = []
     for seed, (est, exact, sec) in zip(seeds, runs):
         errs.append(est - exact)
@@ -3075,7 +3351,8 @@ def evidence_spread(argv) -> int:
         return (f"mean error {statistics.fmean(v):+.4f}, sd {sd:.4f}, max |error| "
                 f"{max(map(abs, v)):.4f}")
 
-    print(f"{case} on the card [{card_line()}]: {len(errs)} seeds, {stats(errs)}")
+    at = "" if draws is None else f" at {draws[0]} draws (burn {draws[1]})"
+    print(f"{case}{at} on the card [{card_line()}]: {len(errs)} seeds, {stats(errs)}")
     if case.startswith("smc") and len(errs) >= SMC_RUNS:
         meds = [statistics.median(errs[i:i + SMC_RUNS])
                 for i in range(0, len(errs) - SMC_RUNS + 1, SMC_RUNS)]
@@ -3231,7 +3508,7 @@ def main() -> int:
                       ("rmhmc", rmhmc_path), ("split", split_path), ("chees", chees_path),
                       ("sgmcmc", sgmcmc_path), ("tempering", tempering_path),
                       ("evidence", evidence_path), ("gradient_free", gradient_free_path),
-                      ("optim", optim_path)):
+                      ("optim", optim_path), ("svgd", svgd_path), ("parallel", parallel_path)):
         for kernel in kernel_fns:
             kernel.launches = 0
         t_phase = time.perf_counter()

@@ -32,9 +32,11 @@ every family the JAX package checkpoints (``checkpoint``); MCLMC
 ESS, R-hat, ``summary``); model comparison (``waic``, ``psis_loo``,
 ``compare``); the BNN layer on ``torch.nn.Module``s (``sample_model``,
 ``predict_model``, ``models.bnn``); the ``hamiltorch.util`` namespace
-(``util``); the flagship BNN models; and the fused samplers
+(``util``); the flagship BNN models; Stein variational gradient descent
+(``run_svgd``); chain- and data-sharded sampling over ``torch.distributed``
+(``parallel.sharding``, ``parallel.multihost``); and the fused samplers
 ``kernels.bnn_hmc``, ``kernels.bnn_mclmc`` and ``kernels.gaussian_hmc`` as
-CUDA kernels for Hopper.  ROADMAP.md lists what is still to port.
+CUDA kernels for Hopper.  ROADMAP.md lists what was left out by decision.
 """
 
 __version__ = "0.9.0"
@@ -90,6 +92,7 @@ from .samplers.sgmcmc import (
     run_sgld,
     run_sgld_chains,
 )
+from .svgd import SVGDConfig, SVGDResult, run_svgd
 from .utils.rng import next_key, set_random_seed
 
 __all__ = [
@@ -167,6 +170,9 @@ __all__ = [
     "advi_cov",
     "advi_sample",
     "ADVIResult",
+    "SVGDConfig",
+    "SVGDResult",
+    "run_svgd",
 ]
 
 

@@ -159,7 +159,7 @@ def _flatten_chunk_dict(d: dict) -> dict:
 
 def _checkpoint_loop(chunk_runner, key: int, carry_template, init_carry_fn, config,
                      ckpt_dir: str, chunk_size: int, resume: bool, fingerprint: str,
-                     save_chunk):
+                     save_chunk, mesh=None):
     """Run chunks until ``config.num_samples`` draws are done.
 
     ``chunk_runner(seed, carry, n_done, cfg) -> (result, new_carry)``;
@@ -169,15 +169,30 @@ def _checkpoint_loop(chunk_runner, key: int, carry_template, init_carry_fn, conf
     carry (it may evaluate the potential, so it runs only when NOT
     resuming).  Returns the chunk archives (oldest first) and the final
     carry.
+
+    On a ``mesh`` every rank runs the loop and holds the same global
+    result and carry; rank 0 alone writes ``ckpt_dir`` (a directory every
+    rank reads), and the ranks meet at a barrier after each write.
     """
-    os.makedirs(ckpt_dir, exist_ok=True)
+    writer, sync = True, (lambda: None)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        writer = dist.get_rank() == 0
+        sync = dist.barrier
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+    sync()
     state_path = os.path.join(ckpt_dir, _STATE_FILE)
-    if resume and os.path.exists(state_path):
+    resuming = resume and os.path.exists(state_path)
+    sync()  # every rank has looked before rank 0 cleans the directory
+    if resuming:
         carry, seed, n_done = _load_state(state_path, carry_template, fingerprint)
     else:
-        for f in os.listdir(ckpt_dir):
-            if f.startswith("chunk_") or f == _STATE_FILE:
-                os.remove(os.path.join(ckpt_dir, f))
+        if writer:
+            for f in os.listdir(ckpt_dir):
+                if f.startswith("chunk_") or f == _STATE_FILE:
+                    os.remove(os.path.join(ckpt_dir, f))
         carry, seed, n_done = init_carry_fn(), key, 0
 
     # chunks hold whole thinning windows
@@ -193,11 +208,14 @@ def _checkpoint_loop(chunk_runner, key: int, carry_template, init_carry_fn, conf
             overrides["progress_every"] = 0
         cfg = dataclasses.replace(config, **overrides)
         result, carry = chunk_runner(seed, carry, n_done, cfg)
-        np.savez(os.path.join(ckpt_dir, f"chunk_{n_done:08d}.npz"),
-                 **_archive(_flatten_chunk_dict(save_chunk(result))))
+        if writer:
+            np.savez(os.path.join(ckpt_dir, f"chunk_{n_done:08d}.npz"),
+                     **_archive(_flatten_chunk_dict(save_chunk(result))))
         n_done += this_chunk
-        _save_state(state_path, carry, seed, n_done, fingerprint)
-        if progress:
+        if writer:
+            _save_state(state_path, carry, seed, n_done, fingerprint)
+        sync()
+        if progress and writer:
             rate = (n_done - n_start) / max(time.time() - t0, 1e-9)
             print(f"checkpoint: {n_done}/{config.num_samples} draws saved "
                   f"({rate:,.1f} draws/sec)")
@@ -505,18 +523,36 @@ def _nuts_carry(theta0, config, mass, pooled: bool):
     return da0, (wf0, metric0, torch.zeros(batch, dtype=torch.int32, device=device))
 
 
-def _nuts_chunk_runner(lp, theta0, config, mass, pooled: bool):
+def _nuts_chunk_runner(lp, theta0, config, mass, pooled: bool, mesh=None, num_chains=None):
+    """A chunk of NUTS chains; on a ``mesh`` (the pooled ensemble) each rank
+    runs its rows of the global carry and the chunk is gathered."""
     from .samplers.nuts import _run_nuts_batched
     from .samplers.warmup import schedule_flags
 
     windowed = bool(config.adapt_mass) and config.burn > 0
+    if mesh is not None:
+        from .parallel import sharding
+
+        _, group = sharding.mesh_chain_layout(mesh, num_chains)
+        lo, n = sharding._local_chains(mesh, "mesh", num_chains)
+        keys = sharding.derive_chain_keys(None, num_chains)[lo:lo + n]
 
     def chunk_runner(seed, carry, n_done, cfg):
         collect, end = schedule_flags(config.burn if windowed else 0, n_done, cfg.num_samples)
-        res, info = _run_nuts_batched(seed, theta0, lp, cfg, mass, pooled=pooled,
-                                      init_state=carry[0], init_da=_da_of(carry[1]),
-                                      start_iter=n_done, init_warm=carry[2],
-                                      collect_flags=collect, end_flags=end)
+        if mesh is None:
+            res, info = _run_nuts_batched(seed, theta0, lp, cfg, mass, pooled=pooled,
+                                          init_state=carry[0], init_da=_da_of(carry[1]),
+                                          start_iter=n_done, init_warm=carry[2],
+                                          collect_flags=collect, end_flags=end)
+        else:
+            state = ChainState(*(sharding._rows(f, lo, n) for f in carry[0]))
+            res, info = _run_nuts_batched(seed, sharding._rows(theta0, lo, n), lp, cfg, mass,
+                                          pooled=True, init_state=state,
+                                          init_da=_da_of(carry[1]), start_iter=n_done,
+                                          init_warm=carry[2], collect_flags=collect,
+                                          end_flags=end, chain_keys=keys, axis_name=group)
+            res, info = sharding.gather_chains((res, info), mesh, "mesh",
+                                               sharding.pooled_nuts_batch_spec)
         return (res, info), (res.final_state, _da_tuple(res.final_da), res.final_warm)
 
     return chunk_runner
@@ -591,21 +627,23 @@ def run_nuts_ensemble_checkpointed(
     evaluations, the shared dual averaging, the Chan-merged Welford state
     and the window-relative counter) is in the state file, and each chunk
     takes its slice of the global warmup schedule.  Returns (MCMCResult,
-    NUTSInfo) in ``run_nuts_ensemble``'s layout, bit for bit.  ``mesh=``
-    (the sharded ensemble) is not ported and raises.
+    NUTSInfo) in ``run_nuts_ensemble``'s layout, bit for bit.
+
+    ``mesh``: shard the ensemble over a ``parallel.sharding.make_mesh`` mesh
+    per chunk (``run_nuts_ensemble_sharded``, pooled sums all-reduced over
+    every rank); every rank holds the global carry and result, and the
+    result is ``run_nuts_ensemble_sharded``'s bit for bit at any chunking.
+    Sharded and unsharded checkpoints carry distinct fingerprints (the
+    all-reduce reassociates the pooled sums).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sharded NUTS ensemble) is not ported to hamiltorch_tpu_torch; "
-            "see ROADMAP.md, queue 1 item 15"
-        )
     from .ops.potential import resolve_potential
     from .samplers.nuts import NUTSInfo, _prepare_chains, _time_major
 
     lp = resolve_potential(log_prob_fn, None)
     theta0, mass = _prepare_chains(theta0, config, num_chains, inv_mass, theta0_is_stacked)
     da0, warm0 = _nuts_carry(theta0, config, mass, pooled=True)
-    run = _nuts_chunk_runner(lp, theta0, config, mass, pooled=True)
+    run = _nuts_chunk_runner(lp, theta0, config, mass, pooled=True, mesh=mesh,
+                             num_chains=num_chains)
 
     def chunk_runner(seed, carry, n_done, cfg):
         (res, info), new = run(seed, carry, n_done, cfg)
@@ -620,7 +658,8 @@ def run_nuts_ensemble_checkpointed(
     zs, carry = _checkpoint_loop(
         chunk_runner, key, (_chain_state_template(theta0), da0, warm0),
         _nuts_init_fn(lp, theta0, da0, warm0), config, ckpt_dir, chunk_size, resume,
-        _fingerprint(config, theta0), save_chunk)
+        _fingerprint(config, theta0, extra=None if mesh is None else "sharded"), save_chunk,
+        mesh=mesh)
     state, da = carry[0], _da_of(carry[1])
     device = tree_leaves(state.theta)[0].device
     kept = config.num_samples // config.thin
@@ -792,14 +831,13 @@ def run_chees_checkpointed(
     the metric).  Each chunk takes its slice of the global warmup schedule;
     a single start is spread from the key as ``run_chees`` spreads it.
     Returns a ChEESResult, ``run_chees``'s bit for bit at any chunking
-    (``chunk_size`` rounds to a multiple of ``thin``).  ``mesh=`` (the
-    sharded ensemble) is not ported and raises.
+    (``chunk_size`` rounds to a multiple of ``thin``).
+
+    ``mesh``: shard the ensemble over a ``parallel.sharding.make_mesh`` mesh
+    per chunk (``run_chees_sharded``); every rank holds the global carry
+    and result, ``run_chees_sharded``'s bit for bit at any chunking.
+    Sharded and unsharded checkpoints carry distinct fingerprints.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sharded ChEES ensemble) is not ported to hamiltorch_tpu_torch; "
-            "see ROADMAP.md, queue 1 item 15"
-        )
     from .ops.potential import resolve_potential, value_and_grad
     from .samplers.chees import (
         ChEESInfo,
@@ -829,10 +867,25 @@ def run_chees_checkpointed(
         logps, grads = torch.func.vmap(value_and_grad(lp))(theta0s)
         return stored(init_chees_carry(theta0s, logps, grads, config, mass))
 
+    if mesh is not None:
+        from .parallel import sharding
+
+        _, group = sharding.mesh_chain_layout(mesh, num_chains)
+        lo, n = sharding._local_chains(mesh, "mesh", num_chains)
+        keys = sharding.derive_chain_keys(key, num_chains)[lo:lo + n]
+
     def chunk_runner(seed, carry, n_done, cfg):
         collect, end = schedule_flags(config.burn if windowed else 0, n_done, cfg.num_samples)
-        res = _run_chees(seed, theta0s, lp, cfg, mass, init_carry=restored(carry),
-                         start_iter=n_done, collect_flags=collect, end_flags=end)
+        if mesh is None:
+            res = _run_chees(seed, theta0s, lp, cfg, mass, init_carry=restored(carry),
+                             start_iter=n_done, collect_flags=collect, end_flags=end)
+        else:
+            local = restored(carry)._replace(**{f: sharding._rows(getattr(carry, f), lo, n)
+                                                for f in ("thetas", "logps", "grads")})
+            res = _run_chees(seed, sharding._rows(theta0s, lo, n), lp, cfg, mass,
+                             init_carry=local, start_iter=n_done, collect_flags=collect,
+                             end_flags=end, chain_keys=keys, axis_name=group)
+            res = sharding.gather_chains(res, mesh, "mesh", sharding.chees_spec)
         return res, stored(res.final_carry)
 
     def save_chunk(res):
@@ -841,7 +894,10 @@ def run_chees_checkpointed(
         return out
 
     zs, carry = _checkpoint_loop(chunk_runner, key, template, init_carry_fn, config, ckpt_dir,
-                                 chunk_size, resume, _fingerprint(config, theta0s), save_chunk)
+                                 chunk_size, resume,
+                                 _fingerprint(config, theta0s,
+                                              extra=None if mesh is None else "sharded"),
+                                 save_chunk, mesh=mesh)
     carry = restored(carry)
     kept = config.num_samples // max(config.thin, 1)
     device = leaf.device
@@ -951,12 +1007,16 @@ def run_pt_checkpointed(
     averaging).  The global draw index keys the noise and the even/odd swap
     parity, so the result is ``run_parallel_tempering``'s (or, with
     ``num_ensembles``, ``run_pt_chains``'s) bit for bit at any chunking.
-    ``mesh=`` (the sharded ensembles) is not ported and raises.
+
+    ``mesh``: shard the ``num_ensembles`` ladders over a
+    ``parallel.sharding.make_mesh`` mesh per chunk (``run_pt_sharded``; no
+    collectives but the gather); every rank holds the global carry and
+    result, ``run_pt_chains``'s bit for bit.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sharded PT ensembles) is not ported to hamiltorch_tpu_torch; "
-            "see ROADMAP.md, queue 1 item 15"
+    if mesh is not None and num_ensembles is None:
+        raise ValueError(
+            "mesh-sharded PT checkpointing shards the ensemble axis; pass "
+            "num_ensembles as well."
         )
     from .ops.potential import resolve_potential
     from .samplers.tempering import (
@@ -991,10 +1051,24 @@ def run_pt_checkpointed(
     template = PTCarry(theta0s, zeros, tree_map(torch.zeros_like, theta0s), gaps, gaps,
                        (zeros,) * 4)
 
+    if mesh is not None:
+        from .parallel import sharding
+        from .utils.rng import chain_slice
+
+        lo, n = sharding._local_chains(mesh, "mesh", num_ensembles, "num_ensembles")
+
     def chunk_runner(seed, carry, n_done, cfg):
-        traj, alphas, swaps, carry_f = _run_pt(seed, theta0s, lp, cfg, mass,
-                                               init_carry=restored(carry), start_iter=n_done,
-                                               ensembles=num_ensembles)
+        if mesh is None:
+            out = _run_pt(seed, theta0s, lp, cfg, mass, init_carry=restored(carry),
+                          start_iter=n_done, ensembles=num_ensembles)
+        else:
+            # every field of the carry leads with the ensemble axis
+            local = restored(sharding._map_paths(lambda _, t: t[lo:lo + n], carry))
+            with chain_slice(lo, num_ensembles):
+                out = _run_pt(seed, sharding._rows(theta0s, lo, n), lp, cfg, mass,
+                              init_carry=local, start_iter=n_done, ensembles=n)
+            out = sharding.gather_chains(out, mesh, "mesh")
+        traj, alphas, swaps, carry_f = out
         return (traj, alphas, swaps), stored(carry_f)
 
     def save_chunk(result):
@@ -1004,7 +1078,8 @@ def run_pt_checkpointed(
     zs, carry = _checkpoint_loop(
         chunk_runner, key, template,
         lambda: stored(init_pt_carry(lp, theta0s, config, num_ensembles)), config, ckpt_dir,
-        chunk_size, resume, _fingerprint(config, theta0s, extra=num_ensembles), save_chunk)
+        chunk_size, resume, _fingerprint(config, theta0s, extra=num_ensembles), save_chunk,
+        mesh=mesh)
     carry = restored(carry)
     axis = 0 if num_ensembles is None else 1
     kept = config.num_samples  # burn slicing happens at assembly

@@ -295,8 +295,11 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
     - ``BarkerResult`` (``run_barker*``): acceptance, divergences and step
       size.
 
-    SVGD, still to port, raises ``NotImplementedError``.  ``like`` is accepted for symmetry with
-    ``summary``: the stats' shapes give the chain and draw axes.
+    An ``SVGDResult`` is refused with a ``TypeError``: its particles are a
+    variational approximation with no chain, draw or sampler statistics, and
+    the JAX function has no branch for it either.  ``like`` is accepted for
+    symmetry with ``summary``: the stats' shapes give the chain and draw
+    axes.
     """
     del like
 
@@ -310,14 +313,18 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
     # run_nuts / run_nuts_chains / run_nuts_ensemble return (result, info)
     if not hasattr(result, "samples") and isinstance(result, tuple) and len(result) == 2:
         result, info = result
+    if hasattr(result, "phi_norm_trace"):  # SVGDResult
+        raise TypeError(
+            "to_inference_dict: an SVGDResult holds SVGD's particles, a "
+            "variational approximation with no chains, draws or sampler "
+            "statistics; summarise result.particles directly"
+        )
     if not hasattr(result, "samples"):
         raise NotImplementedError(
-            "to_inference_dict takes the results of the samplers ported to "
-            "hamiltorch_tpu_torch (MCMCResult, with a NUTSInfo for NUTS, "
-            "MCLMCResult, MAMSResult, ChEESResult, SGMCMCResult, "
-            "CSGMCMCResult, PTResult, TIResult, SMCResult, StretchResult, "
-            "EllipticalResult, BarkerResult); SVGD is not ported yet, see "
-            "ROADMAP.md"
+            "to_inference_dict takes the samplers' results (MCMCResult, with a "
+            "NUTSInfo for NUTS, MCLMCResult, MAMSResult, ChEESResult, "
+            "SGMCMCResult, CSGMCMCResult, PTResult, TIResult, SMCResult, "
+            "StretchResult, EllipticalResult, BarkerResult)"
         )
     if hasattr(result, "loglik_draws"):  # TIResult
         acc = _np(result.info.accept_prob)
@@ -419,8 +426,7 @@ def to_inference_dict(result, like=None, info=None) -> Dict[str, Dict]:
             "step_size": cn(s.step_size, chains_first),
         }}
     raise NotImplementedError(
-        f"to_inference_dict: {type(result).__name__} is not a result of a sampler "
-        "ported to hamiltorch_tpu_torch yet (SVGD is still to come); see ROADMAP.md"
+        f"to_inference_dict: {type(result).__name__} is not a sampler's result"
     )
 
 

@@ -43,7 +43,7 @@ import torch
 from ..ops.potential import value_and_grad
 from ..utils.convert import place_start
 from ..utils.pytree import is_param_tree, stack_param_tree, tree_leaves, tree_map
-from ..utils.rng import BARKER_STREAM, stream_generator
+from ..utils.rng import BARKER_STREAM, chain_rows, stream_generator
 from .adaptation import DualAveragingState, da_init, da_update
 from .mclmc import _bind_data, _prep_flat, _ravel_chains
 from .warmup import WelfordState, welford_init, welford_update, welford_variance
@@ -175,10 +175,12 @@ def _run_barker(key: int, theta, fn, config: BarkerConfig, scale, init_da=None,
             n = start_step + i
             if _noise is None:
                 gen = stream_generator(key, BARKER_STREAM, n, device)
-                nz = torch.randn((c, dims), generator=gen, dtype=dtype, device=gen.device)
-                u_keep = torch.rand((c, dims), generator=gen, dtype=dtype, device=gen.device)
-                u_mh = torch.rand((c,), generator=gen, dtype=torch.float32, device=gen.device)
-                nz, u_keep, u_mh = nz.to(device), u_keep.to(device), u_mh.to(device)
+                # the whole block of a sharded run's chains, then this batch's rows
+                total, lo = chain_rows(c)
+                nz = torch.randn((total, dims), generator=gen, dtype=dtype, device=gen.device)
+                u_keep = torch.rand((total, dims), generator=gen, dtype=dtype, device=gen.device)
+                u_mh = torch.rand((total,), generator=gen, dtype=torch.float32, device=gen.device)
+                nz, u_keep, u_mh = (t[lo:lo + c].to(device) for t in (nz, u_keep, u_mh))
             else:
                 nz = _noise["z"][i].reshape(c, dims)
                 u_keep = _noise["u_keep"][i].reshape(c, dims)

@@ -27,7 +27,12 @@ is spread to the chains by ``0.01 * N(0, 1)`` from a generator seeded from
 the key (``SPREAD_STREAM``).  ``_noise`` (a test hook) hands in the
 momentum normals, the log Metropolis uniforms and the jitter instead.
 
-The sharded ensemble (``axis_name`` / ``chain_keys``) is not ported.
+The sharded ensemble (``parallel.sharding.run_chees_sharded``) runs this
+loop on every rank's chains with ``axis_name``, a process group over which
+the cross-chain sums are all-reduced, and ``chain_keys``, the chains'
+global indices: each chain draws what it draws in the unsharded run, and
+the jitter, keyed on the seed alone, is every rank's.  L is computed from
+all-reduced values, so every rank runs the same number of leapfrog steps.
 """
 
 from __future__ import annotations
@@ -49,7 +54,13 @@ from ..utils.pytree import (
     tree_map,
     unravel_last_axis_fn,
 )
-from ..utils.rng import SPREAD_STREAM, draw_jitter, draw_noise, draw_seed
+from ..utils.rng import (
+    SPREAD_STREAM,
+    draw_jitter,
+    draw_noise,
+    draw_seed,
+    keyed_chains,
+)
 from .adaptation import DualAveragingState, da_init, da_update
 from .driver import _flat_chains, _tree_where, validate_common_config
 from .nuts import BatchedMass, _t_dot, init_metric_seed, validate_trace_dtype
@@ -62,12 +73,6 @@ from .warmup import (
     welford_merge_batch,
     windowed_step,
 )
-
-SHARDED = (
-    "axis_name / chain_keys (the sharded ChEES ensemble) are not ported to "
-    "hamiltorch_tpu_torch; see ROADMAP.md, queue 1 item 15"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class ChEESConfig:
@@ -255,15 +260,30 @@ def _run_chees(key, theta0s, log_prob_fn, config: ChEESConfig, mass, init_carry=
     draws' slice of the global schedule) continue an earlier chunk exactly.
     ``_noise = (z (S, C, D), log_u (S, C), u (S,))`` replaces the drawn
     momentum normals, log Metropolis uniforms and (uniform) jitter.
+
+    ``axis_name``: the ensemble extends over the ranks of a process group
+    (``parallel.sharding.resolve_group``) and every cross-chain reduction
+    (ensemble mean, criterion gradient, acceptance average, Welford merge)
+    is summed over it; ``chain_keys`` are then the batch's global chain
+    indices (``parallel.sharding.derive_chain_keys``).
     """
-    if chain_keys is not None or axis_name is not None:
-        raise NotImplementedError(SHARDED)
     vg_batch = torch.func.vmap(value_and_grad(log_prob_fn))
     is_tree = is_param_tree(theta0s)
     leaves0 = tree_leaves(theta0s)
     c, dtype, device = leaves0[0].shape[0], leaves0[0].dtype, leaves0[0].device
     d = sum(leaf[0].numel() for leaf in leaves0)
     c_total = torch.tensor(float(c), dtype=dtype, device=device)
+    if axis_name is None:
+        def gsum(x):
+            return x.sum(dim=0)
+    else:
+        from ..parallel.sharding import group_sum, resolve_group
+
+        group = resolve_group(axis_name)
+        c_total = group_sum(c_total, group)
+
+        def gsum(x):
+            return group_sum(x.sum(dim=0), group)
     windowed = bool(config.adapt_mass) and config.burn > 0
     dense = windowed and config.adapt_mass == "dense"
     if collect_flags is None:
@@ -307,7 +327,8 @@ def _run_chees(key, theta0s, log_prob_fn, config: ChEESConfig, mass, init_carry=
                 return 0.5 * _t_dot(p, velocity(p))
 
             if _noise is None:
-                z, log_u = draw_noise(key, n, c, d, dtype, device)
+                with keyed_chains(chain_keys, c):
+                    z, log_u = draw_noise(key, n, c, d, dtype, device)
                 u = None if halton else torch.tensor(draw_jitter(key, n), dtype=dtype,
                                                      device=device)
             else:
@@ -339,13 +360,14 @@ def _run_chees(key, theta0s, log_prob_fn, config: ChEESConfig, mass, init_carry=
             # n == burn would clobber the step size with exp(log_eps_bar) = 1
             if adapt and n < config.burn:
                 # the ChEES gradient with respect to the trajectory time
-                mu = tree_map(lambda leaf: leaf.sum(dim=0) / c_total, thetas_out)
+                mu = tree_map(lambda leaf: gsum(leaf) / c_total, thetas_out)
                 diff_new = tree_map(lambda a, m: a - m, th_new, mu)
                 diff_old = tree_map(lambda a, m: a - m, thetas, mu)
                 dsq_new, dsq_old = _t_dot(diff_new, diff_new), _t_dot(diff_old, diff_old)
                 v_end = velocity(p_new)  # d theta'/dt at the endpoint
                 per_chain = (dsq_new - dsq_old) * _t_dot(diff_new, v_end)
-                w = alpha / torch.clamp(alpha.sum(dim=0), min=1e-6)
+                alpha_sum = gsum(alpha)
+                w = alpha / torch.clamp(alpha_sum, min=1e-6)
                 # per_chain is fourth order in theta: a chain far out but
                 # finite can overflow it, and one inf gradient would make
                 # Adam's v inf and log T NaN for the rest of the run.  Mask
@@ -353,7 +375,7 @@ def _run_chees(key, theta0s, log_prob_fn, config: ChEESConfig, mass, init_carry=
                 # normalises by sqrt(v): the clip caps the transient only)
                 contrib = torch.where(finite, w * per_chain, zeros)
                 contrib = torch.where(torch.isfinite(contrib), contrib, zeros)
-                grad_log_t = torch.clamp(traj_t * contrib.sum(dim=0), -1e6, 1e6)
+                grad_log_t = torch.clamp(traj_t * gsum(contrib), -1e6, 1e6)
 
                 t1 = torch.tensor(n + 1, dtype=dtype, device=device)
                 adam_m = 0.9 * adam_m + 0.1 * grad_log_t
@@ -366,7 +388,7 @@ def _run_chees(key, theta0s, log_prob_fn, config: ChEESConfig, mass, init_carry=
 
                 # windowed warmup counts dual averaging from the last window end
                 da = da_update(
-                    da, torch.log(torch.clamp(alpha.sum(dim=0) / c_total, min=1e-10)),
+                    da, torch.log(torch.clamp(alpha_sum / c_total, min=1e-10)),
                     da_t if windowed else n, desired_accept_rate=config.desired_accept_rate)
             elif adapt and n == config.burn:
                 da = dataclasses.replace(da, step_size=torch.exp(da.log_eps_bar))
@@ -375,7 +397,7 @@ def _run_chees(key, theta0s, log_prob_fn, config: ChEESConfig, mass, init_carry=
             if windowed:
                 if bool(collect_flags[i]):
                     merge = welford_cov_merge_batch if dense else welford_merge_batch
-                    wf = merge(wf, _flat_chains(thetas_out))
+                    wf = merge(wf, _flat_chains(thetas_out), gsum=gsum, count=c_total)
                 wf, metric, da = windowed_step(wf, metric, da, window_end, dense)
             da_t = torch.zeros_like(da_t) if window_end else da_t + 1
             thetas, logps, grads = thetas_out, logps_out, grads_out

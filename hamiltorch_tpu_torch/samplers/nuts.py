@@ -62,7 +62,7 @@ from ..ops.potential import resolve_potential, value_and_grad
 from ..utils.convert import place_start
 from ..utils.progress import scan_progress
 from ..utils.pytree import is_param_tree, stack_param_tree, tree_leaves, tree_map
-from ..utils.rng import NUTS_STREAM, draw_nuts_noise
+from ..utils.rng import NUTS_STREAM, draw_nuts_noise, keyed_chains
 from .adaptation import da_init, da_update
 from .driver import ChainState, MCMCResult, MCMCStats, _flat_chains, _tree_where, validate_common_config
 from .warmup import (
@@ -487,7 +487,8 @@ def _draw_op(mass, template, windowed: bool, dense: bool):
 
 def _run_nuts_batched(key, theta0, log_prob_fn, config: NUTSConfig, mass, pooled: bool = False,
                       init_state=None, init_da=None, start_iter: int = 0, init_warm=None,
-                      collect_flags=None, end_flags=None, _noise=None, _margins=None):
+                      collect_flags=None, end_flags=None, chain_keys=None, axis_name=None,
+                      _noise=None, _margins=None):
     """NUTS over the chains on the leading axis of every leaf of ``theta0``.
 
     ``pooled=False`` runs independent chains, each adapting its own step
@@ -500,6 +501,13 @@ def _run_nuts_batched(key, theta0, log_prob_fn, config: NUTSConfig, mass, pooled
     (numpy ``collect_flags`` / ``end_flags``) continue an earlier chunk
     exactly.  ``_margins``, a list, collects every decision's least margin
     (a test hook).
+
+    ``axis_name`` (pooled only): the ensemble extends over the ranks of a
+    process group (``parallel.sharding.resolve_group``), and the pooled
+    statistics (the mean acceptance for dual averaging, the Welford batch
+    moments) are summed over it; ``chain_keys`` are then the batch's global
+    chain indices (``parallel.sharding.derive_chain_keys``), the chains'
+    slice of the unsharded ensemble's stream.
     """
     vg = torch.func.vmap(value_and_grad(log_prob_fn))
     if init_state is None:
@@ -540,6 +548,16 @@ def _run_nuts_batched(key, theta0, log_prob_fn, config: NUTSConfig, mass, pooled
     progress = (scan_progress(config.num_samples, config.progress_every)
                 if config.progress_every > 0 else None)
 
+    gsum = count = None
+    if axis_name is not None:
+        from ..parallel.sharding import group_sum, resolve_group
+
+        group = resolve_group(axis_name)
+        count = group_sum(torch.tensor(float(c), dtype=dtype, device=device), group)
+
+        def gsum(x):
+            return group_sum(torch.sum(x, dim=0), group)
+
     state, da, (wf, metric, da_t) = init_state, init_da, init_warm
     for b in range(kept):
         window, moves = [], []
@@ -549,7 +567,9 @@ def _run_nuts_batched(key, theta0, log_prob_fn, config: NUTSConfig, mass, pooled
             if progress is not None:
                 progress(i)  # the bar is sized per run, not global
             if _noise is None:
-                noise = draw_nuts_noise(key, NUTS_STREAM + n, c, dim, max_depth, dtype, device)
+                with keyed_chains(chain_keys, c):
+                    noise = draw_nuts_noise(key, NUTS_STREAM + n, c, dim, max_depth, dtype,
+                                            device)
             else:
                 noise = {name: z[i] for name, z in _noise.items()}
             step_size = da.step_size.expand(c) if pooled else da.step_size
@@ -563,7 +583,12 @@ def _run_nuts_batched(key, theta0, log_prob_fn, config: NUTSConfig, mass, pooled
             if adapt:
                 # dual averaging on the mean leaf acceptance statistic;
                 # windowed warmup counts from the last window end
-                stat = info.accept_prob.mean() if pooled else info.accept_prob
+                if not pooled:
+                    stat = info.accept_prob
+                elif gsum is None:
+                    stat = info.accept_prob.mean()
+                else:
+                    stat = gsum(info.accept_prob) / count
                 if n < config.burn:
                     da = da_update(da, torch.log(torch.clamp(stat, min=1e-10)),
                                    da_t if windowed else n,
@@ -576,7 +601,8 @@ def _run_nuts_batched(key, theta0, log_prob_fn, config: NUTSConfig, mass, pooled
                 if bool(collect_flags[i]):
                     flat = _flat_chains(state.theta)
                     if pooled:
-                        wf = (welford_cov_merge_batch if dense else welford_merge_batch)(wf, flat)
+                        merge = welford_cov_merge_batch if dense else welford_merge_batch
+                        wf = merge(wf, flat, gsum=gsum, count=count)
                     else:
                         wf = (welford_cov_update if dense else welford_update)(wf, flat)
                 wf, metric, da = windowed_step(wf, metric, da, window_end, dense)
@@ -751,7 +777,8 @@ def run_nuts_ensemble(
     TIME-major (N, C), as in the JAX package.  ``final_warm`` is the
     ``(welford, metric, da_t)`` carry: ``final_warm[1]`` is the adapted
     inverse-mass diagonal, or the ``(inv_mass, chol_mass)`` pair of the
-    dense metric.  The sharded form (``axis_name``) is not ported.
+    dense metric.  The sharded form is
+    ``parallel.sharding.run_nuts_ensemble_sharded``.
     """
     lp = resolve_potential(log_prob_fn, None)
     theta0, mass = _prepare_chains(theta0, config, num_chains, inv_mass, theta0_is_stacked)

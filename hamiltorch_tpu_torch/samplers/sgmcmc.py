@@ -58,12 +58,6 @@ from ..utils.pytree import is_param_tree, stack_param_tree, tree_leaves, tree_ma
 from ..utils.rng import draw_sg_window, sg_term_indices
 from .driver import _tree_where
 
-SHARDED = (
-    "psum_axis / prior_fn (the sharded SG-MCMC samplers) are not ported to "
-    "hamiltorch_tpu_torch; see ROADMAP.md, queue 1 item 15"
-)
-
-
 @dataclasses.dataclass(frozen=True)
 class SGLDConfig:
     """Configuration of :func:`run_sgld`.
@@ -188,9 +182,20 @@ def _make_ghat(term_fn, num_terms: int, data, psum_axis=None, prior_fn=None):
     """``ghat(theta, terms)``: every chain's unbiased gradient estimate,
     ``num_terms`` times the gradient of its own term ``terms[c]`` (host
     ints); the chains are grouped by term, one ``vmap``-ed gradient a
-    distinct term."""
-    if psum_axis is not None or prior_fn is not None:
-        raise NotImplementedError(SHARDED)
+    distinct term.
+
+    With ``psum_axis`` (a process group or mesh dimension name,
+    ``parallel.sharding.resolve_group``), ``term_fn`` sees only its rank's
+    batch shard and the batch's term gradients are summed over the group
+    in one all-reduce BEFORE the ``num_terms`` scaling; ``prior_fn`` then
+    enters once, locally (every rank holds the whole theta): the prior
+    must not ride the sum or it counts once per rank."""
+    group = None
+    if psum_axis is not None:
+        from ..parallel.sharding import resolve_group
+
+        group = resolve_group(psum_axis)
+    prior_grad = None if prior_fn is None else torch.func.vmap(torch.func.grad(prior_fn))
     fn = term_fn if data is None else (lambda t, m: term_fn(t, m, data))
     scale = float(num_terms)
     grads = {}
@@ -201,7 +206,15 @@ def _make_ghat(term_fn, num_terms: int, data, psum_axis=None, prior_fn=None):
         return grads[m](theta)
 
     def ghat(theta, terms):
-        return tree_map(lambda leaf: scale * leaf, _grad_by_term(grad_term, theta, terms))
+        g = _grad_by_term(grad_term, theta, terms)
+        if group is not None:
+            from ..parallel.sharding import tree_group_sum
+
+            g = tree_group_sum(g, group)
+        g = tree_map(lambda leaf: scale * leaf, g)
+        if prior_grad is not None:
+            g = tree_map(torch.add, g, prior_grad(theta))
+        return g
 
     return ghat
 
@@ -714,6 +727,21 @@ def run_csgmcmc(
     res = _run_csgmcmc(key, tree_map(lambda t: t.unsqueeze(0), theta0), term_fn, num_terms,
                        config, pre, data, _noise=_noise)
     return _first_chain(res)
+
+
+def _csgmcmc_sharded_adapter(key, theta0, term_fn, num_terms, config, pre=None, data=None,
+                             init_aux=None, start_step=0, psum_axis=None, prior_fn=None):
+    """Arity adapter for ``parallel.sharding._run_sgmcmc_sharded``, which
+    threads (init_aux, start_step) resume slots the cyclical sampler does
+    not have (a cycle's exploration stage re-derives its state; there is no
+    chunked-resume contract)."""
+    if init_aux is not None or start_step:
+        raise ValueError(
+            "cyclical SG-MCMC has no chunked-resume contract "
+            "(init_aux/start_step unsupported)"
+        )
+    return _run_csgmcmc(key, theta0, term_fn, num_terms, config, pre, data, psum_axis,
+                        prior_fn)
 
 
 def run_csgmcmc_chains(key, term_fn, num_terms, theta0, config: CSGMCMCConfig,

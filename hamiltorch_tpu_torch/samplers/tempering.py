@@ -44,7 +44,7 @@ from ..ops.potential import resolve_potential, value_and_grad
 from ..utils.convert import place_start
 from ..utils.progress import scan_progress
 from ..utils.pytree import is_param_tree, stack_param_tree, tree_leaves, tree_map
-from ..utils.rng import PT_STREAM, draw_ladder_noise
+from ..utils.rng import PT_STREAM, chain_ids, draw_ladder_noise
 from .adaptation import DualAveragingState, da_update
 from .driver import _tree_where, validate_common_config
 from .hmc import _as_like
@@ -260,7 +260,7 @@ def _run_pt(key: int, theta0s, log_prob_fn, config: PTConfig, mass, init_carry=N
                  else config.step_size / torch.sqrt(b))
         if _noise is None:
             drawn = [draw_ladder_noise(key, n, ens, k, d, PT_STREAM, dtype, device)
-                     for ens in range(e)]
+                     for ens in chain_ids(e)]
             z = torch.cat([dr[0] for dr in drawn])
             u_mh = torch.cat([dr[1] for dr in drawn])
             u_swap = torch.stack([dr[2] for dr in drawn])

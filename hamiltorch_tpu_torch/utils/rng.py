@@ -7,6 +7,9 @@ draws the same numbers as the unsplit run.  Here a sampler's key is an
 integer seed, and the noise of chain ``c`` at global draw ``n`` comes from a
 ``torch.Generator`` seeded with a hash of ``(seed, c, n)``: the stream of a
 draw depends on nothing else, so chunked runs reproduce the unchunked one.
+``c`` is the chain's global index: the sharded runners
+(``parallel/sharding.py``) run each rank's chains under ``chain_slice``, so
+they draw what the same chains of the unsharded run draw.
 
 The numbers are PyTorch's, not ``jax.random``'s: tests that compare the two
 packages draw with numpy (or with ``jax.random`` on the test side) and hand
@@ -15,6 +18,8 @@ the noise to both.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import time
 
 import torch
@@ -51,6 +56,11 @@ _MASK64 = (1 << 64) - 1
 # and angle uniforms, then one uniform a lane a shrink iteration, in order;
 # OPTIM_STREAM ADVI's Monte Carlo normals at step i, and the draws of
 # ``laplace_sample`` / ``advi_sample`` from draw_seed(key, 1, OPTIM_STREAM).
+# SVGD_STREAM holds SVGD's initial cloud, (n, D) normals from
+# draw_seed(key, 0, SVGD_STREAM); the update itself draws nothing.
+# STRETCH_ENSEMBLE_STREAM seeds ensemble e of the sharded stretch move:
+# its run is the stretch move's with the key draw_seed(key, e,
+# STRETCH_ENSEMBLE_STREAM).
 MAMS_STREAM = 2**40
 NUTS_STREAM = 2**41
 AUX_STREAM = 2**42
@@ -65,8 +75,58 @@ BARKER_STREAM = 2**50
 STRETCH_STREAM = 2**51
 ELLIPTICAL_STREAM = 2**52
 OPTIM_STREAM = 2**53
+SVGD_STREAM = 2**54
+STRETCH_ENSEMBLE_STREAM = 2**55
 
 _global_gen: torch.Generator | None = None
+
+# (offset, total) while a sharded runner runs its local chains: the batch's
+# chain c is global chain offset + c of total (``chain_slice``).
+_CHAIN_SLICE: contextvars.ContextVar = contextvars.ContextVar("chain_slice", default=None)
+
+
+@contextlib.contextmanager
+def chain_slice(offset: int, total: int):
+    """Within the block, a batch of C chains is the global chains ``offset
+    .. offset + C - 1`` of ``total``: the per-chain streams seed on the
+    global index (``chain_ids``), and the one-generator-a-draw streams draw
+    the whole ``total`` block and keep the batch's rows (``chain_rows``).
+    So a sharded run's chains draw what the same chains of the unsharded
+    run draw."""
+    token = _CHAIN_SLICE.set((int(offset), int(total)))
+    try:
+        yield
+    finally:
+        _CHAIN_SLICE.reset(token)
+
+
+def chain_ids(num_chains: int) -> range:
+    """The global indices of a batch of ``num_chains`` chains."""
+    cs = _CHAIN_SLICE.get()
+    offset = 0 if cs is None else cs[0]
+    return range(offset, offset + num_chains)
+
+
+def keyed_chains(chain_keys, num_chains: int):
+    """The pooled samplers' sharding hook: with ``chain_keys`` (the batch's
+    global chain indices, ``num_chains`` consecutive ones) a
+    ``chain_slice`` at the first; without, no change to the stream."""
+    if chain_keys is None:
+        return contextlib.nullcontext()
+    keys = [int(k) for k in chain_keys]
+    first = keys[0] if keys else 0
+    if keys != list(range(first, first + num_chains)):
+        raise ValueError(
+            f"chain_keys must be {num_chains} consecutive global chain indices, got {keys}"
+        )
+    return chain_slice(first, first + num_chains)
+
+
+def chain_rows(num_chains: int) -> tuple:
+    """``(total, offset)``: a one-generator-a-draw stream draws ``total``
+    rows and the batch keeps rows ``offset .. offset + num_chains - 1``."""
+    cs = _CHAIN_SLICE.get()
+    return (num_chains, 0) if cs is None else (cs[1], cs[0])
 
 
 def set_random_seed(seed: int | None = None) -> int:
@@ -116,8 +176,8 @@ def draw_noise(key: int, n: int, num_chains: int, dim: int,
     gen = torch.Generator(device=device)
     z = torch.empty((num_chains, dim), dtype=dtype, device=device)
     u = torch.empty((num_chains,), dtype=dtype, device=device)
-    for c in range(num_chains):
-        gen.manual_seed(draw_seed(key, c, n))
+    for c, g in enumerate(chain_ids(num_chains)):
+        gen.manual_seed(draw_seed(key, g, n))
         z[c].normal_(generator=gen)
         u[c : c + 1].uniform_(generator=gen)
     return z, torch.log(u)
@@ -131,8 +191,8 @@ def draw_normals(key: int, n: int, num_chains: int, dim: int,
     device = torch.device("cpu") if device is None else torch.device(device)
     gen = torch.Generator(device=device)
     z = torch.empty((num_chains, dim), dtype=dtype, device=device)
-    for c in range(num_chains):
-        gen.manual_seed(draw_seed(key, c, n))
+    for c, g in enumerate(chain_ids(num_chains)):
+        gen.manual_seed(draw_seed(key, g, n))
         z[c].normal_(generator=gen)
     return z
 
@@ -150,8 +210,8 @@ def draw_nuts_noise(key: int, n: int, num_chains: int, dim: int, max_depth: int,
     half = 1 << (max_depth - 1)
     z = torch.empty((num_chains, dim), dtype=dtype, device=device)
     u = torch.empty((num_chains, max_depth * (2 + half)), dtype=dtype, device=device)
-    for c in range(num_chains):
-        gen.manual_seed(draw_seed(key, c, n))
+    for c, g in enumerate(chain_ids(num_chains)):
+        gen.manual_seed(draw_seed(key, g, n))
         z[c].normal_(generator=gen)
         u[c].uniform_(generator=gen)
     return {"z": z, "u_dir": u[:, :max_depth], "u_merge": u[:, max_depth:2 * max_depth],
@@ -174,8 +234,8 @@ def draw_aux_noise(key: int, n: int, num_chains: int, kind: str, size: int,
         out = torch.empty((num_chains, size), dtype=torch.int64, device=device)
     else:
         raise ValueError(f"unknown noise kind {kind!r}; expected 'uniform' or 'perm'")
-    for c in range(num_chains):
-        gen.manual_seed(draw_seed(key, c, AUX_STREAM + n))
+    for c, g in enumerate(chain_ids(num_chains)):
+        gen.manual_seed(draw_seed(key, g, AUX_STREAM + n))
         if kind == "uniform":
             out[c].uniform_(generator=gen)
         else:
@@ -199,7 +259,7 @@ def sg_term_indices(key: int, step: int, num_chains: int, num_terms: int) -> lis
     of (seed, chain, step) alone, so choosing a term never waits for the
     card; the modulo's bias is below ``num_terms / 2**63``."""
     return [draw_seed(key, c, SG_INDEX_STREAM + step) % num_terms
-            for c in range(num_chains)]
+            for c in chain_ids(num_chains)]
 
 
 def draw_sg_window(key: int, first_step: int, leaves: list, steps: int,
@@ -220,8 +280,8 @@ def draw_sg_window(key: int, first_step: int, leaves: list, steps: int,
     c_n = leaves[0].shape[0]
     z = [leaf.new_empty((c_n, steps) + tuple(leaf.shape[1:])) for leaf in leaves]
     fresh = [leaf.new_empty((c_n, extra) + tuple(leaf.shape[1:])) for leaf in leaves]
-    for c in range(c_n):
-        gen.manual_seed(draw_seed(key, c, SG_STREAM + first_step))
+    for c, g in enumerate(chain_ids(c_n)):
+        gen.manual_seed(draw_seed(key, g, SG_STREAM + first_step))
         for buf in z:
             buf[c].normal_(generator=gen)
         for buf in fresh:

@@ -16,20 +16,32 @@ SGLD / pSGLD / SGHMC, PT, TI, Barker and the stretch move:
 * a bfloat16 trace (a bfloat16 chain, or NUTS's ``trace_dtype``) comes back
   bit for bit;
 * a directory written by the JAX package's ``run_hmc_checkpointed`` is
-  refused; the ensemble's ``mesh=`` raises.
+  refused;
+* ``mesh=`` (the pooled NUTS ensemble, ChEES, PT ensembles) on a 2-rank
+  gloo group: one spawned cluster runs every case, and a run stopped
+  part-way and resumed equals the straight sharded run bit for bit; a
+  directory written without a mesh is refused on one.
 """
 
 import dataclasses
 import os
 import shutil
+import socket
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
 import torch
 
-import hamiltorch_tpu_torch as tht
-from hamiltorch_tpu_torch import checkpoint as ck
-from hamiltorch_tpu_torch.utils.pytree import tree_leaves
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+import hamiltorch_tpu_torch as tht  # noqa: E402
+from hamiltorch_tpu_torch import checkpoint as ck  # noqa: E402
+from hamiltorch_tpu_torch.utils.pytree import tree_leaves  # noqa: E402
 
 SCALES = torch.tensor([1.0, 2.0, 0.5, 1.5])
 RUNNERS = ["hmc", "hmc_chains", "nuts", "nuts_ensemble", "mclmc", "mams"]
@@ -206,10 +218,148 @@ def test_tree_states_resume(tmp_path):
     assert_same(got, tht.run_hmc_chains(5, lp, tree, hmc_cfg, CHAINS))
 
 
-def test_ensemble_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        ck.run_nuts_ensemble_checkpointed(5, log_prob, start(), config("nuts_ensemble", 4),
-                                          str(tmp_path), CHAINS, mesh=object())
+# --- mesh=: one 2-rank gloo cluster runs every case -------------------------------
+
+MESH_CHAINS = 4
+MESH_TIMEOUT = 120.0
+MESH_NUTS = tht.NUTSConfig(num_samples=24, step_size=0.4, burn=12, max_tree_depth=4,
+                           adapt_mass="diag")
+MESH_CHEES = tht.ChEESConfig(num_samples=24, step_size=0.3, burn=12, adapt_mass="diag")
+MESH_PT = tht.PTConfig(num_samples=24, num_steps_per_sample=3, step_size=0.3, num_temps=3,
+                       max_temp=10.0, burn=8, adapt_ladder=True, adapt_step_size=True)
+
+
+def _mesh_runs(name, mesh, d, n, chunk=5, num_chains=MESH_CHAINS):
+    """(straight sharded run, checkpointed mesh run) of ``n`` draws in ``d``."""
+    from hamiltorch_tpu_torch.parallel import sharding as sh
+
+    if name == "nuts_ensemble":
+        cfg = dataclasses.replace(MESH_NUTS, num_samples=n)
+        return (sh.run_nuts_ensemble_sharded(5, log_prob, start(), cfg, mesh, num_chains),
+                ck.run_nuts_ensemble_checkpointed(5, log_prob, start(), cfg, d, num_chains,
+                                                  chunk_size=chunk, mesh=mesh))
+    if name == "chees":
+        cfg = dataclasses.replace(MESH_CHEES, num_samples=n)
+        return (plain(sh.run_chees_sharded(5, log_prob, start(), cfg, mesh, num_chains)),
+                plain(ck.run_chees_checkpointed(5, log_prob, start(), cfg, d, num_chains,
+                                                chunk_size=chunk, mesh=mesh)))
+    cfg = dataclasses.replace(MESH_PT, num_samples=n)
+    return (plain(sh.run_pt_sharded(5, log_prob, start(), cfg, mesh, num_chains)),
+            plain(ck.run_pt_checkpointed(5, log_prob, start(), cfg, d, chunk_size=chunk,
+                                         num_ensembles=num_chains, mesh=mesh)))
+
+
+def _flatten(obj) -> dict:
+    from hamiltorch_tpu_torch.parallel import sharding as sh
+
+    out = {}
+
+    def put(path, t):
+        out["/".join(str(p) for p in path)] = t.detach().float().numpy() \
+            if t.dtype == torch.bfloat16 else t.detach().numpy()
+        return t
+
+    sh._map_paths(put, obj)
+    return out
+
+
+def mesh_worker(rank: int, port: int, outdir: str) -> None:
+    """One rank of the mesh cluster: every mesh= case, saved to
+    ``outdir/r<rank>.npz``."""
+    import torch.distributed as dist
+
+    from hamiltorch_tpu_torch.parallel import sharding as sh
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    mesh = sh.make_mesh(2, 1, device="cpu")
+    out = {}
+    for name in ("nuts_ensemble", "chees", "pt"):
+        d = os.path.join(outdir, name)  # one directory every rank names
+        straight_part, part = _mesh_runs(name, mesh, d, 10)
+        straight_full, full = _mesh_runs(name, mesh, d, 24)
+        for tag, res in (("straight_part", straight_part), ("part", part),
+                         ("straight_full", straight_full), ("full", full)):
+            out.update({f"{name}::{tag}::{k}": v for k, v in _flatten(res).items()})
+        # a run at another chunking from scratch
+        _, other = _mesh_runs(name, mesh, d + "_c7", 24, chunk=7)
+        out.update({f"{name}::other::{k}": v for k, v in _flatten(other).items()})
+        try:  # chains that do not divide the ranks
+            _mesh_runs(name, mesh, d + "_odd", 12, num_chains=3)
+            out[f"{name}::odd"] = np.array("")
+        except ValueError as e:
+            out[f"{name}::odd"] = np.array(str(e))
+    # a directory written without a mesh is refused on one (each rank its own)
+    d = os.path.join(outdir, f"plain_{rank}")
+    ck.run_chees_checkpointed(5, log_prob, start(), dataclasses.replace(MESH_CHEES,
+                                                                        num_samples=6),
+                              d, MESH_CHAINS, chunk_size=3)
+    try:
+        ck.run_chees_checkpointed(5, log_prob, start(), MESH_CHEES, d, MESH_CHAINS,
+                                  chunk_size=3, mesh=mesh)
+        out["chees::unsharded_dir"] = np.array("")
+    except ValueError as e:
+        out["chees::unsharded_dir"] = np.array(str(e).replace(d, "<dir>"))
+    np.savez(os.path.join(outdir, f"r{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh_cluster(tmp_path_factory):
+    outdir = str(tmp_path_factory.mktemp("mesh_ckpt"))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), port, outdir],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    deadline, logs, failed = time.monotonic() + MESH_TIMEOUT, [], False
+    for p in procs:
+        try:
+            log, _ = p.communicate(timeout=max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            log, _ = p.communicate()
+            failed = True
+        logs.append(log)
+        failed = failed or p.returncode != 0
+    assert not failed, "\n---\n".join((log or "")[-3000:] for log in logs)
+    ranks = [dict(np.load(os.path.join(outdir, f"r{r}.npz"))) for r in range(2)]
+    for k, v in ranks[0].items():  # every rank holds the same global result
+        np.testing.assert_array_equal(ranks[1][k], v, err_msg=k)
+    return ranks[0]
+
+
+def _mesh_result(cluster, name, tag):
+    prefix = f"{name}::{tag}::"
+    return {k[len(prefix):]: v for k, v in cluster.items() if k.startswith(prefix)}
+
+
+def _assert_mesh_resumes(cluster, name):
+    """The resumed mesh run equals the straight sharded run bit for bit, at
+    two chunkings, as does the interrupted first call."""
+    for got_tag, want_tag in (("part", "straight_part"), ("full", "straight_full"),
+                              ("other", "straight_full")):
+        got, want = _mesh_result(cluster, name, got_tag), _mesh_result(cluster, name, want_tag)
+        assert got.keys() == want.keys() and want, (name, got_tag)
+        for k, w in want.items():
+            if k == "0/acc_rate":  # summed per chunk by the HMC-style assembly
+                np.testing.assert_allclose(got[k], w, rtol=4e-7, err_msg=k)
+                continue
+            np.testing.assert_array_equal(got[k], w, err_msg=f"{name} {got_tag} {k}")
+    assert f"not divisible by 2 devices" in str(cluster[f"{name}::odd"])
+
+
+def test_ensemble_mesh_raises(mesh_cluster):
+    """``run_nuts_ensemble_checkpointed(mesh=)`` on a 2-rank group: stopped
+    and resumed, it equals ``run_nuts_ensemble_sharded`` bit for bit at two
+    chunkings; chains that do not divide the ranks raise."""
+    _assert_mesh_resumes(mesh_cluster, "nuts_ensemble")
 
 
 @pytest.fixture(scope="module")
@@ -372,7 +522,7 @@ def test_chees_resume_equals_the_straight_run_at_two_chunkings(name, tmp_path):
         assert_same(plain(got), want)
 
 
-def test_chees_refuses_a_changed_option_and_mesh(tmp_path):
+def test_chees_refuses_a_changed_option_and_mesh(tmp_path, mesh_cluster):
     d = str(tmp_path)
     ck.run_chees_checkpointed(5, log_prob, start(), chees_config("flat-diag", 8), d, CHAINS,
                               chunk_size=4)
@@ -380,9 +530,9 @@ def test_chees_refuses_a_changed_option_and_mesh(tmp_path):
         ck.run_chees_checkpointed(5, log_prob, start(),
                                   chees_config("flat-diag", 12, trajectory_jitter="halton"), d,
                                   CHAINS, chunk_size=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        ck.run_chees_checkpointed(5, log_prob, start(), chees_config("flat-diag", 8), d, CHAINS,
-                                  mesh=object())
+    # mesh=: resumed equals run_chees_sharded; an unsharded directory is refused
+    _assert_mesh_resumes(mesh_cluster, "chees")
+    assert "fingerprint" in str(mesh_cluster["chees::unsharded_dir"])
     bf = chees_config("flat-diag", 12, trace_dtype="bfloat16")
     got = ck.run_chees_checkpointed(5, log_prob, start(), bf, str(tmp_path / "bf"), CHAINS,
                                     chunk_size=5)
@@ -484,7 +634,8 @@ def test_pt_resume_equals_the_straight_run_at_two_chunkings(name, tmp_path):
         assert_same(plain(pt_checkpointed(name, 40, d, chunk)), want)
 
 
-def test_pt_refuses_a_changed_option_a_jax_directory_and_mesh(tmp_path, jax_written_dir):
+def test_pt_refuses_a_changed_option_a_jax_directory_and_mesh(tmp_path, jax_written_dir,
+                                                               mesh_cluster):
     d = str(tmp_path / "a")
     pt_checkpointed("single-K3", 8, d, 4)
     with pytest.raises(ValueError, match="fingerprint"):
@@ -497,8 +648,15 @@ def test_pt_refuses_a_changed_option_a_jax_directory_and_mesh(tmp_path, jax_writ
     shutil.copytree(jax_written_dir, j)
     with pytest.raises(ValueError, match="fingerprint"):
         pt_checkpointed("single-K3", 8, j, 4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        pt_checkpointed("ensembles-K4", 8, str(tmp_path / "m"), 4, mesh=object())
+    with pytest.raises(ValueError, match="pass num_ensembles"):
+        pt_checkpointed("single-K3", 8, str(tmp_path / "m"), 4, mesh=object())
+    # mesh=: resumed equals run_pt_sharded, itself run_pt_chains bit for bit
+    _assert_mesh_resumes(mesh_cluster, "pt")
+    want = _flatten(plain(tht.run_pt_chains(5, log_prob, start(), MESH_PT, MESH_CHAINS)))
+    got = _mesh_result(mesh_cluster, "pt", "full")
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
     with pytest.raises(ValueError, match="replicas"):
         ck.run_pt_checkpointed(5, log_prob, torch.zeros(4, 2),
                                tht.PTConfig(num_samples=8, num_temps=8), str(tmp_path / "r"))
@@ -636,3 +794,7 @@ def test_gradient_free_refuse_a_changed_option_and_a_jax_directory(tmp_path, jax
                                             j, num_walkers=8)
     with pytest.raises(RuntimeError, match="burn"):
         ck.run_barker_checkpointed(5, log_prob, start(), barker_config(20), str(tmp_path / "x"))
+
+
+if __name__ == "__main__":
+    mesh_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

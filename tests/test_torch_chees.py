@@ -354,9 +354,14 @@ def test_validation_raises_as_in_jax():
                                   {"x": jnp.zeros(2)}, jch.ChEESConfig(**cfg), num_chains=4),
             lambda: tht.run_chees(0, lambda t: -0.5 * torch.sum(t["x"] ** 2),
                                   {"x": torch.zeros(2)}, tch.ChEESConfig(**cfg), num_chains=4))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # the sharded ensemble's hooks: a mesh dimension name needs a mesh, and
+    # chain_keys must be the batch's consecutive global indices
+    with pytest.raises(ValueError, match="needs a mesh"):
         tch._run_chees(0, torch.zeros(4, 2), t_lp, tch.ChEESConfig(num_samples=2),
                        tmass.make_mass(None, 2), axis_name="chains")
+    with pytest.raises(ValueError, match="consecutive"):
+        tch._run_chees(0, torch.zeros(4, 2), t_lp, tch.ChEESConfig(num_samples=2),
+                       tmass.make_mass(None, 2), chain_keys=[0, 2, 4, 6])
 
 
 def test_single_start_is_spread_from_the_key():

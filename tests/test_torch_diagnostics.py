@@ -306,10 +306,17 @@ def test_inference_dict_of_the_gradient_free_families():
 
 
 def test_inference_dict_refuses_families_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Not a sampler's result: refused.  An SVGDResult (particles, no chains
+    or statistics) is refused with a plain message, as the JAX function has
+    no branch for it."""
+    with pytest.raises(NotImplementedError, match="samplers' results"):
         tdiag.to_inference_dict(("result", "info"))
-    with pytest.raises(NotImplementedError, match="SVGD"):
-        tdiag.to_inference_dict(type("SVGDResult", (), {"samples": 0, "stats": 0})())
+    with pytest.raises(NotImplementedError, match="not a sampler's result"):
+        tdiag.to_inference_dict(type("Other", (), {"samples": 0, "stats": 0})())
+    svgd = tht.run_svgd(0, lambda t: -torch.sum(t**2), torch.zeros(2),
+                        tht.SVGDConfig(num_steps=2), 4)
+    with pytest.raises(TypeError, match="SVGDResult"):
+        tdiag.to_inference_dict(svgd)
 
 
 def test_to_arviz_needs_arviz():

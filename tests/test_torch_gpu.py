@@ -1345,3 +1345,70 @@ def test_optim_on_card_matches_cpu_in_float64(cuda_device):
     for card, host in zip(go(cuda_device), go("cpu")):
         assert card.device.type == "cuda"
         assert float((card.cpu() - host).abs().max()) <= 1e-10 * max(float(host.abs().max()), 1.0)
+
+
+def _svgd_small(device):
+    """20 SVGD steps of 16 float64 particles on a small ripple target from one
+    CPU-drawn cloud (the update runs in float32, as the JAX package's)."""
+    import hamiltorch_tpu_torch as tht
+
+    gen = torch.Generator().manual_seed(7)
+    p0 = torch.randn(16, 3, generator=gen, dtype=torch.float64)
+    s = torch.tensor([1.0, 0.5, 2.0], dtype=torch.float64, device=device)
+    return tht.run_svgd(0, lambda t: -0.5 * torch.sum((t / s) ** 2) + 0.2 * torch.sum(torch.sin(t)),
+                        torch.zeros(3, dtype=torch.float64, device=device),
+                        tht.SVGDConfig(num_steps=20, step_size=0.05), 16, particles0=p0.to(device))
+
+
+@pytest.mark.gpu
+def test_svgd_on_card_matches_cpu_in_float64(cuda_device):
+    """Float64 particles, a float32 update on both sides (as the JAX
+    package's): the card's and the CPU's float32 products differ in their
+    last bits and AdaGrad's division grows it (7.5e-7 of max |x| after 20
+    steps on the H100), so the float32 class 1e-5 of the kernel tests."""
+    card, host = _svgd_small(cuda_device), _svgd_small("cpu")
+    assert card.particles.device.type == "cuda" and int(card.num_rejected) == 0
+    assert card.particles.dtype == torch.float64
+    err = float((card.particles.cpu() - host.particles).abs().max())
+    assert err <= 1e-5 * float(host.particles.abs().max())
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_runs_the_chains_sharded_hmc_bit_for_bit(cuda_device):
+    """``make_mesh()`` on the card: a one-rank NCCL group, and the
+    chains-sharded HMC on it equals ``run_hmc_chains`` bit for bit."""
+    import torch.distributed as dist
+
+    from hamiltorch_tpu_torch.parallel import sharding as sh
+
+    lp, params0 = make_flagship_potential_tree(in_dim=8, hidden=4, n_data=16, device=cuda_device)
+    cfg = MCMCConfig(num_samples=4, num_steps_per_sample=5, step_size=0.05)
+    mesh = sh.make_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and sh.mesh_device(mesh).type == "cuda"
+        got = sh.run_hmc_chains_sharded(3, lp, params0, cfg, mesh, 8)
+    finally:
+        dist.destroy_process_group()
+    want = run_hmc_chains(3, lp, params0, cfg, 8)
+    for k, v in want.samples.items():
+        assert got.samples[k].device.type == "cuda" and torch.equal(got.samples[k], v), k
+    assert torch.equal(got.stats.accepted, want.stats.accepted)
+
+
+def test_make_mesh_raises_without_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """``make_mesh`` follows ``resolve_device``: with no card and no device
+    it raises before it starts a process group; ``device="cpu"`` runs a
+    one-rank gloo group (here with CUDA masked)."""
+    import torch.distributed as dist
+
+    from hamiltorch_tpu_torch.parallel import sharding as sh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sh.make_mesh()
+    assert not dist.is_initialized()
+    try:
+        mesh = sh.make_mesh(device="cpu")
+        assert dist.get_backend() == "gloo" and sh.mesh_device(mesh).type == "cpu"
+    finally:
+        dist.destroy_process_group()

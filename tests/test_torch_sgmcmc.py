@@ -426,9 +426,28 @@ def test_entry_validation_raises_as_in_jax(what):
 
 
 def test_sharded_arguments_raise():
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """``psum_axis`` names a mesh dimension: without a mesh it raises (the
+    sharded runs are held in tests/test_torch_sharding.py)."""
+    with pytest.raises(ValueError, match="needs a mesh"):
         tsg._run_sgld(0, torch.zeros(1, 3), lambda t, m: -torch.sum(t**2), 2,
                       tsg.SGLDConfig(num_samples=2, step_size=0.1), psum_axis="data")
+
+
+def test_prior_fn_enters_once_beside_the_terms():
+    """``prior_fn`` (the sharded runners' local prior) adds its gradient to
+    ``num_terms`` times the term's: the run equals the one whose term
+    carries ``prior / num_terms``, up to rounding."""
+    prior = lambda t: -0.5 * torch.sum(t**2)  # noqa: E731
+
+    def term(t, m):
+        return -0.5 * (m + 1.0) * torch.sum((t - 1.0) ** 2)
+
+    cfg = tsg.SGLDConfig(num_samples=6, step_size=0.05)
+    got = tsg._run_sgld(3, torch.zeros(2, 3), term, 2, cfg, prior_fn=prior)
+    want = tsg._run_sgld(3, torch.zeros(2, 3), lambda t, m: term(t, m) + prior(t) / 2, 2, cfg)
+    torch.testing.assert_close(got.samples, want.samples, rtol=0, atol=1e-6)
+    assert not torch.equal(got.samples, tsg._run_sgld(3, torch.zeros(2, 3), term, 2,
+                                                      cfg).samples)
 
 
 @pytest.mark.parametrize("kind", ["sgld", "psgld", "sghmc"])
