@@ -24,12 +24,15 @@ the kernels are built for sm_90a).  It
    per chain (D=3 diagonal, also at a ragged chain count), 32 lanes (D=20
    diagonal and dense), a warp per chain (D=200 diagonal), the tensor
    cores (dense D=128 and D=64) and dense P beyond their range (D=192),
-   the any-D variant (diagonal D=257, 300, 512, 1000, 4096, 4099; dense
-   D=241, 256, 512, 513, 1000, 2048, 4096, 4099; at chain counts that give
-   blocks of 1, 2, 4 and 8 chains, the last one partial), and at every
-   shape its main path launches (D=2 dense and
+   the any-D variant (diagonal D=257, 300, 512, 1000, 4096 with the state
+   in the registers of up to 256 threads a chain, 4099 of 1024; dense
+   D=241, 256, 512, 513, 1000, 2048, 4096, 4099 on the tensor cores across
+   one grid, at chain counts that give tiles of 8, 16, 32 and 64 chains,
+   the last one partial), and at
+   every shape its main path launches (D=2 dense and
    diagonal at 256 chains, D=3 at 16 chains, dense D=64 at 256 chains,
-   diagonal D=1000 at 64 chains); and the any-D variant forced on shapes
+   diagonal D=1000 at 64 chains, dense D=512 at 64 chains); and the any-D
+   variant forced on shapes
    that a warp per chain runs (diagonal D=200, dense D=192) must give the
    same draws and accepts, the noise being a function of (element, draw,
    chain) alone;
@@ -49,7 +52,14 @@ the kernels are built for sm_90a).  It
    this kernel (4 L + 6), and beside the dense shape's tensor-core bound the
    time its ``mma.sync`` instructions take at the rate a second probe kernel
    measures; the any-D variant at diagonal and dense D=1024 (1024 chains x
-   100 draws x L=10) beside cuBLAS's (C, D) x (D, D) matvec of every step;
+   100 draws x L=10) beside cuBLAS's (C, D) x (D, D) matvec of every step,
+   the dense one beside its 3xTF32 bound, the time of its ``mma.sync`` at
+   the probed rate and a model (from the shapes, not a measurement) of the
+   bytes a step moves through L2 in this design and the former.  A kernel
+   whose products run on the tensor cores in 3xTF32 (the BNN kernels,
+   ``gaussian_hmc`` at dense P) takes the 3xTF32 time of its operations as
+   its ``bound_ms`` where that is below the float32 FMA time
+   (``bound_ops_peak`` names the peak taken);
 5. drives the main paths, each with the launch counts set to 0 just before
    it and read just after, and fails if its kernel was not launched:
    - HMC: the fused flagship sampler ``kernels.bnn_hmc`` and
@@ -65,8 +75,10 @@ the kernels are built for sm_90a).  It
    - Gaussian: ``kernels.gaussian_hmc`` recovers the moments of the 3-D
      diagonal (4000 draws), 2-D dense and shifted-mean Gaussians of
      ``tests/test_kernels.py`` (256 chains x 600 draws, L=6, eps=0.2), the
-     covariance of a dense 64-D one (the tensor-core variant) and the stds
-     of a diagonal 1000-D one (the any-D variant), the same seed gives the
+     covariance of a dense 64-D one (the tensor-core variant), the stds
+     of a diagonal 1000-D one and the marginal variances of a dense 512-D
+     one, each within 5 of its own standard errors (the any-D variant), the
+     same seed gives the
      same trace, and chains differ; ``diagnostics.summary`` of the 3-D
      draws on the card equals the CPU's (float64) within 1e-4 relative,
      with R-hat < 1.01;
@@ -240,18 +252,22 @@ LOGP_RTOL = 1e-6
 MCLMC_TUNE_STEPS = 1000  # bench.py:446
 MCLMC_CHUNK = 200  # frozen steps per chunk (every 10th kept)
 # gaussian_hmc's any-D variant against its plain version: (seed, D, dense,
-# chains, chains per block).  Past 132 chains a block shares 2, 4 or 8
-# chains (``_wide_plan``), here with a partial last block; D = 4096 and the
-# ragged 4099 reach blocks above 48 KB and, dense, a P that streams from
-# device memory.  Every seed leaves the closest Metropolis decision at least
-# 1.7e-4 from the other outcome in the plain version on the CPU (float32
-# rounding moves it by ~1e-6).
-WIDE_SHAPES = ((20, 257, False, 37, 1), (21, 512, False, 64, 1), (22, 1000, False, 16, 1),
+# chains, the plan's group: chains a tile of dense P, a block of diagonal P).
+# Dense tiles of 8, 16, 32 and 64 chains, each with a partial last tile (and
+# a partial last tile of 128 rows at D = 241, 513, 1000, 4099); diagonal P in
+# registers, 1 or 2 chains a block of 256 threads, and beyond D = 4096 one
+# chain a block of 1024 (4099).  Dense D = 4096 and the ragged 4099 stream P
+# from device memory.
+# Every seed leaves the closest Metropolis decision at least 1.7e-4 from the
+# other outcome in the plain version on the CPU (float32 rounding moves it
+# by ~1e-6).
+WIDE_SHAPES = ((20, 257, False, 37, 2), (21, 512, False, 64, 2), (22, 1000, False, 16, 1),
                (23, 4096, False, 8, 1), (28, 4099, False, 5, 1), (29, 300, False, 201, 2),
-               (30, 257, False, 270, 4), (42, 1000, False, 1061, 8),
-               (24, 241, True, 37, 1), (25, 256, True, 16, 1), (26, 512, True, 16, 1),
-               (27, 1000, True, 8, 1), (32, 4096, True, 5, 1), (33, 4099, True, 3, 1),
-               (34, 2048, True, 201, 2), (35, 512, True, 270, 4), (44, 513, True, 530, 8))
+               (30, 257, False, 270, 2), (42, 1000, False, 1061, 1),
+               (24, 241, True, 37, 8), (25, 256, True, 16, 8), (26, 512, True, 16, 8),
+               (27, 1000, True, 8, 8), (32, 4096, True, 5, 8), (33, 4099, True, 3, 8),
+               (34, 2048, True, 201, 32), (35, 512, True, 270, 16), (44, 513, True, 530, 32),
+               (47, 1000, True, 600, 64))
 # the same draws whichever variant runs: diagonal and dense shapes of variant 3
 FORCED_SHAPES = ((200, False), (192, True))
 # The chains' mean adapted dense inverse mass against the true covariance of
@@ -574,11 +590,22 @@ def time_in_turns(torch, fns: dict) -> dict:
     return {name: (statistics.median(t), t) for name, t in times.items()}
 
 
-def bound(flops, nbytes, latency_ms=0.0):
-    """(bound ms, what bounds it) at the card's peaks; latency_ms is the least
-    time of the longest chain of dependent operations, where that is known."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max((t_ops, "operations"), (t_bytes, "bytes"), (latency_ms, "latency"))
+def ops_ms(flops, tf32_flops=0):
+    """(least time of the operations, the peak it takes): flops at the
+    float32 FMA peak, or, where it is less, the tf32_flops of them that the
+    kernel runs on the tensor cores in 3xTF32 at that rate and the rest at
+    the FMA peak."""
+    fma = flops / PEAK_FLOPS * 1e3
+    tc = (flops - tf32_flops) / PEAK_FLOPS * 1e3 + tf32_bound_ms(tf32_flops)
+    return (tc, "tf32_3x") if tf32_flops and tc < fma else (fma, "fp32_fma")
+
+
+def bound(flops, nbytes, latency_ms=0.0, tf32_flops=0):
+    """(bound ms, what bounds it) at the card's peaks (operations: ops_ms);
+    latency_ms is the least time of the longest chain of dependent
+    operations, where that is known."""
+    return max((ops_ms(flops, tf32_flops)[0], "operations"), (nbytes / PEAK_BYTES * 1e3, "bytes"),
+               (latency_ms, "latency"))
 
 
 def max_sm_clock_hz() -> float:
@@ -714,16 +741,19 @@ def time_bnn_hmc(torch, device, gemm_ms, draws, steps, eps, card):
     (k_ms, k_all), (p_ms, p_all) = t["kernel"], t["plain"]
     grad_steps = FLAGSHIP["c"] * draws * steps
     gradients = draws * steps + 1  # one per leapfrog step, one at the start
-    b_ms, b_by = bound(gradient_flops(FLAGSHIP) * gradients, bnn_bytes(FLAGSHIP))
-    tc_ms = tf32_bound_ms(gradient_flops(FLAGSHIP) * gradients)
+    flops = gradient_flops(FLAGSHIP) * gradients
+    fma_ms, _ = bound(flops, bnn_bytes(FLAGSHIP))
+    b_ms, b_by = bound(flops, bnn_bytes(FLAGSHIP), tf32_flops=flops)
+    tc_ms = tf32_bound_ms(flops)
     lib_ms = gemm_ms * gradients
     print(f"bnn_hmc {FLAGSHIP} {draws}x{steps}: kernel {k_ms:.3f} ms "
           f"({grad_steps / k_ms * 1e3:.1f} grad-steps/s), plain {p_ms:.3f} ms "
           f"({grad_steps / p_ms * 1e3:.1f} grad-steps/s); runs kernel {k_all} plain {p_all}; "
-          f"bound {b_ms:.3f} ms ({b_by}, float32 FMA), {tc_ms:.3f} ms (3xTF32 tensor cores); "
-          f"cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
+          f"bound {b_ms:.3f} ms ({b_by}; float32 FMA {fma_ms:.3f} ms, 3xTF32 tensor cores "
+          f"{tc_ms:.3f} ms); cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                bound_3xtf32_ms=tc_ms, bound_latency_ms=None)
+                bound_ops_peak=ops_ms(flops, flops)[1], bound_3xtf32_ms=tc_ms,
+                bound_latency_ms=None)
 
 
 def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
@@ -738,16 +768,44 @@ def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
     (k_ms, k_all), (p_ms, p_all) = t["kernel"], t["plain"]
     grad_steps = FLAGSHIP["c"] * draws * 2
     gradients = 2 * draws + 1  # two per draw, one at the start
-    b_ms, b_by = bound(gradient_flops(FLAGSHIP) * gradients, bnn_bytes(FLAGSHIP, dim))
-    tc_ms = tf32_bound_ms(gradient_flops(FLAGSHIP) * gradients)
+    flops = gradient_flops(FLAGSHIP) * gradients
+    fma_ms, _ = bound(flops, bnn_bytes(FLAGSHIP, dim))
+    b_ms, b_by = bound(flops, bnn_bytes(FLAGSHIP, dim), tf32_flops=flops)
+    tc_ms = tf32_bound_ms(flops)
     lib_ms = gemm_ms * gradients
     print(f"bnn_mclmc {FLAGSHIP} {draws} draws eps={eps} L={length}: kernel {k_ms:.3f} ms "
           f"({grad_steps / k_ms * 1e3:.1f} grad-steps/s), plain {p_ms:.3f} ms "
           f"({grad_steps / p_ms * 1e3:.1f} grad-steps/s); runs kernel {k_all} plain {p_all}; "
-          f"bound {b_ms:.3f} ms ({b_by}, float32 FMA), {tc_ms:.3f} ms (3xTF32 tensor cores); "
-          f"cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
+          f"bound {b_ms:.3f} ms ({b_by}; float32 FMA {fma_ms:.3f} ms, 3xTF32 tensor cores "
+          f"{tc_ms:.3f} ms); cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                bound_3xtf32_ms=tc_ms, bound_latency_ms=None)
+                bound_ops_peak=ops_ms(flops, flops)[1], bound_3xtf32_ms=tc_ms,
+                bound_latency_ms=None)
+
+
+def dense_l2_bytes(d, chains):
+    """A model, from the shapes alone, of the bytes that one leapfrog step
+    of gaussian_hmc's any-D variant moves through L2 at dense P: (this
+    design, the former).  This design: each tile reads its 128 rows of P^T
+    and its chains' theta - mean over Dp (D rounded up to 128), 4 bytes an
+    element, and its epilogue reads p and the trajectory's theta and writes
+    them and the next theta - mean (5 x 4 bytes an entry of the padded
+    tiles).  The former design: every block of 1-8 chains (as many as its
+    shared memory held: 6 float32 arrays of D rounded up to 4 a chain and
+    144 bytes of partial sums) read all of P."""
+    from hamiltorch_tpu_torch.kernels.gaussian_hmc import DENSE_ROWS, MAX_SHARED, _plan
+
+    chain_tile = _plan(d, True, 8, chains).group
+    dp = -(-d // DENSE_ROWS) * DENSE_ROWS
+    cp = -(-chains // chain_tile) * chain_tile
+    tiles = dp // DENSE_ROWS * (cp // chain_tile)
+    this = tiles * (DENSE_ROWS + chain_tile) * dp * 4 + 5 * 4 * dp * cp
+    per_block = 1  # the former plan: the fewest chains a block that fill the card, at most 8
+    while per_block < 8 and per_block * 132 < chains:
+        per_block *= 2
+    while per_block > 1 and per_block * (144 + 24 * -(-d // 4) * 4) > MAX_SHARED:
+        per_block //= 2
+    return this, -(-chains // per_block) * 4 * d * d
 
 
 def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card, fma_ns, mma_ns):
@@ -777,10 +835,13 @@ def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card, 
     latency_ms = draws * 7 * fma_ns * 1e-6
     stepwise_ms = draws * (2 * steps + 6) * fma_ns * 1e-6
     as_built_ms = draws * (4 * steps + 6) * fma_ns * 1e-6
-    b_ms, b_by = bound(flops, nbytes, latency_ms)
     from hamiltorch_tpu_torch.kernels.gaussian_hmc import MMA_MAX_D, _plan
 
     plan = _plan(d, dense, 8, chains)
+    # variants 4 and 5 run the dense product on the tensor cores in 3xTF32
+    mma = dense and (plan.variant == 5 or d <= MMA_MAX_D)
+    tf32_flops = chains * draws * steps * 2 * d * d if mma else 0
+    b_ms, b_by = bound(flops, nbytes, latency_ms, tf32_flops)
     lib_ms = tc_ms = None
     if dense:  # cuBLAS: the (C, D) x (D, D) gradient product of every step
         x = torch.randn(chains, d, device=device)
@@ -800,17 +861,34 @@ def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card, 
         tc = (f", {tc_ms:.4g} ms (3xTF32 tensor cores, were the card full: {-(-chains // 16)} "
               f"blocks of 16 chains for 132 SMs), {sync_ms:.4g} ms (a block's mma.sync at the "
               f"probed rate)")
+    if dense and plan.variant == 5:  # one (C, D) x (D, D) product a step across the grid
+        from hamiltorch_tpu_torch.kernels.gaussian_hmc import DENSE_ROWS
+
+        this_b, former_b = dense_l2_bytes(d, chains)
+        dp = -(-d // DENSE_ROWS) * DENSE_ROWS
+        cp = -(-chains // plan.group) * plan.group
+        tiles = dp // DENSE_ROWS * (cp // plan.group)
+        # 3 mma.sync per 16 x 8 x 8 product, spread over the sub-cores of the SMs the tiles fill
+        sync_ms = (draws * steps * 3 * (dp // 16) * (cp // 8) * (dp // 8)
+                   / (4 * min(tiles, 132)) * mma_ns * 1e-6)
+        tc = (f", {tc_ms:.4g} ms (3xTF32 tensor cores), {sync_ms:.4g} ms (its mma.sync at the "
+              f"probed rate over the SMs its {tiles} tiles fill); L2 bytes a step, modelled "
+              f"from the shapes (not measured): {this_b / 2**20:.1f} MiB (the former design: "
+              f"{former_b / 2**20:.1f} MiB)")
+    mma_ops = f", {ops_ms(flops, tf32_flops)[0]:.4g} with the product in 3xTF32" if mma else ""
     print(f"gaussian_hmc D={d} {kind} {chains} chains {draws}x{steps} (variant {plan.variant}): "
           f"kernel {k_ms:.3f} ms "
           f"({chains * draws / k_ms * 1e3:.4g} chain-draws/s), plain {p_ms:.3f} ms "
           f"({chains * draws / p_ms * 1e3:.4g} chain-draws/s); runs kernel {k_all} plain {p_all}; "
-          f"bound {b_ms:.4g} ms ({b_by}; operations {flops / PEAK_FLOPS * 1e3:.4g}, bytes "
+          f"bound {b_ms:.4g} ms ({b_by}; operations {flops / PEAK_FLOPS * 1e3:.4g} at the "
+          f"float32 FMA peak{mma_ops}, bytes "
           f"{nbytes / PEAK_BYTES * 1e3:.4g}, latency {latency_ms:.4g}; the dependent chain of a "
           f"step-by-step leapfrog {stepwise_ms:.4g} ms, of this design {as_built_ms:.4g} ms){tc}; "
           f"cuBLAS matmuls {lib} "
           f"[{card}]")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                bound_3xtf32_ms=tc_ms, bound_latency_ms=latency_ms)
+                bound_ops_peak=ops_ms(flops, tf32_flops)[1], bound_3xtf32_ms=tc_ms,
+                bound_latency_ms=latency_ms)
 
 
 def hmc_main_path(torch, device, draws, steps, eps, card):
@@ -1002,6 +1080,27 @@ def gaussian_main_path(torch, device):
           f"(median {float(rel.median()):.4f}), acceptance {float(acc.mean()):.4f}")
     if not (float(rel.max()) < 0.1 and float(acc.mean()) > 0.6):
         raise SmokeError("gaussian_hmc: the 1000-D stds or acceptance are off")
+
+    # dense 512-D: the any-D variant's grid-wide product.  Its marginal
+    # variances against the diagonal of P^-1: each chain's mean of theta^2
+    # (the mean is 0) over the last 300 draws, their mean over the chains,
+    # and its standard error from the chains' spread, which carries the
+    # draws' autocorrelation; 5 standard errors at each of the 512 dims.
+    # From theta = 0 the variances take ~250 draws to settle (the plain
+    # version on the CPU: 0.85 of the target at draw 150, 0.99 at 250)
+    prec = dense_precision(torch, 512, 1)
+    var = torch.linalg.inv(prec.double()).diagonal().float()
+    samples, acc = gaussian_hmc(4, torch.zeros(64, 512, device=device), prec.to(device), **kw)
+    per_chain = (samples[:, 300:].double() ** 2).mean(1).cpu()  # (chains, D)
+    se = per_chain.std(0) / per_chain.shape[0] ** 0.5
+    z = ((per_chain.mean(0) - var) / se).abs()
+    print(f"gaussian_hmc dense 512-D: marginal variances {float(var.min()):.3f}-"
+          f"{float(var.max()):.3f}, largest |error| / standard error {float(z.max()):.3f} "
+          f"(median {float(z.median()):.3f}), "
+          f"relative error up to {float(((per_chain.mean(0) - var) / var).abs().max()):.4f}, "
+          f"acceptance {float(acc.mean()):.4f}")
+    if not (float(z.max()) < 5.0 and float(acc.mean()) > 0.6):
+        raise SmokeError("gaussian_hmc: the dense 512-D variances or acceptance are off")
 
     prec = torch.ones(3, device=device)
     s1, _ = gaussian_hmc(7, torch.zeros(16, 3, device=device), prec, 50, 5, 0.3)
@@ -3426,16 +3525,16 @@ def main() -> int:
             (128, True, 64),  # tensor cores, 3xTF32
             (192, True, 37),  # beyond the tensor-core variant's range: float32 FMA
             (2, True, 256), (2, False, 256), (3, False, 16), (64, True, 256),  # the main path's
-            (1000, False, 64),
+            (1000, False, 64), (512, True, 64),
         ), start=3))
     # the any-D variant (5): beyond 256 diagonal and 240 dense, ragged D included
     from hamiltorch_tpu_torch.kernels.gaussian_hmc import _plan
 
-    for seed, d, dense, chains, per_block in WIDE_SHAPES:
+    for seed, d, dense, chains, group in WIDE_SHAPES:
         plan = _plan(d, dense, 8, chains)
-        if (plan.variant, plan.group) != (5, per_block):
+        if (plan.variant, plan.group) != (5, group):
             raise SmokeError(f"D={d} dense={dense} at {chains} chains plans {plan}, "
-                             f"not variant 5 with {per_block} chains a block")
+                             f"not variant 5 with group {group}")
     wide_err = max(compare_gaussian_hmc(torch, d, dense, chains, 20, 6, 0.2, seed=seed, device=device)
                    for seed, d, dense, chains, _ in WIDE_SHAPES)
     wide_err = max([wide_err] + [compare_forced_wide(torch, d, dense, device)
@@ -3530,7 +3629,8 @@ def main() -> int:
     gauss["max_abs_err_variant5"] = wide_err
     for dense, t in wide_times.items():
         gauss[f"variant5_d1024_{'dense' if dense else 'diagonal'}"] = {
-            k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_ops_peak",
+                              "library_ms", "bound_3xtf32_ms")}
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 // random numbers (Philox4x32-10, Box-Muller) that replace the TPU's on-core
 // PRNG, fixed-order float64 reductions over a warp or a block (a fixed
 // order makes every run deterministic), and Hopper's asynchronous machinery
-// as inline PTX: mbarriers, TMA tile loads, wgmma and mma.sync on tf32
-// operands, and the split of a float into two tf32 parts.
+// as inline PTX: mbarriers, TMA tile loads, cp.async, wgmma and mma.sync on
+// tf32 operands, the split of a float into two tf32 parts, and a barrier
+// over the blocks of a cooperative launch.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
@@ -176,6 +177,49 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier over the first `count` threads of the block (id 0 is __syncthreads)
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- cp.async: 16 bytes a thread from device to shared memory, through L2 only ----
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread's copies are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ---- a barrier over every block of a cooperative launch ----
+
+// Every block waits until all gridDim.x blocks have arrived.  `count` starts
+// at 0 before the launch and only grows; `target` is the block's own tally
+// of the arrivals expected so far (the same in every block).  Writes before
+// the barrier are visible after it to every block (reads of data that
+// other blocks wrote must still bypass L1: ld.global.cg or cp.async.cg).
+// A cooperative launch has every block resident, so only blocks that call
+// it a different number of times can keep one waiting: after ~2^26 polls
+// (seconds) it traps, and the launch fails instead of hanging.
+__device__ __forceinline__ void grid_barrier(unsigned int* count, unsigned int& target) {
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+    unsigned int seen, polls = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(count) : "memory");
+      if (++polls == (1u << 26)) __trap();
+    } while ((int)(seen - target) < 0);
+    __threadfence();
+  }
+  __syncthreads();
 }
 
 // ---- wgmma ----

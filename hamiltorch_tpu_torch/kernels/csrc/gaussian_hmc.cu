@@ -71,28 +71,47 @@
 //      log-uniforms into shared memory meanwhile.  Beyond D=128 the split P
 //      (8 Dp^2 bytes, Dp = D rounded up to 32), the tiles and the noise no
 //      longer fit a block's 232,448 bytes together.
-//   5. Any other D (diagonal D > 256, dense D > 240), up to what a block's
-//      shared memory holds: one block of 8 warps per 1-8 chains, the state
-//      (theta, its gradient, and the trajectory's theta, p and gradient) in
-//      shared memory, each thread owning 4 neighbouring elements of every
-//      chain of its block (the four normals of one Philox draw).  Dense P
-//      stays in device memory: each thread takes 4 columns of the matvec in
-//      16-byte loads (where the rows are 16-byte aligned) for all the
-//      block's chains, whose theta - mean sits in shared memory element-major,
-//      so each element of P read serves every chain of the block.  P is 4 MB
-//      at D=1024 and stays in L2; from D ~ 3,500 (50 MB) on it streams from
-//      HBM.  A simple design, not yet a fast one.
+//   5. Any other D (diagonal D > 256, dense D > 240; `_variant=5` forces it
+//      at any D), three forms:
+//      - Dense P, at any D the card's memory holds: one persistent
+//        cooperative grid for the whole run (dense_grid_kernel).
+//        What bounds it: a step is one (C, D) x (D, D) product, 2 C D^2
+//        flops (at D = 1024 and 1024 chains x 100 draws x L=10 that is 2.1
+//        TFLOP, 13.0 ms in 3xTF32 at the 495 TFLOP/s tf32 peak, ~18 ms at
+//        the rate mma.sync.m16n8k8 sustains), and the bytes its tiles read
+//        from L2: P^T's 128-row tiles each C / BN times and Delta's each
+//        D / 128 times (modelled from the shapes: 100 MB a step at that
+//        shape, where the former blocks of 8 chains read all of P 128
+//        times: 512 MiB), plus the
+//        state each epilogue reads and writes.  At few chains P alone is
+//        the traffic, read once a step across the whole grid (the former
+//        design read it once a block).  The design: the chains are the N of
+//        a tensor-core product (P^T's rows the M), tiles of 128 rows x 8-64
+//        chains walked by one block of 8 warps each on every SM, a grid
+//        barrier after each step's product, the operands in float32 split
+//        into tf32 parts as they are read (half the bytes of split copies;
+//        P^T, or P^T and Delta, held split instead ran no faster:
+//        scripts/gaussian_hmc_variants_torch.py times those forms),
+//        64-row partials added in order.
+//      - Diagonal P, D <= 4096: the state of a chain in the registers of a
+//        team of 32-256 threads (diag_kernel).  What bounds it: issue, four
+//        dependent float32 operations an element and step with the noise
+//        and the float64 energies beside them, and the draws written out
+//        (0.1265 ms at D = 1024, 1024 chains x 100 draws); the former
+//        design kept 8 chains' state in one block's shared memory, so an SM
+//        ran 8 warps and each step made three passes over shared memory.
+//      - Diagonal P, 4096 < D <= 12,288: a chain a block of 1024 threads
+//        (diag_kernel), 2 or 3 groups of 4 elements a thread, the state in
+//        registers and the mean and P, the same for every chain, in shared
+//        memory: 256 threads' registers no longer hold them all.  The
+//        former design's shared-memory form (1-8 chains a block, up to D =
+//        11,612) is kept in scripts/csrc/gaussian_hmc_variants.cu only.
 
 #include "gaussian_hmc.cuh"
 
 namespace {
 
 // variants 1 and 2: G lanes per chain, one element each, with the noise ring
-template <int CB>
-int launch_wide_dense(const Args& a, bool dense, size_t shared, cudaStream_t stream) {
-  return dense ? launch_wide<CB, true>(a, shared, stream) : launch_wide<CB, false>(a, shared, stream);
-}
-
 template <int G>
 int launch_ring(const Args& a, bool dense, int warps, int consumers, int cpw, size_t shared,
                 cudaStream_t stream) {
@@ -105,6 +124,13 @@ int launch_ring(const Args& a, bool dense, int warps, int consumers, int cpw, si
 extern "C" {
 
 const char* gaussian_hmc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// Bytes of device scratch that gaussian_hmc_run needs for this plan (0:
+// none; only variant 5 with dense P takes any, `group` chains a tile).
+size_t gaussian_hmc_scratch_bytes(int chains, int d, int dense, int variant, int group) {
+  if (variant != 5 || !dense || chains < 1 || d < 1 || group < 8) return 0;
+  return dense_scratch(nullptr, nullptr, chains, d, group);
+}
 
 // Run num_samples HMC draws of num_steps leapfrog steps on every chain.
 // theta0 (C, D); prec (D,) with dense == 0 or (D, D) with dense == 1; mean
@@ -122,17 +148,25 @@ const char* gaussian_hmc_error_string(int err) { return cudaGetErrorString((cuda
 //   variant 4 (dense P, 32 < D <= 128): 4 or 8 consumer warps by D rounded
 //     up to 32 (64: 8, 96: 4, 128: 8) and 2 producer warps; `shared` holds
 //     the layout above MmaShape;
-//   variant 5 (any D): `group` chains per block (1, 2, 4 or 8) of
-//     `consumers` = 8 warps; `shared` holds the layout above WideShape.
+//   variant 5 (any D), `consumers` = 8 warps a block unless said otherwise:
+//     dense: `group` = 8, 16, 32 or 64 chains a tile, `cpw` 0, `shared` the
+//       stages and the energy reduction of dense_grid_kernel, `scratch` of
+//       gaussian_hmc_scratch_bytes;
+//     diagonal, D <= 4096: `group` = 1, 2, 4 or 8 chains a block, `cpw` =
+//       1, 2 or 4 groups of 4 elements a thread, `shared` 0;
+//     diagonal, 4096 < D <= 12,288: `consumers` = 32 warps, `group` = 1
+//       chain a block, `cpw` = 2 or 3 groups of 4 elements a thread,
+//       `shared` = diag_wide_shared(cpw).
 // Returns cudaErrorInvalidValue for any other plan (variant 0: the wrapper
-// found none, which is how a D whose state does not fit a block's shared
-// memory and a chain_tile below 1 are refused).  Launches on the stream without synchronising and
-// returns the first launch error as a cudaError_t (0 on success).
+// found none, which is how a D beyond the any-D variant's range and a
+// chain_tile below 1 are refused).  Launches on the stream without
+// synchronising and returns the first launch error as a cudaError_t (0 on
+// success).
 int gaussian_hmc_run(const float* theta0, const float* prec, const float* mean, float* out,
                      float* acc, int chains, int d, int dense, int num_samples, int num_steps,
                      float step_size, unsigned long long seed, int variant, int group,
                      int consumers, int cpw, int shared, const float* momenta,
-                     const float* uniforms, void* stream_ptr) {
+                     const float* uniforms, void* scratch, void* stream_ptr) {
   const int invalid = (int)cudaErrorInvalidValue;
   if (d < 1 || (variant < 5 && d > MAX_D) || chains < 1 || (variant < 3 && group < d))
     return invalid;
@@ -162,13 +196,24 @@ int gaussian_hmc_run(const float* theta0, const float* prec, const float* mean, 
     if (d <= 64) return consumers == 8 ? launch_mma<1, 8, 2>(a, shared, s) : invalid;
     if (d <= 96) return consumers == 4 ? launch_mma<3, 4, 2>(a, shared, s) : invalid;
     return consumers == 8 ? launch_mma<2, 8, 2>(a, shared, s) : invalid;
-  } else if (variant == 5 && consumers == WIDE_WARPS) {
+  } else if (variant == 5 && consumers == 8 && dense && cpw == 0) {
     switch (group) {
-      case 1: return launch_wide_dense<1>(a, dense, shared, s);
-      case 2: return launch_wide_dense<2>(a, dense, shared, s);
-      case 4: return launch_wide_dense<4>(a, dense, shared, s);
-      case 8: return launch_wide_dense<8>(a, dense, shared, s);
+      case 8: return launch_dense<1, 1, 1>(a, scratch, shared, s);
+      case 16: return launch_dense<1, 2, 1>(a, scratch, shared, s);
+      case 32: return launch_dense<1, 4, 1>(a, scratch, shared, s);
+      case 64: return launch_dense<2, 4, 2>(a, scratch, shared, s);
     }
+  } else if (variant == 5 && consumers == 8 && !dense && d <= DIAG_MAX_D && shared == 0) {
+    switch (cpw) {
+      case 1: return launch_diag<1, DIAG_THREADS>(a, group, s);
+      case 2: return launch_diag<2, DIAG_THREADS>(a, group, s);
+      case 4: return launch_diag<4, DIAG_THREADS>(a, group, s);
+    }
+  } else if (variant == 5 && consumers == DIAG_WIDE_THREADS / 32 && !dense && group == 1 &&
+             d <= DIAG_WIDE_MAX_D && (cpw == 2 || cpw == 3) &&
+             (size_t)shared == diag_wide_shared(cpw)) {
+    return cpw == 2 ? launch_diag<2, DIAG_WIDE_THREADS>(a, 1, s)
+                    : launch_diag<3, DIAG_WIDE_THREADS>(a, 1, s);
   }
   return invalid;
 }

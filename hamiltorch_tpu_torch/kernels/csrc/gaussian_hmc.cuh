@@ -2,11 +2,14 @@
 // what the design does): chain_kernel, G lanes per chain of EPL elements
 // each, with or without a shared-memory ring of noise that producer warps
 // fill, mma_kernel, 16 chains per block on the tensor cores in 3xTF32, and
-// wide_kernel, 1-8 chains per block of 8 warps with the state in shared
-// memory, for any D.
-// They are templates; a source that includes this header instantiates the
+// for any D: dense_grid_kernel, one persistent cooperative grid whose every
+// leapfrog step is one (C, D) x (D, D) product on the tensor cores in
+// 3xTF32, and diag_kernel, the state of a chain in the registers of 32-1024
+// threads.  They are templates; a source that includes this header instantiates the
 // ones it launches (gaussian_hmc.cu: those the wrapper's plan can choose).
 #pragma once
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -522,253 +525,647 @@ __global__ void __launch_bounds__(32 * (W + PW)) mma_kernel(Args a) {
   }
 }
 
-// ---- variant 5: any D, CB chains per block ----
-
-constexpr int WIDE_WARPS = 8;
-constexpr int WIDE_THREADS = 32 * WIDE_WARPS;
-
-// Shared memory of a block of CB chains at Dq = D rounded up to 4, in this
-// order:
-//   double part[2][WIDE_WARPS][CB]  the warps' partial energy sums (of this
-//                                   draw and the next: no barrier between
-//                                   two draws' sums for diagonal P)
-//   double log_u[2][CB]             the chains' log-uniforms, likewise
-//   float theta[CB][Dq], gc[CB][Dq] the chain state and its gradient
-//   float th[CB][Dq], p[CB][Dq], g[CB][Dq]  the trajectory
-//   float delta[Dq][CB]             dense P only: th - mean, element-major, so
-//                                   that one element of P meets all CB chains
-// Thread t owns elements 4 q .. 4 q + 3 for q = t, t + WIDE_THREADS, ... of
-// every chain of its block: it alone touches them in theta, gc, th, p and g.
-template <int CB>
-struct WideShape {
-  const int dq;
-  double* part;
-  double* log_u;
-  float *theta, *gc, *th, *p, *g, *delta;
-  __device__ WideShape(double* smem, int d) : dq((d + 3) & ~3) {
-    part = smem;
-    log_u = part + 2 * WIDE_WARPS * CB;
-    theta = reinterpret_cast<float*>(log_u + 2 * CB);
-    gc = theta + CB * dq;
-    th = gc + CB * dq;
-    p = th + CB * dq;
-    g = p + CB * dq;
-    delta = g + CB * dq;
-  }
-};
+// ---- variant 5: any D ----
 
 __device__ __forceinline__ float mean_at(const Args& a, int k) { return a.mean ? a.mean[k] : 0.f; }
 
-// Rows of P summed into one partial before it is added to the total.  One
-// float32 sum over all D rows drifts from float64 about 3x further than
-// torch.matmul's product does at D in the thousands; blocks of 64 rows drift
-// less than it (scripts/gaussian_sum_order_torch.py emulates the orders).
-constexpr int WIDE_ROW_BLOCK = 64;
+// ---- variant 5, diagonal P: the state in registers ----
+//
+// A chain's elements are spread over a team of tpc threads; thread t of the
+// team holds the GPT groups of 4 neighbouring elements q = t + tpc j (the
+// four normals of one Philox draw) and keeps theta and the trajectory's
+// theta and p of each in registers; the gradient -(theta - mean) P is
+// recomputed where it is needed (the same bits as storing it).
+//   THREADS = 256 (D <= DIAG_MAX_D): 256 / tpc chains a block of tpc = 32-256
+//   threads each, the mean and P of each element in registers too; no shared
+//   memory but the team warps' float64 energy partials and the log-uniforms
+//   of two draws (so one block barrier a draw), so many blocks share an SM.
+//   THREADS = 1024 (DIAG_MAX_D < D <= DIAG_WIDE_MAX_D): one chain a block of
+//   tpc = 1024 threads, 2 or 3 groups a thread; the mean and P (the same for
+//   every chain) in the block's shared memory, read again at each use (a
+//   thread's 64 registers hold only the state: 12 floats a group).
+constexpr int DIAG_THREADS = 256;
+constexpr int DIAG_MAX_D = 4096;  // 4 GPT tpc at GPT = 4, tpc = 256
+constexpr int DIAG_WIDE_THREADS = 1024;
+constexpr int DIAG_WIDE_MAX_D = 12288;  // 4 GPT tpc at GPT = 3, tpc = 1024
 
-// acc[c][e] = sum over i of delta[i][c] P[i][4 q + e]: columns 4 q .. 4 q + 3
-// of P for the block's CB chains, each WIDE_ROW_BLOCK rows summed ascending
-// into a partial, the partials added in order.  VEC: 16-byte loads of P's
-// rows (D a multiple of 4, P 16-byte aligned).  Four rows a turn, so that
-// their loads are in flight together (the SM holds one block of 8 warps).
-template <int CB, bool VEC>
-__device__ __forceinline__ void wide_columns(const float* __restrict__ P, const float* delta,
-                                             int d, int q, float (&acc)[CB][4]) {
-#pragma unroll
-  for (int c = 0; c < CB; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
-  const float* col = P + 4 * q;
-  for (int i0 = 0; i0 < d; i0 += WIDE_ROW_BLOCK) {
-    float part[CB][4];
-#pragma unroll
-    for (int c = 0; c < CB; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[c][e] = 0.f;
-    const int i1 = min(i0 + WIDE_ROW_BLOCK, d);
-#pragma unroll 4
-    for (int i = i0; i < i1; ++i, col += d) {
-      float pv[4];
-      if (VEC) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(col));
-        pv[0] = v.x, pv[1] = v.y, pv[2] = v.z, pv[3] = v.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pv[e] = 4 * q + e < d ? __ldg(col + e) : 0.f;
-      }
-      const float* dv = delta + i * CB;
-#pragma unroll
-      for (int c = 0; c < CB; ++c) {
-        const float di = dv[c];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[c][e] = fmaf(di, pv[e], part[c][e]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < CB; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][e] += part[c][e];
-  }
+// bytes of the THREADS = 1024 form's shared memory: the mean and P of the
+// GPT x 1024 groups of 4 elements, zero beyond D
+constexpr size_t diag_wide_shared(int gpt) { return 2 * 16 * (size_t)gpt * DIAG_WIDE_THREADS; }
+
+// a float4 of shared memory, loaded where it is used (never hoisted into
+// registers that the state needs)
+__device__ __forceinline__ float4 lds4(const float4* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(smem_addr(p)));
+  return v;
 }
 
-// out = -(x - mean) P (dense) or -(x - mean) * P (diagonal) for the block's
-// CB chains; x and out are [CB][Dq] arrays of shared memory.  Dense P is read
-// from device memory, each thread taking 4 columns (16-byte loads where rows
-// are aligned) for all CB chains, so every element of P read serves CB
-// chains.  Every thread of the block must call it.
-template <int CB, bool DENSE>
-__device__ __forceinline__ void wide_gradient(const Args& a, const WideShape<CB>& sh,
-                                              const float* x, float* out) {
-  const int d = a.d, dq = sh.dq, nq = dq / 4;
-  if (!DENSE) {
-    for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
+template <int GPT, int THREADS>
+__global__ void __launch_bounds__(THREADS) diag_kernel(Args a, int tpc) {
+  constexpr int WARPS = THREADS / 32;
+  constexpr bool REGS = THREADS == DIAG_THREADS;  // the mean and P in registers
+  __shared__ double part[2][WARPS];
+  __shared__ double log_u[2][WARPS];  // one a team (at most WARPS teams)
+  extern __shared__ float4 cst[];  // THREADS = 1024: mean [GPT THREADS], then P [GPT THREADS]
+  const int d = a.d, S = a.num_samples, L = a.num_steps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int team = threadIdx.x / tpc, t = threadIdx.x % tpc, wpt = tpc / 32;
+  const int c = blockIdx.x * (THREADS / tpc) + team;
+  const bool active = c < a.chains;
+  const float eps = a.eps;
+
+  float theta[GPT][4], mu[REGS ? GPT : 1][4], pr[REGS ? GPT : 1][4];
+#pragma unroll
+  for (int j = 0; j < GPT; ++j) {
+    const int q = t + tpc * j;
+    float m[4], r[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * q + e;
+      const bool in = active && k < d;
+      theta[j][e] = in ? a.theta0[(long long)c * d + k] : 0.f;
+      m[e] = (k < d && a.mean) ? a.mean[k] : 0.f;
+      r[e] = k < d ? a.prec[k] : 0.f;
+      if (REGS) mu[j][e] = active ? m[e] : 0.f, pr[j][e] = active ? r[e] : 0.f;
+    }
+    if (!REGS) {
+      cst[q] = make_float4(m[0], m[1], m[2], m[3]);
+      cst[GPT * THREADS + q] = make_float4(r[0], r[1], r[2], r[3]);
+    }
+  }
+  if (!REGS) __syncthreads();
+  // the mean and P of group j of this thread
+  auto consts = [&](int j, float (&m)[4], float (&r)[4]) {
+    if (REGS) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m[e] = mu[REGS ? j : 0][e], r[e] = pr[REGS ? j : 0][e];
+    } else {
+      const float4 mv = lds4(cst + t + tpc * j), rv = lds4(cst + GPT * THREADS + t + tpc * j);
+      m[0] = mv.x, m[1] = mv.y, m[2] = mv.z, m[3] = mv.w;
+      r[0] = rv.x, r[1] = rv.y, r[2] = rv.z, r[3] = rv.w;
+    }
+  };
+  int accepted = 0;
+  for (int n = 0; n < S; ++n) {
+    float th[GPT][4], p[GPT][4];
+    double e_sum = 0.0;  // this thread's part of h0 - h1
+#pragma unroll
+    for (int j = 0; j < GPT; ++j) {
+      const int q = t + tpc * j;
+      float z[4] = {0.f, 0.f, 0.f, 0.f}, m[4], r[4];
+      if (active && 4 * q < d) normals4(a, q, n, c, z);
+      consts(j, m, r);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int k = 4 * q + e;
-        const float mu = k < d ? mean_at(a, k) : 0.f, pr = k < d ? a.prec[k] : 0.f;
-#pragma unroll
-        for (int c = 0; c < CB; ++c) out[c * dq + k] = k < d ? -(x[c * dq + k] - mu) * pr : 0.f;
+        const float zj = k < d ? z[e] : 0.f;
+        const float gc = -(theta[j][e] - m[e]) * r[e];
+        if (k < d) e_sum += half_energy(theta[j][e] - m[e], gc, zj);
+        p[j][e] = fmaf(0.5f * eps, gc, zj);
+        th[j][e] = theta[j][e];
       }
-    return;
-  }
-  for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = 4 * q + e;
-      const float mu = k < d ? mean_at(a, k) : 0.f;
-#pragma unroll
-      for (int c = 0; c < CB; ++c) sh.delta[k * CB + c] = k < d ? x[c * dq + k] - mu : 0.f;
     }
-  __syncthreads();
-  const bool vec = (d & 3) == 0 && (reinterpret_cast<uintptr_t>(a.prec) & 15) == 0;
-  for (int q = threadIdx.x; q < nq; q += WIDE_THREADS) {
-    float acc[CB][4];
-    if (vec)
-      wide_columns<CB, true>(a.prec, sh.delta, d, q, acc);
-    else
-      wide_columns<CB, false>(a.prec, sh.delta, d, q, acc);
+    for (int s = 0; s < L; ++s)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+      for (int j = 0; j < GPT; ++j) {
+        float m[4], r[4];
+        consts(j, m, r);
 #pragma unroll
-      for (int c = 0; c < CB; ++c) out[c * dq + 4 * q + e] = -acc[c][e];
+        for (int e = 0; e < 4; ++e) {
+          th[j][e] = fmaf(eps, p[j][e], th[j][e]);
+          const float g = -(th[j][e] - m[e]) * r[e];
+          p[j][e] = fmaf(eps, g, p[j][e]);
+        }
+      }
+#pragma unroll
+    for (int j = 0; j < GPT; ++j) {
+      float m[4], r[4];
+      consts(j, m, r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * (t + tpc * j) + e;
+        const float g = -(th[j][e] - m[e]) * r[e];
+        const float pe = fmaf(-0.5f * eps, g, p[j][e]);
+        if (k < d) e_sum -= half_energy(th[j][e] - m[e], g, pe);
+      }
+    }
+    // the chain's sum: over each warp by shuffles, then over the team's warps in order
+    const double v = warp_sum(e_sum);
+    if (lane == 0) part[n & 1][warp] = v;
+    if (t == 0) log_u[n & 1][team] = active ? log_uniform_at(a, n, c) : 0.0;
+    __syncthreads();  // part[n & 1] is next written after the next draw's barrier
+    double dh = 0.0;
+    for (int w = 0; w < wpt; ++w) dh += part[n & 1][team * wpt + w];
+    const bool ok = dh >= log_u[n & 1][team];
+    accepted += ok;
+    float* o = a.out + ((long long)c * S + n) * d;
+#pragma unroll
+    for (int j = 0; j < GPT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * (t + tpc * j) + e;
+        if (ok) theta[j][e] = th[j][e];
+        if (active && k < d) o[k] = theta[j][e];
+      }
   }
-  __syncthreads();  // delta is written again by the next call
+  if (active && t == 0) a.acc[c] = (float)accepted / (float)S;
 }
 
-// One block of WIDE_THREADS threads per CB chains; the state lives in shared
-// memory (the layout above WideShape).
-template <int CB, bool DENSE>
-__global__ void __launch_bounds__(WIDE_THREADS) wide_kernel(Args a) {
-  extern __shared__ double smem[];
-  const WideShape<CB> sh(smem, a.d);
-  const int d = a.d, dq = sh.dq, nq = dq / 4, S = a.num_samples;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = blockIdx.x * CB;
-  const float eps = a.eps;
+// ---- variant 5, dense P: one product a step across the grid, on the tensor cores ----
+//
+// Each leapfrog step's gradients of all C chains are one product,
+// G^T = -P^T Delta^T with Delta = theta - mean (C, D): P^T's rows are the
+// M operand of mma.sync.m16n8k8 (tf32), the chains its N.  A tile is
+// DT_ROWS = 128 rows (elements of the gradient) by BN = 8, 16, 32 or 64
+// chains; one persistent block of DT_THREADS walks the tiles item =
+// blockIdx.x + k gridDim.x (the same ones every step), the grid no larger
+// than the card holds at once (a cooperative launch refuses a larger one),
+// and a grid barrier follows each step's product.  K is walked in chunks of
+// DT_CHUNK = 64 rows of P, DT_STAGES chunks in flight (cp.async into a ring
+// of shared memory): each chunk's big*big and big*small + small*big products
+// (3xTF32, each operand split by tf32_split_alu as it is read) go into
+// accumulators of their own, added in order into the tile's float32 total
+// at the chunk's end (the tensor cores' accumulation truncates, and one
+// float32 sum over all D rows drifts from float64 about 3x further than
+// torch.matmul's product does at D in the thousands; sums of 64 rows drift
+// less than it: scripts/gaussian_sum_order_torch.py emulates the orders).  The tile's epilogue kicks and drifts its own
+// (chain, element) entries and writes the next step's Delta, in B-fragment
+// order, into the other half of a double buffer, so no tile overwrites a
+// Delta that another still reads before the barrier.  The state (theta, its
+// gradient, the trajectory's theta, p and gradient) lives in device memory
+// (L2 at D = 1024 and 1024 chains: 4 MiB an array); the trajectory's theta
+// and p, which every step reads and writes, in the epilogue's own order.
+// Per draw the energy is one float64 partial per (tile row, chain), summed
+// in a fixed order after the draw's barrier (h0's partials in two buffers
+// by the draw's parity: a tile sums draw n's while the others write draw
+// n + 1's): no atomics, so a run is deterministic.  Scratch
+// (dense_scratch): P^T zero-padded to Dp x Dp (Dp = D rounded up to 128) in
+// A-fragment order, the two Delta buffers (Dp x Cp, Cp = C rounded up to
+// BN), the five state arrays, the energy partials, the accept counts and
+// the barrier's counter.
+// Template options the package does not take (scripts/csrc/
+// gaussian_hmc_variants.cu times them): ST chunks in flight instead of
+// DT_STAGES, and PA / PB, P^T / Delta held split (their tf32 big parts, then
+// their small parts: twice the bytes), P^T once a run and Delta by whoever
+// writes it, so that the product splits nothing as it reads.
 
-  for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
+constexpr int DT_ROWS = 128;
+constexpr int DT_CHUNK = 64;
+constexpr int DT_STAGES = 4;
+constexpr int DT_THREADS = 256;
+
+// bytes of dense_grid_kernel's shared memory: ST chunks of a tile's two
+// operands (PA, PB: in two parts each) and the float64 energy partials of its
+// 8 / WN rows of warps
+constexpr size_t dense_shared_bytes(int bn, int wn, int st, bool pa, bool pb) {
+  return (size_t)st * ((pa ? 2 : 1) * DT_ROWS + (pb ? 2 : 1) * bn) * DT_CHUNK * 4 +
+         (size_t)(8 / wn) * bn * 8;
+}
+
+struct DenseArgs {
+  Args a;
+  float* pt;     // [parts][Dp/64][Dp/16][8][32][4]: P^T, A fragments by (chunk, m16 tile, k8 slice)
+  float* delta;  // [2][parts][Dp/64][Cp/8][8][32][2]: Delta, B fragments by (chunk, n8 tile, k8 slice)
+  float *theta, *gc, *gt;  // (C, D): the state, its gradient, the trajectory's gradient
+  float *th, *p;  // the trajectory's theta and p, in accumulator order (frag_pos), Dp x Cp
+  double* e0;  // [2][n_mt][Cp]: each tile row's part of h0 per chain, of even and odd draws
+  double* e1;  // [n_mt][Cp]: each tile row's part of h1 per chain
+  int* count;       // [Cp] accepted draws (kept by the blocks of tile row 0)
+  unsigned int* bar;
+  int dp, cp, n_mt, n_nt;
+};
+
+// where Delta[c][k] lies in one buffer: B[k][n = c] of mma.sync's B fragment
+// (lane (c % 8) 4 + k % 4, register (k / 4) % 2)
+__device__ __forceinline__ size_t b_pos(int c, int k, int cp) {
+  return ((((size_t)(k >> 6) * (cp >> 3) + (c >> 3)) * 8 + ((k >> 3) & 7)) * 32 + (c & 7) * 4 +
+          (k & 3)) * 2 + ((k >> 2) & 1);
+}
+
+// Carves the scratch of a dense run with BN chains a tile out of `base`
+// (null: only counts); returns its bytes.  Each array starts 256-byte aligned.
+// pa, pb: P^T, Delta held in two parts.
+inline size_t dense_scratch(DenseArgs* s, char* base, int chains, int d, int bn, bool pa = false,
+                            bool pb = false) {
+  const int dp = (d + DT_ROWS - 1) / DT_ROWS * DT_ROWS, cp = (chains + bn - 1) / bn * bn;
+  const int n_mt = dp / DT_ROWS;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* at = base ? base + off : nullptr;
+    off += (bytes + 255) / 256 * 256;
+    return at;
+  };
+  const size_t cd = (size_t)chains * d * sizeof(float), tiles = (size_t)dp * cp * sizeof(float);
+  float* pt = (float*)take((pa ? 2 : 1) * (size_t)dp * dp * sizeof(float));
+  float* delta = (float*)take(2 * (pb ? 2 : 1) * tiles);
+  float* state[5];
+  for (int i = 0; i < 5; ++i) state[i] = (float*)take(i < 3 ? cd : tiles);
+  double* e0 = (double*)take(2 * (size_t)n_mt * cp * sizeof(double));
+  double* e1 = (double*)take((size_t)n_mt * cp * sizeof(double));
+  int* count = (int*)take((size_t)cp * sizeof(int));
+  unsigned int* bar = (unsigned int*)take(sizeof(unsigned int));
+  if (s) {
+    s->pt = pt, s->delta = delta;
+    s->theta = state[0], s->gc = state[1], s->gt = state[2], s->th = state[3], s->p = state[4];
+    s->e0 = e0, s->e1 = e1, s->count = count, s->bar = bar;
+    s->dp = dp, s->cp = cp, s->n_mt = n_mt, s->n_nt = cp / bn;
+  }
+  return off;
+}
+
+// tot[mi][ni] = -(G^T) of tile (mt, nt): P^T's rows mt 128 .. + 127 times the
+// Delta of `src` for chains nt BN .. + BN - 1, in the accumulator layout of
+// warp (wm, wn)'s m16 tiles wm MI + mi and n8 tiles wn NI + ni.  Every
+// thread of the block must call it.
+template <int MI, int NI, int WN, int ST, bool PA, bool PB>
+__device__ __forceinline__ void dense_product(const DenseArgs& s, const float* src, int mt, int nt,
+                                              float* stages, float (&tot)[MI][NI][4]) {
+  constexpr int BN = 8 * NI * WN, A_ST = DT_ROWS * DT_CHUNK, B_ST = BN * DT_CHUNK;
+  constexpr int A_PARTS = PA ? 2 : 1, B_PARTS = PB ? 2 : 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int nkc = s.dp / DT_CHUNK;
+  float* as = stages;
+  float* bs = stages + ST * A_PARTS * A_ST;
+  const float* a_src = s.pt + (size_t)mt * (DT_ROWS / 16) * 1024;
+  const size_t a_step = (size_t)(s.dp / 16) * 1024;  // floats from one chunk to the next
+  const float* b_src = src + (size_t)nt * (BN / 8) * 512;
+  const size_t b_step = (size_t)(s.cp / 8) * 512;
+  const size_t a_part = (size_t)s.dp * s.dp, b_part = (size_t)s.dp * s.cp;
+  auto load = [&](int kc) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = 4 * q + e;
+    for (int h = 0; h < A_PARTS; ++h) {
+      float* ad = as + ((kc % ST) * A_PARTS + h) * A_ST;
+      const float* ag = a_src + h * a_part + kc * a_step;
+      for (int i = threadIdx.x; i < A_ST / 4; i += DT_THREADS) cp_async16(ad + 4 * i, ag + 4 * i);
+    }
 #pragma unroll
-      for (int c = 0; c < CB; ++c)
-        sh.theta[c * dq + k] =
-            (k < d && c0 + c < a.chains) ? a.theta0[(long long)(c0 + c) * d + k] : 0.f;
+    for (int h = 0; h < B_PARTS; ++h) {
+      float* bd = bs + ((kc % ST) * B_PARTS + h) * B_ST;
+      const float* bg = b_src + h * b_part + kc * b_step;
+      for (int i = threadIdx.x; i < B_ST / 4; i += DT_THREADS) cp_async16(bd + 4 * i, bg + 4 * i);
+    }
+  };
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[mi][ni][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < ST - 1; ++kc) {
+    if (kc < nkc) load(kc);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < nkc; ++kc) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // chunk kc is in; every warp is done with chunk kc - 1's stage
+    if (kc + ST - 1 < nkc) load(kc + ST - 1);
+    cp_async_commit();
+    const float4* at = reinterpret_cast<const float4*>(as + (kc % ST) * A_PARTS * A_ST);
+    const float2* bt = reinterpret_cast<const float2*>(bs + (kc % ST) * B_PARTS * B_ST);
+    float acc_b[MI][NI][4], acc_s[MI][NI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_b[mi][ni][e] = acc_s[mi][ni][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DT_CHUNK / 8; ++ks) {
+      uint32_t a_big[MI][4], a_small[MI][4], b_big[NI][2], b_small[NI][2];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int i = ((wm * MI + mi) * 8 + ks) * 32 + lane;
+        const float4 v = at[i];
+        if (PA) {
+          const float4 w = at[i + A_ST / 4];
+          a_big[mi][0] = __float_as_uint(v.x), a_small[mi][0] = __float_as_uint(w.x);
+          a_big[mi][1] = __float_as_uint(v.y), a_small[mi][1] = __float_as_uint(w.y);
+          a_big[mi][2] = __float_as_uint(v.z), a_small[mi][2] = __float_as_uint(w.z);
+          a_big[mi][3] = __float_as_uint(v.w), a_small[mi][3] = __float_as_uint(w.w);
+        } else {
+          tf32_split_alu(v.x, a_big[mi][0], a_small[mi][0]);
+          tf32_split_alu(v.y, a_big[mi][1], a_small[mi][1]);
+          tf32_split_alu(v.z, a_big[mi][2], a_small[mi][2]);
+          tf32_split_alu(v.w, a_big[mi][3], a_small[mi][3]);
+        }
+      }
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int i = ((wn * NI + ni) * 8 + ks) * 32 + lane;
+        const float2 v = bt[i];
+        if (PB) {
+          const float2 w = bt[i + B_ST / 2];
+          b_big[ni][0] = __float_as_uint(v.x), b_small[ni][0] = __float_as_uint(w.x);
+          b_big[ni][1] = __float_as_uint(v.y), b_small[ni][1] = __float_as_uint(w.y);
+        } else {
+          tf32_split_alu(v.x, b_big[ni][0], b_small[ni][0]);
+          tf32_split_alu(v.y, b_big[ni][1], b_small[ni][1]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          mma_tf32(acc_b[mi][ni], a_big[mi], b_big[ni][0], b_big[ni][1]);
+          mma_tf32(acc_s[mi][ni], a_big[mi], b_small[ni][0], b_small[ni][1]);
+          mma_tf32(acc_s[mi][ni], a_small[mi], b_big[ni][0], b_big[ni][1]);
+        }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot[mi][ni][e] += acc_b[mi][ni][e] + acc_s[mi][ni][e];
+  }
+  __syncthreads();  // the stages are refilled by the next product
+}
+
+enum DenseMode { DENSE_INIT, DENSE_STEP, DENSE_LAST };
+
+// Delta[pos] = v in a buffer of dst; PB: its tf32 big part, and its small
+// part `part` floats on
+template <bool PB>
+__device__ __forceinline__ void put_delta(float* dst, size_t part, size_t pos, float v) {
+  if (PB) {
+    uint32_t big, small;
+    tf32_split_alu(v, big, small);
+    dst[pos] = __uint_as_float(big);
+    dst[part + pos] = __uint_as_float(small);
+  } else {
+    dst[pos] = v;
+  }
+}
+
+// Where entry (chain c, element k) of p and the trajectory's theta lies: in
+// the accumulator order of the tile that owns it (tile, warp, m16 tile mi,
+// n8 tile ni, lane, register), so that each epilogue thread reads and
+// writes its entries 16 bytes at a time.
+template <int MI, int NI, int WN>
+__device__ __forceinline__ size_t frag_pos(const DenseArgs& s, int c, int k) {
+  constexpr int BN = 8 * NI * WN;
+  const int r = k % DT_ROWS, cc = c % BN, m16 = r >> 4, n8 = cc >> 3;
+  const int warp = (m16 / MI) * WN + n8 / NI;
+  const int lane = (r & 7) * 4 + ((cc & 7) >> 1), e = ((r >> 3) & 1) * 2 + (cc & 1);
+  const size_t tile = (size_t)(c / BN) * s.n_mt + k / DT_ROWS;
+  return (((tile * 8 + warp) * MI + m16 % MI) * NI + n8 % NI) * 128 + lane * 4 + e;
+}
+
+// The epilogue of tile (mt, nt) with g = -tot: INIT stores the gradient at
+// theta; STEP kicks, drifts and writes the next Delta into dst; LAST kicks,
+// pulls half a kick back, keeps the gradient for the accept and sums the
+// tile row's part of h1 per chain into e1 (red: [8 / WN][BN] doubles of
+// shared memory).  p and theta are loaded, all of them, before any store
+// (a store may alias a later load, which would otherwise wait for it).
+// Every thread of the block must call it.
+template <int MI, int NI, int WN, bool PB>
+__device__ __forceinline__ void dense_epilogue(const DenseArgs& s, DenseMode mode, int mt, int nt,
+                                               const float (&tot)[MI][NI][4], float* dst,
+                                               double* red) {
+  constexpr int BN = 8 * NI * WN, WM = 8 / WN;
+  const Args& a = s.a;
+  const int d = a.d, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / WN, wn = warp % WN, g = lane >> 2, t = lane & 3;
+  const float eps = a.eps;
+  if (mode == DENSE_INIT) {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = mt * DT_ROWS + (wm * MI + mi) * 16 + g + 8 * (e >> 1);
+          const int c = nt * BN + (wn * NI + ni) * 8 + 2 * t + (e & 1);
+          if (i < d && c < a.chains) s.gc[(size_t)c * d + i] = -tot[mi][ni][e];
+        }
+    return;
+  }
+  const size_t base = (((size_t)nt * s.n_mt + mt) * 8 + warp) * MI * NI * 128 + lane * 4;
+  float4 p4[MI][NI], th4[MI][NI];
+  float mu[MI][2];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      p4[mi][ni] = *reinterpret_cast<const float4*>(s.p + base + (mi * NI + ni) * 128);
+      th4[mi][ni] = *reinterpret_cast<const float4*>(s.th + base + (mi * NI + ni) * 128);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = mt * DT_ROWS + (wm * MI + mi) * 16 + g + 8 * h;
+      mu[mi][h] = i < d ? mean_at(a, i) : 0.f;
+    }
+  }
+  double e1[NI][2];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) e1[ni][0] = e1[ni][1] = 0.0;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      float pv[4] = {p4[mi][ni].x, p4[mi][ni].y, p4[mi][ni].z, p4[mi][ni].w};
+      float thv[4] = {th4[mi][ni].x, th4[mi][ni].y, th4[mi][ni].z, th4[mi][ni].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = mt * DT_ROWS + (wm * MI + mi) * 16 + g + 8 * (e >> 1);
+        const int c = nt * BN + (wn * NI + ni) * 8 + 2 * t + (e & 1);
+        const bool in = i < d && c < a.chains;
+        const float gr = -tot[mi][ni][e];
+        pv[e] = fmaf(eps, gr, pv[e]);
+        if (mode == DENSE_STEP) {
+          thv[e] = fmaf(eps, pv[e], thv[e]);
+          if (in) put_delta<PB>(dst, (size_t)s.dp * s.cp, b_pos(c, i, s.cp), thv[e] - mu[mi][e >> 1]);
+        } else if (in) {
+          const float pe = fmaf(-0.5f * eps, gr, pv[e]);
+          e1[ni][e & 1] += half_energy(thv[e] - mu[mi][e >> 1], gr, pe);
+          s.gt[(size_t)c * d + i] = gr;
+        }
+      }
+      if (mode == DENSE_STEP) {
+        *reinterpret_cast<float4*>(s.p + base + (mi * NI + ni) * 128) =
+            make_float4(pv[0], pv[1], pv[2], pv[3]);
+        *reinterpret_cast<float4*>(s.th + base + (mi * NI + ni) * 128) =
+            make_float4(thv[0], thv[1], thv[2], thv[3]);
+      }
+    }
+  if (mode != DENSE_LAST) return;
+  // a chain's sum: over the lanes of its column (g) by shuffles, over the warps in order
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      double v = e1[ni][j];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[wm * BN + (wn * NI + ni) * 8 + 2 * t + j] = v;
     }
   __syncthreads();
-  wide_gradient<CB, DENSE>(a, sh, sh.theta, sh.gc);
-  int accepted[CB];
+  if (threadIdx.x < BN) {
+    const int c = nt * BN + threadIdx.x;
+    double v = 0.0;
 #pragma unroll
-  for (int c = 0; c < CB; ++c) accepted[c] = 0;
-
-  for (int n = 0; n < S; ++n) {
-    double e[CB];  // this thread's part of each chain's h0 - h1
-#pragma unroll
-    for (int c = 0; c < CB; ++c) e[c] = 0.0;
-    for (int q = threadIdx.x; q < nq; q += WIDE_THREADS) {
-#pragma unroll
-      for (int c = 0; c < CB; ++c) {
-        float z[4] = {0.f, 0.f, 0.f, 0.f};
-        if (c0 + c < a.chains) normals4(a, q, n, c0 + c, z);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = 4 * q + j, i = c * dq + k;
-          const float theta = sh.theta[i], gc = sh.gc[i], zj = k < d ? z[j] : 0.f;  // 0 beyond d
-          if (k < d) e[c] += half_energy(theta - mean_at(a, k), gc, zj);
-          sh.p[i] = fmaf(0.5f * eps, gc, zj);
-          sh.th[i] = theta;
-          sh.g[i] = gc;
-        }
-      }
-    }
-    for (int s = 0; s < a.num_steps; ++s) {
-      for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
-#pragma unroll
-        for (int c = 0; c < CB; ++c)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int i = c * dq + 4 * q + j;
-            sh.th[i] = fmaf(eps, sh.p[i], sh.th[i]);
-          }
-      wide_gradient<CB, DENSE>(a, sh, sh.th, sh.g);
-      for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
-#pragma unroll
-        for (int c = 0; c < CB; ++c)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int i = c * dq + 4 * q + j;
-            sh.p[i] = fmaf(eps, sh.g[i], sh.p[i]);
-          }
-    }
-    for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
-#pragma unroll
-      for (int c = 0; c < CB; ++c)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = 4 * q + j, i = c * dq + k;
-          if (k >= d) continue;
-          const float pe = fmaf(-0.5f * eps, sh.g[i], sh.p[i]);
-          sh.p[i] = pe;
-          e[c] -= half_energy(sh.th[i] - mean_at(a, k), sh.g[i], pe);
-        }
-    // each chain's sum: over the warp by shuffles, then over the warps
-    double* part = sh.part + (n & 1) * WIDE_WARPS * CB;
-    double* log_u = sh.log_u + (n & 1) * CB;
-#pragma unroll
-    for (int c = 0; c < CB; ++c) {
-      const double v = warp_sum(e[c]);
-      if (lane == 0) part[warp * CB + c] = v;
-    }
-    if (threadIdx.x < CB)
-      log_u[threadIdx.x] = c0 + threadIdx.x < a.chains ? log_uniform_at(a, n, c0 + threadIdx.x) : 0.0;
-    __syncthreads();
-    bool ok[CB];
-#pragma unroll
-    for (int c = 0; c < CB; ++c) {
-      double dh = 0.0;
-#pragma unroll
-      for (int w = 0; w < WIDE_WARPS; ++w) dh += part[w * CB + c];
-      ok[c] = dh >= log_u[c];
-      accepted[c] += ok[c];
-    }
-    for (int q = threadIdx.x; q < nq; q += WIDE_THREADS)
-#pragma unroll
-      for (int c = 0; c < CB; ++c) {
-        if (c0 + c >= a.chains) continue;
-        float* o = a.out + ((long long)(c0 + c) * S + n) * d;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = 4 * q + j, i = c * dq + k;
-          if (k >= d) continue;
-          if (ok[c]) {
-            sh.theta[i] = sh.th[i];
-            sh.gc[i] = sh.g[i];
-          }
-          o[k] = sh.theta[i];
-        }
-      }
+    for (int w = 0; w < WM; ++w) v += red[w * BN + threadIdx.x];
+    if (c < a.chains) s.e1[(size_t)mt * s.cp + c] = v;
   }
-  if (threadIdx.x < CB && c0 + threadIdx.x < a.chains)
-    a.acc[c0 + threadIdx.x] = (float)accepted[threadIdx.x] / (float)S;
+  // red is next written after the next product's first block barrier
+}
+
+// Between two draws, for tile (mt, nt)'s entries: the accept of draw `prev`
+// (none if < 0; its draws and, after the last, the acceptance rate written
+// out), then the start of draw `next` (none if == S): momenta, the half
+// kick, the first drift, the tile row's part of h0 per chain and the first
+// Delta into dst.  Warp w takes the tile's chains w, w + 8, ..., lane l the
+// group of 4 elements mt 32 + l.
+template <int MI, int NI, int WN, bool PB>
+__device__ __forceinline__ void dense_between_draws(const DenseArgs& s, int mt, int nt, int prev,
+                                                    int next, float* dst) {
+  constexpr int BN = 8 * NI * WN;
+  const Args& a = s.a;
+  const int d = a.d, S = a.num_samples, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float eps = a.eps;
+  const int q = mt * (DT_ROWS / 4) + lane;
+  for (int cl = warp; cl < BN; cl += DT_THREADS / 32) {
+    const int c = nt * BN + cl;
+    if (c >= a.chains) break;
+    bool ok = false;
+    if (prev >= 0) {
+      // every lane sums the same partials in the same order; h0's are those of
+      // draw prev's parity (the other tiles write draw next's meanwhile)
+      const double* h0 = s.e0 + (size_t)(prev & 1) * s.n_mt * s.cp;
+      double dh = 0.0;
+      for (int m = 0; m < s.n_mt; ++m)
+        dh += __ldcg(h0 + (size_t)m * s.cp + c) - __ldcg(s.e1 + (size_t)m * s.cp + c);
+      ok = dh >= log_uniform_at(a, prev, c);
+      if (mt == 0 && lane == 0) {
+        const int n_acc = s.count[c] + ok;
+        s.count[c] = n_acc;
+        if (prev == S - 1) a.acc[c] = (float)n_acc / (float)S;
+      }
+    }
+    float z[4] = {0.f, 0.f, 0.f, 0.f};
+    if (next < S && 4 * q < d) normals4(a, q, next, c, z);
+    // the four elements' state, all loaded before any store
+    float theta[4], gc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = 4 * q + j;
+      const size_t ck = (size_t)c * d + k;
+      theta[j] = gc[j] = 0.f;
+      if (k < d) {
+        theta[j] = ok ? s.th[frag_pos<MI, NI, WN>(s, c, k)] : s.theta[ck];
+        gc[j] = ok ? s.gt[ck] : s.gc[ck];
+      }
+    }
+    double e0 = 0.0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = 4 * q + j;
+      if (k >= d) continue;
+      const size_t ck = (size_t)c * d + k;
+      if (ok) {
+        s.theta[ck] = theta[j];
+        s.gc[ck] = gc[j];
+      }
+      if (prev >= 0) a.out[((size_t)c * S + prev) * d + k] = theta[j];
+      if (next < S) {
+        const float mu = mean_at(a, k);
+        e0 += half_energy(theta[j] - mu, gc[j], z[j]);
+        const float pv = fmaf(0.5f * eps, gc[j], z[j]);
+        const float thv = fmaf(eps, pv, theta[j]);
+        const size_t f = frag_pos<MI, NI, WN>(s, c, k);
+        s.p[f] = pv;
+        s.th[f] = thv;
+        put_delta<PB>(dst, (size_t)s.dp * s.cp, b_pos(c, k, s.cp), thv - mu);
+      }
+    }
+    if (next < S) {
+      e0 = warp_sum(e0);
+      if (lane == 0) s.e0[((size_t)(next & 1) * s.n_mt + mt) * s.cp + c] = e0;
+    }
+  }
+}
+
+// The whole run in one cooperative launch: warps of MI x NI m16 x n8 tiles
+// each, WN of them across a tile's chains and 8 / WN across its rows.
+template <int MI, int NI, int WN, int ST, bool PA, bool PB>
+__global__ void __launch_bounds__(DT_THREADS, 1) dense_grid_kernel(DenseArgs s) {
+  constexpr int BN = 8 * NI * WN;
+  static_assert(MI * (8 / WN) * 16 == DT_ROWS, "the warps' rows make up a tile's");
+  extern __shared__ double smem[];
+  float* stages = reinterpret_cast<float*>(smem);
+  double* red = reinterpret_cast<double*>(
+      stages + ST * ((PA ? 2 : 1) * DT_ROWS + (PB ? 2 : 1) * BN) * DT_CHUNK);
+  const Args& a = s.a;
+  const int d = a.d, S = a.num_samples, L = a.num_steps;
+  const int n_items = s.n_mt * s.n_nt;
+  const size_t part = (size_t)s.dp * s.cp;   // floats of one part of a Delta buffer
+  const size_t buf = (PB ? 2 : 1) * part;   // floats of one Delta buffer
+  const size_t nthreads = (size_t)gridDim.x * DT_THREADS;
+  const size_t tid = (size_t)blockIdx.x * DT_THREADS + threadIdx.x;
+  unsigned int target = 0;
+
+  // P^T in A-fragment order, Delta at theta0 (buffer 0; zero padding), the state
+  for (size_t idx = tid; idx < (size_t)s.dp * s.dp; idx += nthreads) {
+    const int e = idx & 3, l = (idx >> 2) & 31, ks = (idx >> 7) & 7;
+    const size_t rest = idx >> 10;
+    const int mi = rest % (s.dp / 16), kc = rest / (s.dp / 16);
+    const int i = mi * 16 + (l >> 2) + 8 * (e & 1);
+    const int k = kc * DT_CHUNK + ks * 8 + (l & 3) + 4 * (e >> 1);
+    const float v = (i < d && k < d) ? a.prec[(size_t)k * d + i] : 0.f;
+    if (PA) {
+      uint32_t big, small;
+      tf32_split_alu(v, big, small);
+      s.pt[idx] = __uint_as_float(big);
+      s.pt[(size_t)s.dp * s.dp + idx] = __uint_as_float(small);
+    } else {
+      s.pt[idx] = v;
+    }
+  }
+  for (size_t idx = tid; idx < part; idx += nthreads) {
+    const int e = idx & 1, l = (idx >> 1) & 31, ks = (idx >> 6) & 7;
+    const size_t rest = idx >> 9;
+    const int n8 = rest % (s.cp / 8), kc = rest / (s.cp / 8);
+    const int c = n8 * 8 + (l >> 2), k = kc * DT_CHUNK + ks * 8 + (l & 3) + 4 * e;
+    put_delta<PB>(s.delta, part, idx,
+                  (c < a.chains && k < d) ? a.theta0[(size_t)c * d + k] - mean_at(a, k) : 0.f);
+  }
+  for (size_t idx = tid; idx < buf; idx += nthreads) s.delta[buf + idx] = 0.f;
+  for (size_t idx = tid; idx < (size_t)a.chains * d; idx += nthreads) s.theta[idx] = a.theta0[idx];
+  for (size_t idx = tid; idx < (size_t)s.cp; idx += nthreads) s.count[idx] = 0;
+  grid_barrier(s.bar, target);
+
+  float tot[MI][NI][4];
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {  // the gradient at theta0
+    const int mt = item % s.n_mt, nt = item / s.n_mt;
+    dense_product<MI, NI, WN, ST, PA, PB>(s, s.delta, mt, nt, stages, tot);
+    dense_epilogue<MI, NI, WN, PB>(s, DENSE_INIT, mt, nt, tot, nullptr, red);
+  }
+  grid_barrier(s.bar, target);
+  int cur = 0;  // the Delta buffer the next product reads
+  for (int n = 0; n < S; ++n) {
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x)
+      dense_between_draws<MI, NI, WN, PB>(s, item % s.n_mt, item / s.n_mt, n - 1, n,
+                                          s.delta + cur * buf);
+    grid_barrier(s.bar, target);
+    for (int step = 0; step < L; ++step) {
+      const DenseMode mode = step + 1 < L ? DENSE_STEP : DENSE_LAST;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int mt = item % s.n_mt, nt = item / s.n_mt;
+        dense_product<MI, NI, WN, ST, PA, PB>(s, s.delta + cur * buf, mt, nt, stages, tot);
+        dense_epilogue<MI, NI, WN, PB>(s, mode, mt, nt, tot, s.delta + (cur ^ 1) * buf, red);
+      }
+      if (mode == DENSE_STEP) cur ^= 1;
+      grid_barrier(s.bar, target);
+    }
+  }
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x)
+    dense_between_draws<MI, NI, WN, PB>(s, item % s.n_mt, item / s.n_mt, S - 1, S, nullptr);
 }
 
 // ---- launches ----
@@ -795,17 +1192,6 @@ int launch_chain(const Args& a, int warps, int consumers, int cpw, size_t shared
   return 0;
 }
 
-// one block of WIDE_THREADS threads per CB chains; `shared` must hold the
-// layout above WideShape
-template <int CB, bool DENSE>
-int launch_wide(const Args& a, size_t shared, cudaStream_t stream) {
-  auto kernel = wide_kernel<CB, DENSE>;
-  if (const int e = allow_shared(kernel, shared)) return e;
-  kernel<<<(a.chains + CB - 1) / CB, WIDE_THREADS, shared, stream>>>(a);
-  LAUNCH_CHECK();
-  return 0;
-}
-
 // one block of W consumer and PW producer warps per 16 chains; `shared` must
 // hold the layout above MmaShape
 template <int NT, int W, int PW>
@@ -813,6 +1199,56 @@ int launch_mma(const Args& a, size_t shared, cudaStream_t stream) {
   auto kernel = mma_kernel<NT, W, PW>;
   if (const int e = allow_shared(kernel, shared)) return e;
   kernel<<<(a.chains + MMA_ROWS - 1) / MMA_ROWS, 32 * (W + PW), shared, stream>>>(a);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// blocks of THREADS threads, `chains_per_block` teams of THREADS /
+// chains_per_block threads, each thread GPT groups of 4 elements; THREADS =
+// 1024 takes one chain a block and diag_wide_shared(GPT) bytes of shared memory
+template <int GPT, int THREADS>
+int launch_diag(const Args& a, int chains_per_block, cudaStream_t stream) {
+  const int tpc = THREADS / chains_per_block;
+  if (chains_per_block < 1 || THREADS % chains_per_block || tpc % 32 || 4 * GPT * tpc < a.d ||
+      (THREADS == DIAG_WIDE_THREADS && chains_per_block != 1))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = diag_kernel<GPT, THREADS>;
+  const size_t shared = THREADS == DIAG_THREADS ? 0 : diag_wide_shared(GPT);
+  if (const int e = allow_shared(kernel, shared)) return e;
+  kernel<<<(a.chains + chains_per_block - 1) / chains_per_block, THREADS, shared, stream>>>(a,
+                                                                                            tpc);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// One cooperative launch of as many blocks as there are tiles, at most as
+// many as the card holds at once; `scratch` holds dense_scratch's arrays
+// (its bytes: gaussian_hmc_scratch_bytes) and `shared` the stages and the
+// energy reduction.
+template <int MI, int NI, int WN, int ST = DT_STAGES, bool PA = false, bool PB = false>
+int launch_dense(const Args& a, void* scratch, size_t shared, cudaStream_t stream) {
+  constexpr int BN = 8 * NI * WN;
+  if (!scratch || shared != dense_shared_bytes(BN, WN, ST, PA, PB))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = dense_grid_kernel<MI, NI, WN, ST, PA, PB>;
+  if (const int e = allow_shared(kernel, shared)) return e;
+  DenseArgs s;
+  s.a = a;
+  dense_scratch(&s, static_cast<char*>(scratch), a.chains, a.d, BN, PA, PB);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (const cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return (int)e;
+  if (const cudaError_t e =
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DT_THREADS, shared))
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = std::min(s.n_mt * s.n_nt, per_sm * sms);
+  if (const cudaError_t e = cudaMemsetAsync(s.bar, 0, sizeof(unsigned int), stream)) return (int)e;
+  void* args[] = {&s};
+  if (const cudaError_t e = cudaLaunchCooperativeKernel((const void*)kernel, grid, DT_THREADS,
+                                                        args, shared, stream))
+    return (int)e;
   LAUNCH_CHECK();
   return 0;
 }

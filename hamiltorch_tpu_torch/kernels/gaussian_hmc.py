@@ -102,37 +102,84 @@ RING_DRAWS = 16  # draws of noise per buffer of the small-D variants' ring
 
 # What the wrapper asks of csrc/gaussian_hmc.cu: ``variant`` 1-5 (0: no
 # variant takes the shape), ``group`` lanes per chain (variant 5: chains per
-# block), ``consumers`` warps of a block that run ``chains_per_warp`` chains
-# each (variants 1, 2 and 4 add warps that produce noise; variant 5's 8 warps
-# share its chains, ``chains_per_warp`` 0), ``shared`` bytes.
+# tile for dense P, per block for diagonal P), ``consumers`` warps of a block
+# that run ``chains_per_warp`` chains each (variants 1, 2 and 4 add warps
+# that produce noise; variant 5's 8 or 32 warps share their chains, and
+# ``chains_per_warp`` is there the groups of 4 elements each thread holds in
+# registers, 0 for the dense form), ``shared`` bytes.
 Plan = collections.namedtuple("Plan", "variant group consumers chains_per_warp shared")
 _NO_PLAN = Plan(0, 0, 0, 0, 0)
 _SMS = 132  # streaming multiprocessors of an H100
-WIDE_WARPS = 8  # warps per block of variant 5
-WIDE_MAX_CHAINS = 8  # chains per block of variant 5, at most (16 spills registers)
+WIDE_WARPS = 8  # warps per block of variant 5 (dense P, and diagonal P up to DIAG_MAX_D)
+DIAG_MAX_D = 4096  # largest diagonal D whose state a team of 256 threads holds in registers
+DIAG_WIDE_WARPS = 32  # warps of the block that holds one chain beyond DIAG_MAX_D
+DIAG_WIDE_MAX_D = 12288  # largest diagonal D: 3 groups of 4 elements a thread of 1024
+DENSE_ROWS = 128  # rows of the dense product (elements of the gradient) a tile takes
+DENSE_CHUNK = 64  # rows of P summed into one partial
+DENSE_STAGES = 4  # chunks of a tile's operands in flight
+DENSE_CHAIN_TILES = (64, 32, 16, 8)  # chains a dense tile may take
 
 
-def _wide_shared(d, dense, chains_per_block):
-    """Variant 5's shared bytes: two draws' float64 partial sums of 8 warps
-    and log-uniforms, then theta, its gradient, the trajectory's theta, p and
-    gradient (and, for dense P, theta - mean) at D rounded up to 4."""
-    dq = 4 * -(-d // 4)
-    cb = chains_per_block
-    return 8 * (2 * WIDE_WARPS * cb + 2 * cb) + 4 * dq * cb * (6 if dense else 5)
+def _dense_shared(chain_tile):
+    """The dense form's bytes: DENSE_STAGES chunks of a tile's two operands
+    (128 rows of P^T, ``chain_tile`` chains' theta - mean, 64 deep, float32)
+    and the float64 energy partials of its rows of warps."""
+    rows_of_warps = 4 if chain_tile == 64 else 8
+    return (DENSE_STAGES * (DENSE_ROWS + chain_tile) * DENSE_CHUNK * 4
+            + 8 * rows_of_warps * chain_tile)
+
+
+def _diag_wide_shared(per_thread):
+    """The one-chain diagonal form's bytes: the mean and P of 1024 threads'
+    ``per_thread`` groups of 4 elements, float32."""
+    return 2 * 16 * per_thread * 32 * DIAG_WIDE_WARPS
+
+
+def _dense_chain_tile(d, chains):
+    """Chains a dense tile takes: the fewest waves of tiles over the card's
+    SMs, each wave weighed by a tile's operands (128 rows of P^T and the
+    tile's chains), the wider tile on a tie (P^T read fewer times)."""
+    row_tiles = -(-d // DENSE_ROWS)
+
+    def cost(bn):
+        waves = -(-(row_tiles * -(-chains // bn)) // _SMS)
+        return waves * (DENSE_ROWS + bn), -bn
+
+    return min(DENSE_CHAIN_TILES, key=cost)
 
 
 def _wide_plan(d, dense, chains):
-    """Variant 5 for any D whose state fits a block: the fewest chains per
-    block (a power of two up to 8) that still give every SM a block, fewer
-    where that is needed to fit."""
-    cb = 1
-    while cb < WIDE_MAX_CHAINS and cb * _SMS < chains:
-        cb *= 2
-    while cb > 1 and _wide_shared(d, dense, cb) > MAX_SHARED:
-        cb //= 2
-    if _wide_shared(d, dense, cb) > MAX_SHARED:
+    """Variant 5, for dense P at any D and diagonal P up to DIAG_WIDE_MAX_D.
+
+    * Dense P: one persistent grid, tiles of 128 rows of the product by
+      ``group`` = 8-64 chains (``_dense_chain_tile``), on the tensor cores.
+      What bounds it is the product's operations and the bytes its tiles
+      read from L2; no D is refused, the card's memory is the limit (P and
+      the kernel's padded copy of it, 8 D^2 bytes, beside the state).
+    * Diagonal P with D <= DIAG_MAX_D: the state in registers; each thread
+      holds ``chains_per_warp`` = 1, 2 or 4 groups of 4 elements (the
+      fewest that a team of at most 256 threads needs), a chain's team is
+      the next power of two of threads from 32 up, ``group`` = 256 / team
+      chains a block of 8 warps.  What bounds it is issue (four dependent
+      float32 operations an element and step, beside the noise and the
+      float64 energies) and, at many chains, the draws written out.
+    * Diagonal P with DIAG_MAX_D < D <= DIAG_WIDE_MAX_D: one chain a block
+      of 32 warps, 2 or 3 groups of 4 elements a thread in registers, the
+      mean and P in shared memory (``_diag_wide_shared``): beyond 4096 the
+      mean and P no longer fit 256 threads' registers beside the state.
+    """
+    if dense:
+        bn = _dense_chain_tile(d, chains)
+        return Plan(5, bn, WIDE_WARPS, 0, _dense_shared(bn))
+    if d <= DIAG_MAX_D:
+        groups = -(-d // 4)
+        per_thread = next(g for g in (1, 2, 4) if -(-groups // g) <= 256)
+        team = max(32, 1 << (-(-groups // per_thread) - 1).bit_length())
+        return Plan(5, 256 // team, WIDE_WARPS, per_thread, 0)
+    if d > DIAG_WIDE_MAX_D:
         return _NO_PLAN
-    return Plan(5, cb, WIDE_WARPS, 0, _wide_shared(d, dense, cb))
+    per_thread = -(-d // (4 * 32 * DIAG_WIDE_WARPS))
+    return Plan(5, 1, DIAG_WIDE_WARPS, per_thread, _diag_wide_shared(per_thread))
 
 
 def _ring_bytes(chains_per_block, d):
@@ -159,10 +206,10 @@ def _plan(d, dense, chain_tile, chains):
        D=128 the split P, theta - mean and the noise no longer fit a block
        together.)
 
-    5. Any other D: diagonal P with D > 256, dense P beyond the reach of
-       variant 3 (D > 240).  Blocks of 8 warps that share 1-8 chains, the
-       state in shared memory, dense P read from device memory
-       (``_wide_plan``); up to D = 11,612 diagonal and 9,676 dense.
+    5. Any other D: diagonal P with D > 256 up to D = 12,288, dense P
+       beyond the reach of variant 3 (D > 240) at any D (``_wide_plan``):
+       dense P as one product a leapfrog step across a persistent grid on
+       the tensor cores (3xTF32), diagonal P with the state in registers.
 
     In 1-3 a block takes fewer chains than it could where that spreads the
     chains over the card's SMs: each chain's time is its own latency.
@@ -203,15 +250,22 @@ def _plan(d, dense, chain_tile, chains):
 def _library():
     from ._build import load
 
-    lib = load("gaussian_hmc")
+    return _declare(load("gaussian_hmc"))
+
+
+def _declare(lib):
+    """The C interface of csrc/gaussian_hmc.cu on a loaded library (also
+    on copies of it that scripts build)."""
     lib.gaussian_hmc_error_string.argtypes = [ctypes.c_int]
     lib.gaussian_hmc_error_string.restype = ctypes.c_char_p
+    lib.gaussian_hmc_scratch_bytes.argtypes = [ctypes.c_int] * 5
+    lib.gaussian_hmc_scratch_bytes.restype = ctypes.c_size_t
     lib.gaussian_hmc_run.argtypes = (
         [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_ulonglong]
         + [ctypes.c_int] * 5
-        + [ctypes.c_void_p] * 3
+        + [ctypes.c_void_p] * 4
     )
     lib.gaussian_hmc_run.restype = ctypes.c_int
     return lib
@@ -226,12 +280,15 @@ def gaussian_hmc(seed, theta0, precision, num_samples, num_steps=10, step_size=0
     kernel variant from D: 2 to 32 lanes per chain (D <= 32, the next power
     of two), a warp per chain (diagonal D <= 256, dense D <= 240), blocks of
     16 chains on the tensor cores in 3xTF32 (dense 32 < D <= 128), all with
-    the chain state in registers, or, for any larger D, blocks of 8 warps
-    that share 1-8 chains with the state in shared memory (up to D = 11,612
-    diagonal and 9,676 dense, where one chain's state fills a block's
-    232,448 bytes; beyond that the kernel returns cudaErrorInvalidValue and
-    this raises).  ``chain_tile`` is a hint: an upper bound on the warps of
-    chains in one block, which the kernel lowers where that spreads the
+    the chain state in registers, or, for any larger D, the any-D variant:
+    dense P as one (C, D) x (D, D) product a leapfrog step on the tensor
+    cores in 3xTF32 across one persistent cooperative grid (at any D; its
+    scratch, ~4 (D^2 + 7 C D) bytes, is allocated here), and diagonal P with
+    a chain's state in the registers of 32-256 threads (D <= 4096) or, up to
+    D = 12,288, of 1024.  Beyond that diagonal D the kernel returns
+    cudaErrorInvalidValue and this raises.
+    ``chain_tile`` is a hint: an upper bound on the warps of chains in one
+    block of variants 1-3, which the kernel lowers where that spreads the
     chains over more SMs or is needed to fit a dense P; the draws do not
     depend on it, nor on the variant.  ``_variant=5`` runs the any-D variant
     whatever D is (a test hook: it must draw what the others draw).
@@ -269,6 +326,8 @@ def gaussian_hmc(seed, theta0, precision, num_samples, num_steps=10, step_size=0
     out = torch.empty((c, num_samples, d), dtype=torch.float32, device=device)
     acc = torch.empty((c,), dtype=torch.float32, device=device)
     momenta, uniforms = (None, None) if _noise is None else _noise
+    nbytes = lib.gaussian_hmc_scratch_bytes(c, d, int(dense), plan.variant, plan.group)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.gaussian_hmc_run(
@@ -278,6 +337,7 @@ def gaussian_hmc(seed, theta0, precision, num_samples, num_steps=10, step_size=0
             float(step_size), int(seed) & (2**64 - 1), *plan,
             None if momenta is None else momenta.data_ptr(),
             None if uniforms is None else uniforms.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             stream,
         )
     if err != 0:

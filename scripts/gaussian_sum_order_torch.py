@@ -10,8 +10,8 @@ ways: float64 (the yardstick), float32 through ``torch.matmul``, and
 float32 summing P's rows one at a time in blocks of B rows (each block into
 its own partial, the partials added in order): B = D is one sum over all
 rows, as variant 5 of ``kernels/csrc/gaussian_hmc.cuh`` did before it took
-blocks of 64 (``WIDE_ROW_BLOCK``).  It prints each run's largest distance
-from float64 and from the float32 matmul.  The row-by-row sums round each
+blocks of 64 (now the dense kernel's ``DT_CHUNK``).  It prints each run's
+largest distance from float64 and from the float32 matmul.  The row-by-row sums round each
 product before adding (no fused multiply-add), so they are an emulation.
 """
 

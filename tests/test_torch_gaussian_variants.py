@@ -12,14 +12,20 @@
     emulated both rounded to nearest and truncated toward zero (the tensor
     cores' accumulation behaves like the latter), and a single tf32 pass is
     shown to break the gate.
-(b) The card tests' Gaussian cases (``tests/test_torch_gpu.py``) compare accept
+(b) The any-D variant's dense kernel computes the same product with the
+    chains as the N of ``P^T Delta^T``, both operands split as they are read,
+    big*big and big*small + small*big in two accumulators reset every 64
+    rows of P, the 64-row partials added in order (``grid_product``).  The
+    same gates hold at D = 1024 and 4096, and a single tf32 pass breaks them.
+(c) The card tests' Gaussian cases (``tests/test_torch_gpu.py``) compare accept
     counts; here, without a card, each case's closest Metropolis decision is
     shown to be far from a knife edge that float32 rounding could tip.
-(c) ``_plan`` (the wrapper's choice of kernel variant, block shape and
-    shared-memory bytes) over every D = 1..4096, diagonal and dense: a
-    variant within the 232,448 bytes a block may use; only a D whose state
-    no longer fits one block (beyond 9,676 dense, 11,612 diagonal) and a
-    chain_tile below 1 are refused.
+(d) ``_plan`` (the wrapper's choice of kernel variant, block shape and
+    shared-memory bytes) over every D = 1..4096, diagonal and dense, and
+    every diagonal D up to 12,288: a variant within the 232,448 bytes a
+    block may use; only a diagonal D beyond the any-D variant's range
+    (12,288; dense P has none), a D below 1 and a chain_tile below 1 are
+    refused.
 """
 
 import numpy as np
@@ -27,11 +33,16 @@ import pytest
 import torch
 
 from hamiltorch_tpu_torch.kernels.gaussian_hmc import (
+    DENSE_CHAIN_TILES,
+    DIAG_MAX_D,
+    DIAG_WIDE_MAX_D,
+    DIAG_WIDE_WARPS,
     MAX_SHARED,
     MMA_MAX_D,
     WIDE_WARPS,
+    _dense_shared,
+    _diag_wide_shared,
     _plan,
-    _wide_shared,
     gaussian_hmc_reference,
 )
 from test_torch_gpu import (GAUSSIAN_CASES, GAUSSIAN_RUN, WIDE_BLOCK_CASES, WIDE_CASES,
@@ -42,12 +53,12 @@ ATOL = 1e-5
 
 
 def _to_float32(acc64, truncate):
-    """float64 -> float32 to nearest, or toward zero."""
-    r = acc64.astype(np.float32)
+    """float64 -> float32 to nearest, or toward zero (the 29 low bits of the
+    float64 mantissa dropped first: exact at float32's normal range)."""
     if truncate:
-        over = np.abs(r.astype(np.float64)) > np.abs(acc64)
-        r = np.where(over, np.nextafter(r, np.float32(0.0)), r)
-    return r
+        bits = np.asarray(acc64, np.float64).view(np.int64) & ~np.int64(2**29 - 1)
+        acc64 = bits.view(np.float64)
+    return acc64.astype(np.float32)
 
 
 def split_truncated(a):
@@ -77,15 +88,21 @@ def mma_matvec(delta, p_big, p_small, terms=3, truncate=False):
     return acc + (acc_bs + acc_sb)
 
 
-def emulated_sampler(theta0, prec, mean, momenta, uniforms, steps, eps, **kw):
-    """The kernel's draw loop in float32 numpy with the emulated gradient."""
+def emulated_sampler(theta0, prec, mean, momenta, uniforms, steps, eps, product=None, **kw):
+    """The kernel's draw loop in float32 numpy with the emulated gradient:
+    ``-product(theta - mean)``, by default the tensor-core variant's
+    ``mma_matvec`` on P split once."""
     f = np.float32
-    p_big, p_small = split(prec)
-    if kw.get("terms") == 1:
-        p_small = np.zeros_like(p_big)
+    if product is None:
+        p_big, p_small = split(prec)
+        if kw.get("terms") == 1:
+            p_small = np.zeros_like(p_big)
+
+        def product(delta):
+            return mma_matvec(delta, p_big, p_small, **kw)
 
     def grad(th):
-        return -mma_matvec((th - mean).astype(f), p_big, p_small, **kw)
+        return -product((th - mean).astype(f))
 
     def half_energy(th, g, p):  # sum of 1/2 (p^2 - (theta - mean) g) in float64
         delta = (th - mean).astype(f).astype(np.float64)
@@ -108,6 +125,61 @@ def emulated_sampler(theta0, prec, mean, momenta, uniforms, steps, eps, **kw):
         draws.append(theta)
         accepted += accept
     return np.stack(draws, axis=1), accepted
+
+
+def grid_product(prec, terms=3, truncate=True):
+    """(C, D) @ P as the any-D variant's dense kernel computes it, as a
+    function of theta - mean: G^T = P^T Delta^T on mma.sync.m16n8k8, both
+    operands split as they are read (big to nearest, the small part's low 13
+    bits dropped), per k8 slice big*big into one accumulator and big*small
+    then small*big into another, each reset every 64 rows of P (a chunk) and
+    accumulated to nearest or truncated; the chunks' two sums added, then
+    added in order into a float32 total, to nearest."""
+    d = prec.shape[0]
+    n = -(-d // 64)
+
+    def by_slice(a):  # (chunk, k8 slice, rows, 8): the slices of a's columns, padded with 0
+        a = np.pad(a, ((0, 0), (0, 64 * n - d)))
+        return np.ascontiguousarray(a.reshape(len(a), n, 8, 8).transpose(1, 2, 0, 3))
+
+    a_big, a_small = (by_slice(x.astype(np.float64))
+                      for x in split_truncated(np.ascontiguousarray(prec.T)))
+
+    def product(delta):
+        b_big, b_small = (by_slice(x.astype(np.float64)).transpose(0, 1, 3, 2)
+                          for x in split_truncated(delta))
+        acc_b = np.zeros((n, d, len(delta)), np.float32)
+        acc_s = np.zeros_like(acc_b)
+        bb = np.matmul(a_big, b_big)  # each slice's exact product: tf32 x tf32, 8 terms
+        if terms == 3:
+            bs, sb = np.matmul(a_big, b_small), np.matmul(a_small, b_big)
+        for s in range(8):
+            acc_b = _to_float32(acc_b + bb[:, s], truncate)
+            if terms == 3:
+                acc_s = _to_float32(acc_s + bs[:, s], truncate)
+                acc_s = _to_float32(acc_s + sb[:, s], truncate)
+        total = np.zeros((d, len(delta)), np.float32)
+        for j in range(n):
+            total = total + (acc_b[j] + acc_s[j])
+        return total.T
+
+    return product
+
+
+def _grid_case(d, chains, draws, seed, rank=256):
+    """A dense SPD precision I + B B^T / D (B of rank 256: eigenvalues in [1,
+    ~2.6] at D = 4096, cheap to build) and the run's inputs."""
+    rng = np.random.RandomState(seed)
+    b = rng.randn(d, rank)
+    prec = (np.eye(d) + b @ b.T / d).astype(np.float32)
+    mean = rng.randn(d).astype(np.float32)
+    theta0 = rng.randn(chains, d).astype(np.float32)
+    return (theta0, prec, mean, rng.randn(draws, chains, d).astype(np.float32),
+            rng.rand(draws, chains).astype(np.float32))
+
+
+# (D, chains, draws, L, step, seed): both Metropolis outcomes occur, none near an edge
+GRID_CASES = {"d1024": (1024, 8, 4, 5, 0.3, 1), "d4096": (4096, 2, 3, 3, 0.35, 3)}
 
 
 def _dense_case(d, chains, draws, seed):
@@ -148,6 +220,39 @@ def test_one_tf32_product_breaks_the_sampler_gate_at_d128():
     assert np.abs(got - want.numpy()).max() > 10 * ATOL
 
 
+@pytest.mark.parametrize("truncate", [False, True], ids=["nearest", "truncated"])
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_grid_product_holds_the_sampler_gate(case, truncate):
+    d, chains, draws, steps, eps, seed = GRID_CASES[case]
+    theta0, prec, mean, z, u = _grid_case(d, chains, draws, seed)
+    got, got_acc = emulated_sampler(theta0, prec, mean, z, u, steps, eps,
+                                    product=grid_product(prec, truncate=truncate))
+    args = [torch.as_tensor(x) for x in (theta0, prec, mean)]
+    noise = (torch.as_tensor(z), torch.as_tensor(u))
+    want, want_acc = gaussian_hmc_reference(0, *args[:2], draws, steps, eps, mean=args[2],
+                                            _noise=noise)
+    margin, replay = _min_accept_margin(*args[:2], draws, steps, eps, args[2], noise)
+    assert torch.equal(replay, want) and margin >= 1e-4
+    assert np.array_equal(got_acc, np.round(want_acc.numpy() * draws))
+    assert 0.0 < float(want_acc.mean()) < 1.0  # both Metropolis outcomes occur
+    assert np.abs(got - want.numpy()).max() <= ATOL
+    # the comparison sees the gradient: a 1%-wrong precision moves the draws
+    wrong, _ = gaussian_hmc_reference(0, args[0], 1.01 * args[1], draws, steps, eps,
+                                      mean=args[2], _noise=noise)
+    assert float((wrong - want).abs().max()) >= 100 * ATOL
+
+
+def test_one_tf32_pass_breaks_the_grid_product_gate():
+    d, chains, draws, steps, eps, seed = GRID_CASES["d1024"]
+    theta0, prec, mean, z, u = _grid_case(d, chains, draws, seed)
+    got, _ = emulated_sampler(theta0, prec, mean, z, u, steps, eps,
+                              product=grid_product(prec, terms=1))
+    want, _ = gaussian_hmc_reference(
+        0, torch.as_tensor(theta0), torch.as_tensor(prec), draws, steps, eps,
+        mean=torch.as_tensor(mean), _noise=(torch.as_tensor(z), torch.as_tensor(u)))
+    assert np.abs(got - want.numpy()).max() > 10 * ATOL
+
+
 def test_emulated_split_matches_tf32_rounding():
     a = np.random.RandomState(1).randn(1000).astype(np.float32)
     big, small = split(a)
@@ -173,7 +278,7 @@ def test_wide_block_cases_have_no_knife_edge_decision(d, dense, chains, per_bloc
     want, acc = gaussian_hmc_reference(0, theta0, prec, draws, steps, eps, mean=mean, _noise=noise)
     assert torch.equal(replay, want)
     assert margin >= 1e-4
-    if per_block > 1:  # some chains of a block accept where others reject
+    if 1 < per_block < chains:  # some chains of a block or tile accept where others reject
         assert 0.0 < float(acc.mean()) < 1.0
 
 
@@ -182,17 +287,30 @@ def test_wide_block_cases_run_the_block_size_they_name(d, dense, chains, per_blo
     plan = _plan(d, dense, 8, chains)
     assert (plan.variant, plan.group) == (5, per_block)
     _check_plan(plan, d, dense)
-    assert per_block == 1 or chains % per_block != 0  # a partial last block
+    assert per_block == 1 or chains % per_block != 0  # a partial last block or tile of chains
 
 
 def _check_plan(plan, d, dense):
     assert 0 <= plan.shared <= MAX_SHARED
-    assert 1 <= plan.consumers <= 8
-    if plan.variant == 5:  # any D: chains per block in `group`, the state in shared memory
+    if plan.variant == 5:  # any D
         assert d > 256 or (dense and d > 240)
-        assert plan.group in (1, 2, 4, 8) and plan.consumers == WIDE_WARPS
-        assert plan.chains_per_warp == 0 and plan.shared == _wide_shared(d, dense, plan.group)
+        if dense:  # tiles of 128 rows by `group` chains across one grid
+            assert plan.consumers == WIDE_WARPS and plan.group in DENSE_CHAIN_TILES
+            assert plan.chains_per_warp == 0 and plan.shared == _dense_shared(plan.group)
+        elif d <= DIAG_MAX_D:  # `group` chains a block of 8 warps, the state in registers
+            assert plan.consumers == WIDE_WARPS
+            assert plan.group in (1, 2, 4, 8) and plan.chains_per_warp in (1, 2, 4)
+            assert 4 * plan.chains_per_warp * (256 // plan.group) >= d and plan.shared == 0
+            # the fewest groups of 4 elements a thread that a team of 256 threads takes
+            assert plan.chains_per_warp == 1 or 2 * plan.chains_per_warp * 256 < d
+        else:  # a chain a block of 32 warps, the state in registers, mean and P shared
+            assert d <= DIAG_WIDE_MAX_D and plan.consumers == DIAG_WIDE_WARPS
+            assert plan.group == 1 and plan.chains_per_warp in (2, 3)
+            # the fewest groups of 4 elements a thread of 1024 that take D
+            assert 4 * 1024 * (plan.chains_per_warp - 1) < d <= 4 * 1024 * plan.chains_per_warp
+            assert plan.shared == _diag_wide_shared(plan.chains_per_warp)
         return
+    assert 1 <= plan.consumers <= 8
     assert plan.variant == 4 or 1 <= plan.chains_per_warp <= 32 // plan.group
     if plan.variant == 1:
         assert d <= 8 and d <= plan.group <= 8 and plan.consumers == 1
@@ -228,8 +346,19 @@ def test_plan_takes_every_wide_d(first, dense):
             _check_plan(plan, d, dense)
 
 
+@pytest.mark.parametrize("first", range(4097, DIAG_WIDE_MAX_D + 1, 512))
+def test_plan_takes_every_diagonal_d_beyond_4096(first):
+    """Diagonal D = 4097..12,288 in 16 slices of 512: a chain a block of 1024
+    threads, whatever the chain count and chain_tile."""
+    for d in range(first, first + 512):
+        for chains, chain_tile in ((1, 1), (1024, 8), (10**6, 33)):
+            plan = _plan(d, False, chain_tile, chains)
+            assert plan.variant == 5, (d, chains)
+            _check_plan(plan, d, False)
+
+
 @pytest.mark.parametrize("d,dense,chain_tile", [(0, False, 8), (3, False, 0), (241, True, 0),
-                                                (9677, True, 8), (11613, False, 8)])
+                                                (0, True, 8), (DIAG_WIDE_MAX_D + 1, False, 8)])
 def test_plan_refuses_what_the_kernel_does_not_take(d, dense, chain_tile):
     assert _plan(d, dense, chain_tile, chains=4).variant == 0
 
@@ -244,8 +373,17 @@ def test_plan_does_not_depend_on_chain_tile_where_it_is_a_hint():
 
 
 def test_wide_plan_spreads_chains_and_fits_shared_memory():
-    assert _plan(1024, True, 8, 64).group == 1  # 64 blocks for 132 SMs
-    assert _plan(1024, True, 8, 1024).group == 8  # 128 blocks: P read once serves 8 chains
-    assert _plan(1024, True, 8, 10**6).group == 8  # at most 8 chains a block
-    assert _plan(4096, True, 8, 1024).group == 2
-    assert _plan(9676, True, 8, 1024).group == 1
+    assert _plan(1024, True, 8, 64).group == 8  # 64 tiles of 8 chains for 132 SMs
+    assert _plan(1024, True, 8, 1024).group == 64  # 128 tiles: a byte of P serves 64 chains
+    assert _plan(1024, True, 8, 10**6).group == 64  # at most 64 chains a tile
+    assert _plan(4096, True, 8, 5).group == 8  # 32 tiles: P read once a step across the grid
+    assert _plan(2048, True, 8, 201).group == 32  # 112 tiles, one wave
+    assert _plan(9676, True, 8, 1024).group == 64
+    assert _plan(9677, True, 8, 3)[:2] == (5, 8)  # the former design's bound: no longer one
+    assert _plan(40000, True, 8, 3)[:2] == (5, 8)  # dense P at any D
+    assert _plan(1024, False, 8, 1024)[1:4] == (1, WIDE_WARPS, 1)  # 256 threads, 4 elements each
+    assert _plan(300, False, 8, 1024)[1:4] == (2, WIDE_WARPS, 1)  # 2 teams of 128 threads a block
+    assert _plan(4096, False, 8, 8)[1:4] == (1, WIDE_WARPS, 4)  # 16 elements a thread
+    # beyond 4096: a chain a block of 1024 threads, 8 or 12 elements each
+    assert _plan(4097, False, 8, 1024)[1:] == (1, DIAG_WIDE_WARPS, 2, _diag_wide_shared(2))
+    assert _plan(11612, False, 8, 1024)[1:] == (1, DIAG_WIDE_WARPS, 3, _diag_wide_shared(3))

@@ -265,10 +265,12 @@ def test_gaussian_hmc_kernel_draws_do_not_depend_on_chain_tile(cuda_device, d, d
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,dense,tile", [(9677, True, 8), (11613, False, 8)])
+@pytest.mark.parametrize("d,dense,tile", [(0, True, 8), (12289, False, 8)])
 def test_gaussian_hmc_kernel_raises_on_shapes_it_does_not_take(cuda_device, d, dense, tile):
-    """Only a D whose state no longer fits one block's shared memory is
-    refused (by the kernel), and a chain_tile below 1 (by the wrapper)."""
+    """Only D = 0 and a diagonal D whose state no longer fits the registers
+    of a block of 1024 threads are refused (by the kernel; dense P has no
+    bound but the card's memory), and a chain_tile below 1 (by the
+    wrapper)."""
     prec = torch.eye(d, device=cuda_device) if dense else torch.ones(d, device=cuda_device)
     before = gaussian_hmc.launches
     with pytest.raises(RuntimeError, match="cudaError_t"):
@@ -284,12 +286,18 @@ WIDE_CASES = [(257, False), (512, False), (1000, False), (4096, False),
               (241, True), (256, True), (512, True), (1000, True)]
 
 
-# (D, dense, chains, chains per block): past 132 chains variant 5 shares a
-# block among 2, 4 or 8 chains, here with a partial last block; D = 4096 and
-# the ragged 4099 (no 16-byte loads of P) at a few chains
-WIDE_BLOCK_CASES = [(300, False, 201, 2), (257, False, 270, 4), (1000, False, 1061, 8),
-                    (4099, False, 5, 1), (2048, True, 201, 2), (512, True, 270, 4),
-                    (513, True, 530, 8), (4096, True, 5, 1), (4099, True, 3, 1)]
+# (D, dense, chains, the plan's group): dense P in tiles of 128 rows by 8,
+# 16, 32 or 64 chains, here each with a partial last tile of chains (and of
+# rows where D is not a multiple of 128; D = 241, 513 and 4099 are not
+# multiples of 4 either); diagonal P with the state in registers, 2 chains a
+# block of 256 threads (one of them partial) or 1, holding 1, 2 or 4 groups
+# of 4 elements a thread (D = 1000, 2000, 3001), and beyond D = 4096 a chain
+# a block of 1024 threads of 2 or 3 groups (4099, 8193, 12,288)
+WIDE_BLOCK_CASES = [(300, False, 201, 2), (257, False, 271, 2), (1000, False, 1061, 1),
+                    (4099, False, 5, 1), (2048, True, 201, 32), (512, True, 270, 16),
+                    (513, True, 530, 32), (4096, True, 5, 8), (4099, True, 3, 8),
+                    (300, True, 1450, 64), (2000, False, 37, 1), (3001, False, 9, 1),
+                    (8193, False, 3, 1), (12288, False, 2, 1)]
 
 
 @pytest.mark.gpu
@@ -303,6 +311,27 @@ def test_gaussian_hmc_wide_variant_matches_plain_version(cuda_device, d, dense):
 def test_gaussian_hmc_wide_blocks_match_plain_version(cuda_device, d, dense, chains, per_block):
     assert _plan(d, dense, 8, chains)[:2] == (5, per_block)
     hold_against_plain_version(cuda_device, d, dense, chains)
+
+
+@pytest.mark.gpu
+def test_gaussian_hmc_dense_beyond_the_former_bound_draws_what_diagonal_p_draws(cuda_device):
+    """Dense D = 9,800 (the former any-D design took 9,676 at most) with a
+    diagonal P held as a (D, D) matrix: the grid's product on the tensor
+    cores and the diagonal form (a chain a block of 1024 threads) both draw
+    what the plain version draws, within 1e-5 and with the same accepts."""
+    d, chains = 9800, 3
+    draws, steps, eps = GAUSSIAN_RUN.values()
+    theta0, prec, mean, noise = gaussian_case(d, False, "cpu", chains)
+    margin, _ = _min_accept_margin(theta0, prec, draws, steps, eps, mean, noise)
+    assert margin >= 1e-4
+    theta0, prec, mean = (t.to(cuda_device) for t in (theta0, prec, mean))
+    noise = tuple(t.to(cuda_device) for t in noise)
+    kw = dict(mean=mean, _noise=noise)
+    want, want_acc = gaussian_hmc_reference(0, theta0, prec, draws, steps, eps, **kw)
+    for p in (torch.diag(prec), prec):
+        got, got_acc = gaussian_hmc(0, theta0, p, draws, steps, eps, **kw)
+        assert torch.equal(torch.round(got_acc * draws), torch.round(want_acc * draws))
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.gpu
