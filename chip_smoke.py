@@ -20,7 +20,11 @@ the kernels are built for sm_90a).  It
    gradient: one BNN gradient alone (``kernels/bnn_grad._bnn_gradient``,
    the GEMM pair of both BNN kernels) at the flagship and two ragged
    shapes, ``bnn_hmc`` and ``bnn_mclmc`` at the flagship and at a small
-   ragged shape, ``gaussian_hmc`` once per variant of its kernel: 4 lanes
+   ragged shape, ``bnn_mclmc`` also from a velocity anti-parallel to the
+   gradient at the step where its first rotation's zeta is 0.04 (the
+   rotation's w = ce g + 2 zeta u nearly cancels there, and the kernel takes
+   |w| from dots reduced where g is produced),
+   ``gaussian_hmc`` once per variant of its kernel: 4 lanes
    per chain (D=3 diagonal, also at a ragged chain count), 32 lanes (D=20
    diagonal and dense), a warp per chain (D=200 diagonal), the tensor
    cores (dense D=128 and D=64) and dense P beyond their range (D=192),
@@ -59,7 +63,10 @@ the kernels are built for sm_90a).  It
    whose products run on the tensor cores in 3xTF32 (the BNN kernels,
    ``gaussian_hmc`` at dense P) takes the 3xTF32 time of its operations as
    its ``bound_ms`` where that is below the float32 FMA time
-   (``bound_ops_peak`` names the peak taken);
+   (``bound_ops_peak`` names the peak taken); for ``bnn_mclmc`` also its
+   CUDA launches a draw (counted by ``torch.profiler``) and a model, from
+   the shapes and not measured, of the bytes its velocity algebra moves a
+   draw in this design and the former;
 5. drives the main paths, each with the launch counts set to 0 just before
    it and read just after, and fails if its kernel was not launched:
    - HMC: the fused flagship sampler ``kernels.bnn_hmc`` and
@@ -208,6 +215,7 @@ no result.  TF32 is off for every float32 matmul (cuBLAS and cuDNN).
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -480,17 +488,34 @@ def compare_bnn_hmc(torch, shape, draws, steps, eps, seed, device):
     return err, float(want[4].mean())
 
 
-def compare_bnn_mclmc(torch, shape, draws, eps, length, seed, device):
+def compare_bnn_mclmc(torch, shape, draws, eps, length, seed, device, anti_parallel=False):
     """Kernel vs plain on injected refresh normals: parameters within ATOL,
     var_e within VAR_E_RTOL; the gradient's part of the move (the result
-    less the plain run at tau = 0) must be large beside ATOL."""
-    from hamiltorch_tpu_torch.kernels.bnn_mclmc import bnn_mclmc, bnn_mclmc_reference
+    less the plain run at tau = 0) must be large beside ATOL.  With
+    anti_parallel, u = -g/|g| and eps is the step at which every chain's
+    first rotation has zeta = exp(-b1 eps |g| / (d - 1)) = 0.04 (there
+    ce g nearly cancels 2 zeta u; the kernel takes |w| from the dots), L is
+    5 eps, and the targets sit 10 above the network's output with w2 of
+    O(1), so that |g| is large and the step stays near 1."""
+    from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient_reference
+    from hamiltorch_tpu_torch.kernels.bnn_mclmc import _B1, bnn_mclmc, bnn_mclmc_reference
 
     args = bnn_inputs(torch, shape["n"], shape["i"], shape["h"], shape["c"], seed, device)
     dim = shape["i"] * shape["h"] + 2 * shape["h"] + 1
     gen = torch.Generator().manual_seed(seed + 1)
     u = torch.randn(shape["c"], dim, generator=gen).to(device)
     noise = torch.randn(draws, shape["c"], dim, generator=gen).to(device)
+    if anti_parallel:
+        args[1], args[4] = args[1] + 10.0, 100.0 * args[4]
+        g, _ = _bnn_gradient_reference(args[0], args[1], flat(torch, args[2:]), tau=10.0)
+        g_norm = g.double().norm(dim=1)
+        u = (-g.double() / g_norm[:, None]).float()
+        eps = float((-math.log(0.04) * (dim - 1) / (_B1 * g_norm)).max())
+        length = 5.0 * eps
+        zeta = float(torch.exp(-_B1 * eps * g_norm / (dim - 1)).max())
+        print(f"bnn_mclmc anti-parallel start: first rotation's zeta <= {zeta:.4f} at eps={eps:.4f}")
+        if not zeta <= 0.05:
+            raise SmokeError(f"the anti-parallel start's zeta is {zeta}, not <= 0.05")
     kw = dict(num_samples=draws, step_size=eps, length=length, _noise=noise)
     got = bnn_mclmc(seed, *args, u, tau=10.0, **kw)
     want = bnn_mclmc_reference(seed, *args, u, tau=10.0, **kw)
@@ -756,6 +781,42 @@ def time_bnn_hmc(torch, device, gemm_ms, draws, steps, eps, card):
                 bound_latency_ms=None)
 
 
+def packed_floats(shape):
+    """Floats of one chain's packed state in the BNN kernels (bnn_grad.cuh's
+    dp: W1^T rows of I rounded up to 4, then b1, w2, b2, rounded up to 4)."""
+    ip = -(-shape["i"] // 4) * 4
+    return -(-(shape["h"] * ip + 2 * shape["h"] + 1) // 4) * 4
+
+
+# reads and writes of one all-chain state array (g, u or theta) that a draw
+# of bnn_mclmc makes: this design (csrc/bnn_mclmc.cu's head note) and the
+# former (scripts/csrc/bnn_mclmc_variants.cu)
+MCLMC_PASSES = (15, 27)
+
+
+def velocity_bytes(shape, passes):
+    """A model, from the shapes alone, of the bytes a draw's velocity algebra
+    moves: passes x the chains' packed state in float32."""
+    return passes * 4 * shape["c"] * packed_floats(shape)
+
+
+def launches_per_draw(torch, fn):
+    """CUDA launches a draw of fn(num_samples), counted by torch.profiler over
+    runs of 4 and 2 draws (the start and the end cancel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for draws in (2, 4):
+        fn(draws)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(draws)
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA))
+    return (counts[1] - counts[0]) / 2
+
+
 def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
     from hamiltorch_tpu_torch.kernels.bnn_mclmc import bnn_mclmc, bnn_mclmc_reference
 
@@ -765,6 +826,12 @@ def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
     kw = dict(num_samples=draws, step_size=eps, length=length, tau=10.0)
     t = time_in_turns(torch, {"kernel": lambda s: bnn_mclmc(s, *args, u, **kw),
                               "plain": lambda s: bnn_mclmc_reference(s, *args, u, **kw)})
+    per_draw = launches_per_draw(torch, lambda k: bnn_mclmc(0, *args, u, **{**kw, "num_samples": k}))
+    this_b, former_b = (velocity_bytes(FLAGSHIP, p) for p in MCLMC_PASSES)
+    print(f"bnn_mclmc: {per_draw:g} CUDA launches a draw (torch.profiler); velocity algebra "
+          f"{this_b / 1e6:.1f} MB a draw modelled from the shapes ({MCLMC_PASSES[0]} passes over "
+          f"the state; the former design's {MCLMC_PASSES[1]}: {former_b / 1e6:.1f} MB), not "
+          f"measured [{card}]")
     (k_ms, k_all), (p_ms, p_all) = t["kernel"], t["plain"]
     grad_steps = FLAGSHIP["c"] * draws * 2
     gradients = 2 * draws + 1  # two per draw, one at the start
@@ -780,7 +847,7 @@ def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
           f"{tc_ms:.3f} ms); cuBLAS GEMMs {lib_ms:.3f} ms [{card}]")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                 bound_ops_peak=ops_ms(flops, flops)[1], bound_3xtf32_ms=tc_ms,
-                bound_latency_ms=None)
+                bound_latency_ms=None, launches_per_draw=per_draw)
 
 
 def dense_l2_bytes(d, chains):
@@ -3514,6 +3581,9 @@ def main() -> int:
                       seed=3, device=device)
     errs["bnn_mclmc"] = compare_bnn_mclmc(torch, FLAGSHIP, draws=5, eps=2.0, length=10.0, seed=5,
                                           device=device)
+    # a velocity anti-parallel to the gradient, at a step where zeta = 0.04
+    errs["bnn_mclmc"] = max(errs["bnn_mclmc"], compare_bnn_mclmc(
+        torch, FLAGSHIP, draws=2, eps=None, length=None, seed=6, device=device, anti_parallel=True))
     # one shape per variant of gaussian_hmc's kernel, and every shape its
     # main path launches: (D, dense, chains)
     errs["gaussian_hmc"] = max(

@@ -67,9 +67,16 @@
 //                    K = N; its epilogue writes the W1 gradient (g - W1) and
 //                    partial sums of the prior, and, for HMC, fuses the
 //                    momentum kick, the next drift and partial sums of the
-//                    kinetic energy;
+//                    kinetic energy; for MCLMC (backward_kernel<true>) it
+//                    reads the velocity u at the slots it writes and adds
+//                    float64 partial sums of |g|^2, u.g and |u|^2 instead;
 //   small_kernel     reduces the partials per chain: the b1/w2/b2 gradients
-//                    (with HMC's kick and drift), logp and the kinetic energy.
+//                    (with HMC's kick and drift), logp and the kinetic energy;
+//                    small_kernel<true> also adds the b1/w2/b2 terms of the
+//                    three dots and reduces each chain's |g|^2, u.g and |u|^2
+//                    to finished float64 scalars (launch_gradient_dots), so
+//                    that a rotation reads three numbers a chain and never
+//                    re-reads g for its dots.
 // Every reduction has a fixed order (wgmma's accumulation order is fixed
 // too), so a run is deterministic.  logp and the kinetic energy are reduced
 // in float64 (at the flagship each is a sum near 5e4, and the samplers use
@@ -147,22 +154,25 @@ __device__ __forceinline__ long long logical_of(long long m, const BnnDims& s) {
 // their packed slots (m1 = -1 past the last element).  Pairs are numbered
 // so that consecutive q lie in consecutive slots: in W1 a pair is (i, h),
 // (i, h + 1) for even h, q = (h / 2) * I + i.  Random numbers are keyed
-// on k0 / 2, the logical pair.
+// on k0 / 2, the logical pair.  Index is the type q is divided in: long
+// long, or unsigned where the caller knows d < 2^31 (a 32-bit division is
+// a fraction of a 64-bit one's instructions).
 struct Pair {
   long long k0, m0, m1;
 };
 
-__device__ __forceinline__ Pair pair_at(long long q, const BnnDims& s) {
-  const long long w1_pairs = (long long)s.in_dim * s.hidden / 2;  // hidden is even
+template <typename Index>
+__device__ __forceinline__ Pair pair_at(Index q, const BnnDims& s) {
+  const Index w1_pairs = (Index)((long long)s.in_dim * s.hidden / 2);  // hidden is even
   Pair r;
   if (q < w1_pairs) {
-    const long long hp = q / s.in_dim;
-    const int i = (int)(q - hp * s.in_dim);
-    r.k0 = (long long)i * s.hidden + 2 * hp;
-    r.m0 = 2 * hp * s.ip + i;
+    const Index hp = q / (Index)s.in_dim;
+    const int i = (int)(q - hp * (Index)s.in_dim);
+    r.k0 = (long long)i * s.hidden + 2 * (long long)hp;
+    r.m0 = 2 * (long long)hp * s.ip + i;
     r.m1 = r.m0 + s.ip;
   } else {
-    r.k0 = 2 * q;
+    r.k0 = 2 * (long long)q;
     r.m0 = s.w1p + (r.k0 - 2 * w1_pairs);
     r.m1 = (r.k0 + 1 < s.d) ? r.m0 + 1 : -1;
   }
@@ -183,11 +193,11 @@ struct Arena {
 // the scratch of one evaluation.
 struct GradScratch {
   float *xs, *xts, *dat, *pgw2, *pgb1, *pgb2;
-  double *pll, *pprior, *pkin;
+  double *pll, *pprior, *pkin, *pdots;
 };
 
 struct GradOffsets {
-  size_t xs, xts, dat, pgw2, pgb1, pgb2, pll, pprior, pkin;
+  size_t xs, xts, dat, pgw2, pgb1, pgb2, pll, pprior, pkin, pdots;
 };
 
 GradOffsets take_grad_scratch(Arena& a, const BnnDims& s) {
@@ -202,13 +212,15 @@ GradOffsets take_grad_scratch(Arena& a, const BnnDims& s) {
   o.pll = a.take(C * s.n_tiles, 8);
   o.pprior = a.take(C * s.bwd_blocks, 8);
   o.pkin = a.take(C * s.bwd_blocks, 8);
+  o.pdots = a.take(C * s.bwd_blocks * 3, 8);  // (C, bwd_blocks, 3): |g|^2, u.g, |u|^2
   return o;
 }
 
 GradScratch grad_scratch(char* ws, const GradOffsets& o) {
   return GradScratch{(float*)(ws + o.xs),    (float*)(ws + o.xts),     (float*)(ws + o.dat),
                      (float*)(ws + o.pgw2),  (float*)(ws + o.pgb1),    (float*)(ws + o.pgb2),
-                     (double*)(ws + o.pll),  (double*)(ws + o.pprior), (double*)(ws + o.pkin)};
+                     (double*)(ws + o.pll),  (double*)(ws + o.pprior), (double*)(ws + o.pkin),
+                     (double*)(ws + o.pdots)};
 }
 
 // The TMA descriptors of one run's operands.
@@ -571,14 +583,17 @@ __global__ void __launch_bounds__(NT, 1) forward_kernel(
 // (BM per warpgroup; the two share the x^T slices) and inputs
 // [BNB blockIdx.x, +BNB): g = (da^T x)^T - W1 into gr and partial sums of
 // W1^2 (prior).  With p (HMC): p += kappa g, with drift th += eps p, and
-// partial sums of p^2 (kinetic).  Accumulator element 4j + 2r + e of thread
-// (warp w of warpgroup wg, g, t) is hidden unit BM wg + 16 w + g + 8r of
-// the block, input 8j + 2t + e.
+// partial sums of p^2 (kinetic).  DOTS (MCLMC): partial sums of |g|^2, u.g
+// and |u|^2 against the velocity u into pdots.  Accumulator element
+// 4j + 2r + e of thread (warp w of warpgroup wg, g, t) is hidden unit
+// BM wg + 16 w + g + 8r of the block, input 8j + 2t + e.
+template <bool DOTS>
 __global__ void __launch_bounds__(NT, 1) backward_kernel(
     const __grid_constant__ CUtensorMap dmap, const __grid_constant__ CUtensorMap xtmap,
     float* __restrict__ th, float* __restrict__ gr, float* __restrict__ p,
-    double* __restrict__ pprior, double* __restrict__ pkin, const BnnDims s, float kappa,
-    float eps, int drift) {
+    double* __restrict__ pprior, double* __restrict__ pkin, const float* __restrict__ u,
+    double* __restrict__ pdots, const BnnDims s, float kappa, float eps, int drift) {
+  if constexpr (DOTS) grid_dependency_wait();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   __shared__ Ring<BWD_STAGES> ring;
@@ -639,7 +654,8 @@ __global__ void __launch_bounds__(NT, 1) backward_kernel(
   float* W1 = th + c * s.dp;
   float* G1 = gr + c * s.dp;
   float* P1 = p ? p + c * s.dp : nullptr;
-  double prior = 0.0, kin = 0.0;
+  const float* U1 = DOTS ? u + c * s.dp : nullptr;
+  double prior = 0.0, kin = 0.0, gg = 0.0, ug = 0.0, uu = 0.0;
 #pragma unroll
   for (int j = 0; j < 14; ++j)
 #pragma unroll
@@ -654,6 +670,16 @@ __global__ void __launch_bounds__(NT, 1) backward_kernel(
       else G1[k] = gv.x;
       prior += (double)w.x * w.x;
       prior += (double)w.y * w.y;
+      if constexpr (DOTS) {
+        const float2 uv = two ? *reinterpret_cast<const float2*>(U1 + k) : make_float2(U1[k], 0.f);
+        const float gy = two ? gv.y : 0.f;
+        gg += (double)gv.x * gv.x;
+        gg += (double)gy * gy;
+        ug += (double)uv.x * gv.x;
+        ug += (double)uv.y * gy;
+        uu += (double)uv.x * uv.x;
+        uu += (double)uv.y * uv.y;
+      }
       if (P1) {
         float2 pv = two ? *reinterpret_cast<const float2*>(P1 + k) : make_float2(P1[k], 0.f);
         pv.x = fmaf(kappa, gv.x, pv.x);
@@ -672,31 +698,53 @@ __global__ void __launch_bounds__(NT, 1) backward_kernel(
     }
   prior = block_sum(prior);
   kin = block_sum(kin);
+  if constexpr (DOTS) {
+    gg = block_sum(gg);
+    ug = block_sum(ug);
+    uu = block_sum(uu);
+  }
   if (tid == 0) {
     const long long at = (long long)c * gridDim.x * gridDim.y + blockIdx.y * gridDim.x + blockIdx.x;
     pprior[at] = prior;
     pkin[at] = kin;
+    if constexpr (DOTS) {
+      pdots[3 * at] = gg;
+      pdots[3 * at + 1] = ug;
+      pdots[3 * at + 2] = uu;
+    }
   }
 }
 
 // Per chain (one block each): the b1, w2, b2 gradients from the forward's
 // partials, logp at th and, with p (HMC), their kick (and drift) and the
-// kinetic energy of p.
+// kinetic energy of p.  DOTS (MCLMC): the chain's |g|^2, u.g and |u|^2
+// against the velocity u into dots (C, 3), the backward's partials added in
+// a fixed order.
+template <bool DOTS>
 __global__ void small_kernel(float* __restrict__ th, float* __restrict__ gr, float* __restrict__ p,
                              const float* __restrict__ pgw2, const float* __restrict__ pgb1,
                              const float* __restrict__ pgb2, const double* __restrict__ pll,
                              const double* __restrict__ pprior, const double* __restrict__ pkin,
                              double* __restrict__ logp_prop, double* __restrict__ kin_prop,
-                             const BnnDims s, float tau, float kappa, float eps, int drift) {
+                             const float* __restrict__ u, const double* __restrict__ pdots,
+                             double* __restrict__ dots, const BnnDims s, float tau, float kappa,
+                             float eps, int drift) {
+  if constexpr (DOTS) grid_dependency_wait();
   const int c = blockIdx.x, hidden = s.hidden, n_tiles = s.n_tiles, bwd_blocks = s.bwd_blocks;
   const long long base = c * s.dp + s.w1p;  // b1, then w2, then b2
-  double prior = 0.0, kin = 0.0, ll = 0.0;
+  double prior = 0.0, kin = 0.0, ll = 0.0, gg = 0.0, ug = 0.0, uu = 0.0;
 
   auto update = [&](long long k, float partial) {
     const float v = th[k];
     const float g = partial - v;
     gr[k] = g;
     prior += (double)v * v;
+    if constexpr (DOTS) {
+      const float uv = u[k];
+      gg += (double)g * g;
+      ug += (double)uv * g;
+      uu += (double)uv * uv;
+    }
     if (p) {
       const float pv = fmaf(kappa, g, p[k]);
       p[k] = pv;
@@ -725,13 +773,29 @@ __global__ void small_kernel(float* __restrict__ th, float* __restrict__ gr, flo
     for (int b = 0; b < bwd_blocks; ++b) {
       prior += pprior[(long long)c * bwd_blocks + b];
       if (p) kin += pkin[(long long)c * bwd_blocks + b];
+      if constexpr (DOTS) {
+        const double* pd = pdots + 3 * ((long long)c * bwd_blocks + b);
+        gg += pd[0];
+        ug += pd[1];
+        uu += pd[2];
+      }
     }
   }
   prior = block_sum(prior);
   kin = block_sum(kin);
+  if constexpr (DOTS) {
+    gg = block_sum(gg);
+    ug = block_sum(ug);
+    uu = block_sum(uu);
+  }
   if (threadIdx.x == 0) {
     logp_prop[c] = -0.5 * (double)tau * ll - 0.5 * prior;
     if (kin_prop) kin_prop[c] = 0.5 * kin;
+    if constexpr (DOTS) {
+      dots[3 * c] = gg;
+      dots[3 * c + 1] = ug;
+      dots[3 * c + 2] = uu;
+    }
   }
 }
 
@@ -744,7 +808,10 @@ int prepare_gradient(const BnnDims& s, const float* x, const float* th, const Gr
   if ((err = (int)cudaFuncSetAttribute(forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        FWD_SMEM)) != 0)
     return err;
-  if ((err = (int)cudaFuncSetAttribute(backward_kernel,
+  if ((err = (int)cudaFuncSetAttribute(backward_kernel<false>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM)) != 0)
+    return err;
+  if ((err = (int)cudaFuncSetAttribute(backward_kernel<true>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM)) != 0)
     return err;
   const uint64_t f = sizeof(float);
@@ -779,14 +846,37 @@ int launch_gradient(const BnnDims& s, const GradMaps& m, const float* y, float* 
   forward_kernel<<<fwd_grid, NT, FWD_SMEM, stream>>>(m.x, m.w1t, y, th, w.dat, w.pgw2, w.pgb1,
                                                      w.pgb2, w.pll, s, tau);
   LAUNCH_CHECK();
-  backward_kernel<<<bwd_grid, NT, BWD_SMEM, stream>>>(m.dat, m.xt, th, gr, p, w.pprior, w.pkin, s,
-                                                      kappa, eps, drift);
+  backward_kernel<false><<<bwd_grid, NT, BWD_SMEM, stream>>>(
+      m.dat, m.xt, th, gr, p, w.pprior, w.pkin, nullptr, nullptr, s, kappa, eps, drift);
   LAUNCH_CHECK();
-  small_kernel<<<s.chains, 128, 0, stream>>>(th, gr, p, w.pgw2, w.pgb1, w.pgb2, w.pll, w.pprior,
-                                             w.pkin, logp_prop, kin_prop, s, tau, kappa, eps,
-                                             drift);
+  small_kernel<false><<<s.chains, 128, 0, stream>>>(th, gr, p, w.pgw2, w.pgb1, w.pgb2, w.pll,
+                                                    w.pprior, w.pkin, logp_prop, kin_prop, nullptr,
+                                                    nullptr, nullptr, s, tau, kappa, eps, drift);
   LAUNCH_CHECK();
   return 0;
+}
+
+// MCLMC's evaluation (no kick): launch_gradient's gradient into gr and logp
+// into logp_prop, and each chain's |g|^2, u.g and |u|^2 against the velocity
+// u into dots (C, 3), in float64.  With dependent, the backward and small
+// kernels are programmatic dependent launches (launch_ex).  Returns the
+// first launch error as a cudaError_t (0 on success).
+int launch_gradient_dots(const BnnDims& s, const GradMaps& m, const float* y, float* th, float* gr,
+                         const float* u, const GradScratch& w, double* logp_prop, double* dots,
+                         float tau, bool dependent, cudaStream_t stream) {
+  const dim3 fwd_grid((s.n_tiles + WGS - 1) / WGS, s.chains);
+  const dim3 bwd_grid(s.i_tiles, s.hidden / (WGS * BM), s.chains);
+  forward_kernel<<<fwd_grid, NT, FWD_SMEM, stream>>>(m.x, m.w1t, y, th, w.dat, w.pgw2, w.pgb1,
+                                                     w.pgb2, w.pll, s, tau);
+  LAUNCH_CHECK();
+  int err;
+  if ((err = launch_ex(backward_kernel<true>, bwd_grid, NT, BWD_SMEM, stream, dependent, m.dat,
+                       m.xt, th, gr, (float*)nullptr, w.pprior, w.pkin, u, w.pdots, s, 0.f, 0.f,
+                       0)) != 0)
+    return err;
+  return launch_ex(small_kernel<true>, s.chains, 128, 0, stream, dependent, th, gr,
+                   (float*)nullptr, w.pgw2, w.pgb1, w.pgb2, w.pll, w.pprior, w.pkin, logp_prop,
+                   (double*)nullptr, u, w.pdots, dots, s, tau, 0.f, 0.f, 0);
 }
 
 }  // namespace

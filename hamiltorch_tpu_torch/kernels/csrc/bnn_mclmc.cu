@@ -23,27 +23,54 @@
 // GFLOP per draw for 64 chains.  The GEMMs run on the tensor cores in
 // 3xTF32 (bnn_grad.cuh): 3 x 52.6 GFLOP at the 495 TFLOP/s dense tf32 peak
 // of an H100 SXM (700 W) is 0.32 ms per draw (0.79 ms at the 67 TFLOP/s
-// float32 FMA peak).  The vector algebra between the gradients reads and
-// writes the 100,609-float state a few times per rotation (about 0.2 GB per
-// draw at 64 chains, ~0.06 ms at 3.35 TB/s).
+// float32 FMA peak).  The velocity algebra between the gradients is bound
+// by bytes: call a pass one read or write of one 64-chain state array (64 x
+// 100,612 floats, 25.76 MB at the flagship; g and u together overflow the
+// 50 MB L2).  This design moves 15 passes a draw (386 MB, 0.115 ms at 3.35
+// TB/s) in 9 launches: two rotations with their drift at 5 passes each
+// (read g, u, theta; write u, theta), the third rotation with the refresh
+// at 3 (read g, u; write u), and 2 reads of u in the gradients' epilogues.
+// The former design (scripts/csrc/bnn_mclmc_variants.cu) moved 27 passes
+// (695 MB, 0.208 ms) in 16 launches: each rotation read g and u for its
+// dots, again to rotate, and u once more to normalise and drift, and the
+// refresh took two passes of its own.
 //
 // What the design does about it.  As in bnn_hmc.cu, the state of all chains
 // lives in device memory (one chain's state is larger than a block's shared
-// memory), packed with W1 transposed (bnn_grad.cuh; the rotations below are
+// memory), packed with W1 transposed (bnn_grad.cuh; the passes below are
 // elementwise and do not care about the order, the refresh normals are
 // keyed on the logical element), and the host loops over draws, launching
-// on the caller's stream: the gradient (launch_gradient: forward and
-// backward wgmma GEMMs, per-chain kernel; no kick), and for each rotation
-//   dots_kernel    per-block partial sums of |g|^2 and u.g in float64;
-//   rotate_kernel  every block reduces its chain's partials in a fixed order
-//                  to the rotation's scalars (float64), writes
-//                  w = ce g + 2 zeta u and partial sums of |w|^2; block 0
-//                  accumulates dk (and after the third rotation closes the
-//                  draw: dE, sum dE^2, logp <- logp2);
-//   scale_kernel   u = w / |w|, with the drift th += (eps/2) u, or with the
-//                  refresh u + nu z and its partial sums of squares.
-// logp and every norm and dot are reduced in float64 in a fixed order, so a
-// run is deterministic; parameters, velocities and gradients stay float32.
+// on the caller's stream:
+//   - the gradient (launch_gradient_dots: forward and backward wgmma GEMMs,
+//     per-chain kernel) also reduces |g|^2, u.g and |u|^2 against the
+//     velocity where g is produced, to three float64 scalars a chain;
+//   - rotate_drift_kernel, rotations 1 and 2: every block turns the
+//     chain's dots into the rotation's scalars (float64) and, since
+//     |w|^2 = ce^2 |g|^2 + 2 ce s u.g + s^2 |u|^2 follows from them, writes
+//     u <- w / |w| and theta += (eps/2) u in one pass, without a norm pass
+//     of its own; block 0 accumulates dk;
+//   - rotate_refresh_kernel, rotation 3 and the refresh in one pass:
+//     v = unit(w) + nu z, with per-block partial sums of |v|^2 and v.g;
+//     block 0 closes the draw (dE, sum dE^2, logp <- logp2).  v is not
+//     normalised here: the next draw's first pass reduces the partials (one
+//     warp, a fixed order) and applies 1/|v| as it reads u, its u.g being
+//     (v.g)/|v| against the same g.  The first draw normalises the given u
+//     the same way, from the dots of the gradient at the start.
+// A rotation with u nearly anti-parallel to g and small zeta (ce g nearly
+// cancelling s u) keeps |w|^2 = 4 zeta^4 from float64 terms of size
+// 4 zeta^2.  logp and every norm and dot are reduced in float64 in a fixed
+// order, so a run is deterministic; parameters, velocities and gradients
+// stay float32.
+//
+// Launch options (mclmc_run's `options`): kReverse walks the passes' chains
+// from the last, whose g and u the backward kernel wrote last (still in L2);
+// kDependent launches the passes and the gradients' backward and per-chain
+// kernels as programmatic dependents of the kernel before them; kGraph
+// replays every draw after the first as one CUDA graph, the draw index read
+// from device memory.  bnn_mclmc_run takes all three (kOptions): each gained
+// alone, and together they take ~2% off a flagship run
+// (scripts/bnn_mclmc_variants_torch.py times each set, from its own build of
+// this file).
 
 #include "bnn_grad.cuh"
 
@@ -51,11 +78,21 @@ namespace {
 
 constexpr double B1 = 0.1931833275037836;  // minimal-norm velocity coefficient
 
+enum Option { kReverse = 1, kDependent = 2, kGraph = 4 };
+constexpr int kOptions = kReverse | kDependent | kGraph;  // the package's choice
+
+// Where a pass finds the velocity it rotates and its dots against g:
+// kUnit: u is the unit vector a pass wrote, the dots those of the gradient;
+// kGiven: u is the given velocity (not unit), the dots those of the gradient;
+// kRefreshed: u is the refresh's v (not unit), |g|^2 that of the gradient and
+// |v|^2, v.g the refresh's per-block partials.
+enum Source { kUnit = 0, kGiven = 1, kRefreshed = 2 };
+
 struct Layout {
   BnnDims s;
   GradOffsets grad_ws;
-  size_t th, u, g;                                              // float regions
-  size_t pdot, pnorm, logp_cur, logp_prop, dk, sum_de2, bytes;  // double regions
+  size_t th, u, g;                                                     // float regions
+  size_t dots, pv, logp_cur, logp_prop, dk, sum_de2, draw_ctr, bytes;  // double and int regions
 };
 
 Layout make_layout(int n, int in_dim, int hidden, int chains) {
@@ -67,145 +104,261 @@ Layout make_layout(int n, int in_dim, int hidden, int chains) {
   L.u = a.take(C * L.s.dp, 4);
   L.g = a.take(C * L.s.dp, 4);
   L.grad_ws = take_grad_scratch(a, L.s);
-  L.pdot = a.take(C * L.s.ew_blocks * 2, 8);
-  L.pnorm = a.take(C * L.s.ew_blocks * 2, 8);
+  L.dots = a.take(C * 3, 8);
+  L.pv = a.take(C * L.s.ew_blocks * 2, 8);
   L.logp_cur = a.take(C, 8);
   L.logp_prop = a.take(C, 8);
   L.dk = a.take(C, 8);
   L.sum_de2 = a.take(C, 8);
+  L.draw_ctr = a.take(1, 4);
   L.bytes = a.off;
   return L;
 }
 
-// sum over a chain's ew_blocks partials (component comp of 2), fixed order
-__device__ __forceinline__ double chain_sum(const double* part, int c, int ew_blocks, int comp) {
-  double s = 0.0;
-  for (int b = 0; b < ew_blocks; ++b) s += part[((long long)c * ew_blocks + b) * 2 + comp];
-  return s;
-}
+// A rotation's float32 coefficients: w = ce g + s (scale u), u_new = inv w.
+struct Rotation {
+  float ce, s, inv, scale;
+};
 
-// part[c][block] = (sum a^2, sum a.b) over the packed slots of chain
-// blockIdx.y (padding slots are zero)
-__global__ void __launch_bounds__(EW) dots_kernel(const float* __restrict__ a,
-                                                  const float* __restrict__ b,
-                                                  double* __restrict__ part, long long dp) {
-  const int c = blockIdx.y;
-  const float* ac = a + c * dp;
-  const float* bc = b + c * dp;
-  double aa = 0.0, ab = 0.0;
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < dp;
-       k += (long long)gridDim.x * blockDim.x) {
-    const double av = ac[k];
-    aa += av * av;
-    ab += av * bc[k];
-  }
-  aa = block_sum(aa);
-  ab = block_sum(ab);
-  if (threadIdx.x == 0) {
-    const long long at = ((long long)c * gridDim.x + blockIdx.x) * 2;
-    part[at] = aa;
-    part[at + 1] = ab;
-  }
-}
-
-// One isokinetic rotation toward g (see the top of the file) over every
-// packed slot (padding stays zero); pdot holds the partials of |g|^2 and
-// u.g, pnorm receives those of |w|^2; d is the logical dimension.
-__global__ void __launch_bounds__(EW) rotate_kernel(
-    const float* __restrict__ g, float* __restrict__ u, const double* __restrict__ pdot,
-    double* __restrict__ pnorm, double* __restrict__ dk, double* __restrict__ logp_cur,
-    const double* __restrict__ logp_prop, double* __restrict__ sum_de2, long long d,
-    long long dp, double coef, int finish) {
-  __shared__ float coefs[2];
-  const int c = blockIdx.y;
-  if (threadIdx.x == 0) {
-    const double dims = (double)d;
-    const double gn = sqrt(chain_sum(pdot, c, gridDim.x, 0));
-    const double inv_g = 1.0 / fmax(gn, 1e-30);
-    const double delta = coef * gn / (dims - 1.0);
-    const double ue = fmin(fmax(chain_sum(pdot, c, gridDim.x, 1) * inv_g, -1.0), 1.0);
-    const double zeta = exp(-delta);
-    coefs[0] = (float)((1.0 - zeta) * (1.0 + zeta + ue * (1.0 - zeta)) * inv_g);
-    coefs[1] = (float)(2.0 * zeta);
-    if (blockIdx.x == 0) {
-      const double dkc = (dims - 1.0) * (delta - 0.6931471805599453 +
-                                        log(fmax(1.0 + ue + (1.0 - ue) * zeta * zeta, 1e-12)));
-      double acc = dk[c] + dkc;
-      if (finish) {
-        const double de = acc + (logp_cur[c] - logp_prop[c]);
-        sum_de2[c] += de * de;
-        logp_cur[c] = logp_prop[c];
-        acc = 0.0;
-      }
-      dk[c] = acc;
+// The scalars of one rotation of chain c by coef (see the top of the file)
+// into *r, computed by the block's first warp, and, in block 0, its dk added
+// to dk[c]; with finish, block 0 also closes the draw.  The caller syncs.
+__device__ void rotation(Rotation* r, int c, int src, const double* __restrict__ dots,
+                         const double* __restrict__ pv, double* __restrict__ dk,
+                         double* __restrict__ logp_cur, const double* __restrict__ logp_prop,
+                         double* __restrict__ sum_de2, double dims, double coef, int finish) {
+  if (threadIdx.x >= 32) return;
+  double vv = 0.0, vg = 0.0;
+  if (src == kRefreshed) {  // the refresh's partials, in a fixed order
+    for (int b = threadIdx.x; b < gridDim.x; b += 32) {
+      vv += pv[((long long)c * gridDim.x + b) * 2];
+      vg += pv[((long long)c * gridDim.x + b) * 2 + 1];
     }
+    vv = warp_sum(vv);
+    vg = warp_sum(vg);
   }
-  __syncthreads();
-  const float ce = coefs[0], s = coefs[1];
-  const float* gc = g + c * dp;
-  float* uc = u + c * dp;
-  double nn = 0.0;
-  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < dp;
-       k += (long long)gridDim.x * blockDim.x) {
-    const float w = fmaf(ce, gc[k], s * uc[k]);
-    uc[k] = w;
-    nn += (double)w * w;
+  if (threadIdx.x != 0) return;
+  const double gg = dots[3 * c];
+  double ug = dots[3 * c + 1], uu = dots[3 * c + 2];
+  float scale = 1.0f;
+  if (src != kUnit) {  // u = v / |v|, as the pass reads it
+    if (src == kGiven) {
+      vv = uu;
+      vg = ug;
+    }
+    scale = (float)(1.0 / sqrt(vv));
+    ug = vg * scale;
+    uu = vv * scale * scale;
   }
-  nn = block_sum(nn);
-  if (threadIdx.x == 0) pnorm[((long long)c * gridDim.x + blockIdx.x) * 2] = nn;
+  const double gn = sqrt(gg);
+  const double inv_g = 1.0 / fmax(gn, 1e-30);
+  const double delta = coef * gn / (dims - 1.0);
+  const double ue = fmin(fmax(ug * inv_g, -1.0), 1.0);
+  const double zeta = exp(-delta);
+  const float ce = (float)((1.0 - zeta) * (1.0 + zeta + ue * (1.0 - zeta)) * inv_g);
+  const float s = (float)(2.0 * zeta);
+  const double ww = (double)ce * ce * gg + 2.0 * (double)ce * s * ug + (double)s * s * uu;
+  *r = Rotation{ce, s, (float)(1.0 / sqrt(ww)), scale};
+  if (blockIdx.x == 0) {
+    const double dkc = (dims - 1.0) * (delta - 0.6931471805599453 +
+                                      log(fmax(1.0 + ue + (1.0 - ue) * zeta * zeta, 1e-12)));
+    double acc = dk[c] + dkc;
+    if (finish) {
+      const double de = acc + (logp_cur[c] - logp_prop[c]);
+      sum_de2[c] += de * de;
+      logp_cur[c] = logp_prop[c];
+      acc = 0.0;
+    }
+    dk[c] = acc;
+  }
 }
 
-// u <- u / |u| (|u|^2 from the partials in pnorm); then with th the drift
-// th += h u, or with part_out the refresh u += nu z (z from Philox, or the
-// given normals, both keyed on the logical element) and partial sums of
-// |u|^2 into part_out.  Padding slots are not touched.
-__global__ void __launch_bounds__(EW) scale_kernel(
-    float* __restrict__ u, float* __restrict__ th, const double* __restrict__ pnorm,
-    double* __restrict__ part_out, const BnnDims s, float h, float nu, int draw, uint2 key,
-    const float* __restrict__ normals) {
-  __shared__ float inv_s;
-  const int c = blockIdx.y;
-  if (threadIdx.x == 0) inv_s = (float)(1.0 / sqrt(chain_sum(pnorm, c, gridDim.x, 0)));
+// Rotation 1 or 2 with the drift that follows it, over every packed slot of
+// the chain (padding slots hold zeros in g, u and th and keep them):
+// u <- inv (ce g + s scale u), th += h u.  With draw_ctr (kGraph) block 0
+// also counts the draw.
+__global__ void __launch_bounds__(EW) rotate_drift_kernel(
+    const float* __restrict__ g, float* __restrict__ u, float* __restrict__ th,
+    const double* __restrict__ dots, const double* __restrict__ pv, double* __restrict__ dk,
+    int src, double dims, long long dp, double coef, float h, int* __restrict__ draw_ctr,
+    int reverse) {
+  grid_dependency_wait();
+  __shared__ Rotation rot;
+  const int c = reverse ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  rotation(&rot, c, src, dots, pv, dk, nullptr, nullptr, nullptr, dims, coef, 0);
+  if (draw_ctr && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) ++*draw_ctr;
   __syncthreads();
-  const float inv = inv_s;
+  const Rotation r = rot;
+  const float4* g4 = reinterpret_cast<const float4*>(g + c * dp);
+  float4* u4 = reinterpret_cast<float4*>(u + c * dp);
+  float4* t4 = reinterpret_cast<float4*>(th + c * dp);
+  auto turn = [&](float gv, float uv, float& tv) {
+    const float un = r.inv * fmaf(r.ce, gv, r.s * (uv * r.scale));
+    tv = fmaf(h, un, tv);
+    return un;
+  };
+  for (long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x; k < dp / 4;
+       k += (long long)gridDim.x * blockDim.x) {
+    const float4 gv = g4[k];
+    float4 uv = u4[k], tv = t4[k];
+    uv.x = turn(gv.x, uv.x, tv.x);
+    uv.y = turn(gv.y, uv.y, tv.y);
+    uv.z = turn(gv.z, uv.z, tv.z);
+    uv.w = turn(gv.w, uv.w, tv.w);
+    u4[k] = uv;
+    t4[k] = tv;
+  }
+}
+
+// Rotation 3 and the refresh, closing the draw: v = inv (ce g + s u) + nu z
+// (z from Philox, or the given normals, both keyed on the logical element;
+// the draw index from *draw_ctr where that is given) into u, and per-block
+// partial sums of |v|^2 and v.g into pv.  Padding slots are not touched.
+__global__ void __launch_bounds__(EW) rotate_refresh_kernel(
+    const float* __restrict__ g, float* __restrict__ u, const double* __restrict__ dots,
+    double* __restrict__ pv, double* __restrict__ dk, double* __restrict__ logp_cur,
+    const double* __restrict__ logp_prop, double* __restrict__ sum_de2, const BnnDims s,
+    double coef, float nu, int draw, const int* __restrict__ draw_ctr, uint2 key,
+    const float* __restrict__ normals, int reverse) {
+  grid_dependency_wait();
+  __shared__ Rotation rot;
+  const int c = reverse ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  rotation(&rot, c, kUnit, dots, nullptr, dk, logp_cur, logp_prop, sum_de2, (double)s.d, coef, 1);
+  if (draw_ctr) draw = *draw_ctr;
+  __syncthreads();
+  const Rotation r = rot;
+  const float* gc = g + c * s.dp;
   float* uc = u + c * s.dp;
-  float* thc = th ? th + c * s.dp : nullptr;
   const float* z_in = normals ? normals + ((long long)draw * s.chains + c) * s.d : nullptr;
-  double nn = 0.0;
-  const long long pairs = (s.d + 1) / 2;
-  for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x; q < pairs;
-       q += (long long)gridDim.x * blockDim.x) {
+  double vv = 0.0, vg = 0.0;
+  const unsigned pairs = (unsigned)((s.d + 1) / 2);  // d < 2^31 (mclmc_run checks)
+  for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < pairs; q += gridDim.x * blockDim.x) {
     const Pair pr = pair_at(q, s);
-    float z[2] = {0.f, 0.f};
-    if (part_out) {
-      if (z_in) {
-        z[0] = z_in[pr.k0];
-        z[1] = (pr.m1 >= 0) ? z_in[pr.k0 + 1] : 0.0f;
-      } else {
-        const float2 r = box_muller(
-            philox(make_uint4((uint32_t)(pr.k0 / 2), (uint32_t)draw, (uint32_t)c, 2u), key));
-        z[0] = r.x;
-        z[1] = r.y;
-      }
+    const bool two = pr.m1 >= 0;
+    // the loads first, so that they are in flight while Philox runs
+    const float g2[2] = {gc[pr.m0], two ? gc[pr.m1] : 0.f};
+    const float u2[2] = {uc[pr.m0], two ? uc[pr.m1] : 0.f};
+    float z[2];
+    if (z_in) {
+      z[0] = z_in[pr.k0];
+      z[1] = two ? z_in[pr.k0 + 1] : 0.0f;
+    } else {
+      const float2 rz = box_muller(
+          philox(make_uint4((uint32_t)(pr.k0 / 2), (uint32_t)draw, (uint32_t)c, 2u), key));
+      z[0] = rz.x;
+      z[1] = rz.y;
     }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const long long k = e ? pr.m1 : pr.m0;
-      if (k >= 0) {
-        float v = uc[k] * inv;
-        if (thc) thc[k] = fmaf(h, v, thc[k]);
-        if (part_out) {
-          v = fmaf(nu, z[e], v);
-          nn += (double)v * v;
-        }
-        uc[k] = v;
+      if (e == 0 || two) {
+        const float v = fmaf(nu, z[e], r.inv * fmaf(r.ce, g2[e], r.s * u2[e]));
+        uc[e ? pr.m1 : pr.m0] = v;
+        vv += (double)v * v;
+        vg += (double)v * g2[e];
       }
     }
   }
-  if (part_out) {
-    nn = block_sum(nn);
-    if (threadIdx.x == 0) part_out[((long long)c * gridDim.x + blockIdx.x) * 2] = nn;
+  vv = block_sum(vv);
+  vg = block_sum(vg);
+  if (threadIdx.x == 0) {
+    pv[((long long)c * gridDim.x + blockIdx.x) * 2] = vv;
+    pv[((long long)c * gridDim.x + blockIdx.x) * 2 + 1] = vg;
   }
+}
+
+// bnn_mclmc_run with the given options (a sum of Option values).
+int mclmc_run(const float* x, const float* y, const float* w1, const float* b1, const float* w2,
+              const float* b2, const float* u_in, float* w1_out, float* b1_out, float* w2_out,
+              float* b2_out, float* var_e_out, void* workspace, int n, int in_dim, int hidden,
+              int chains, int num_samples, float step_size, float nu, float tau,
+              unsigned long long seed, const float* normals, void* stream_ptr, int options) {
+  if (hidden % BN != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535 ||
+      (long long)in_dim * hidden + 2LL * hidden + 1 >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const Layout L = make_layout(n, in_dim, hidden, chains);
+  const BnnDims& S = L.s;
+  char* ws = (char*)workspace;
+  float* th = (float*)(ws + L.th);
+  float* u = (float*)(ws + L.u);
+  float* g = (float*)(ws + L.g);
+  const GradScratch scratch = grad_scratch(ws, L.grad_ws);
+  GradMaps maps;
+  double* dots = (double*)(ws + L.dots);
+  double* pv = (double*)(ws + L.pv);
+  double* logp_cur = (double*)(ws + L.logp_cur);
+  double* logp_prop = (double*)(ws + L.logp_prop);
+  double* dk = (double*)(ws + L.dk);
+  double* sum_de2 = (double*)(ws + L.sum_de2);
+  int* draw_ctr = (int*)(ws + L.draw_ctr);
+  const uint2 key = seed_key(seed);
+  const dim3 ew_grid(S.ew_blocks, chains);
+  const float half = 0.5f * step_size;
+  const bool dep = options & kDependent;
+  const int rev = (options & kReverse) ? 1 : 0;
+  const double dims = (double)S.d;
+  int err;
+
+  auto gradient = [&](cudaStream_t st) -> int {
+    return launch_gradient_dots(S, maps, y, th, g, u, scratch, logp_prop, dots, tau, dep, st);
+  };
+  // V(coef) then X(eps/2)
+  auto rotate_drift = [&](cudaStream_t st, int src, double coef, int* ctr) -> int {
+    return launch_ex(rotate_drift_kernel, ew_grid, EW, 0, st, dep, g, u, th, dots, pv, dk, src,
+                     dims, S.dp, coef, half, ctr, rev);
+  };
+  // one draw; with ctr (a graph) the draw index is read from *ctr
+  auto one_draw = [&](cudaStream_t st, int draw, int src, int* ctr) -> int {
+    if ((err = rotate_drift(st, src, B1 * step_size, ctr)) != 0) return err;
+    if ((err = gradient(st)) != 0) return err;
+    if ((err = rotate_drift(st, kUnit, (1.0 - 2.0 * B1) * step_size, nullptr)) != 0) return err;
+    if ((err = gradient(st)) != 0) return err;
+    return launch_ex(rotate_refresh_kernel, ew_grid, EW, 0, st, dep, g, u, dots, pv, dk, logp_cur,
+                     logp_prop, sum_de2, S, B1 * step_size, nu, draw, (const int*)ctr, key,
+                     normals, rev);
+  };
+
+  // zeros everywhere first: the padding slots of the packed state stay zero
+  if ((err = (int)cudaMemsetAsync(ws, 0, L.bytes, stream)) != 0) return err;
+  pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, th, nullptr, S);
+  LAUNCH_CHECK();
+  pack_flat_kernel<<<ew_grid, EW, 0, stream>>>(u_in, u, S);
+  LAUNCH_CHECK();
+  if ((err = prepare_gradient(S, x, th, scratch, &maps, stream)) != 0) return err;
+  // gradient, logp and the dots of the given u at the initial point
+  if ((err = gradient(stream)) != 0) return err;
+  if ((err = (int)cudaMemcpyAsync(logp_cur, logp_prop, sizeof(double) * chains,
+                                  cudaMemcpyDeviceToDevice, stream)) != 0)
+    return err;
+
+  if ((err = one_draw(stream, 0, kGiven, nullptr)) != 0) return err;
+  if ((options & kGraph) && num_samples > 1) {
+    cudaStream_t cs;
+    cudaGraph_t graph = nullptr;
+    cudaGraphExec_t exec = nullptr;
+    if ((err = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking)) != 0) return err;
+    err = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
+    if (err == 0) {
+      err = one_draw(cs, 0, kRefreshed, draw_ctr);
+      const int end = (int)cudaStreamEndCapture(cs, &graph);
+      if (err == 0) err = end;
+    }
+    if (err == 0) err = (int)cudaGraphInstantiate(&exec, graph, 0);
+    for (int draw = 1; err == 0 && draw < num_samples; ++draw)
+      err = (int)cudaGraphLaunch(exec, stream);
+    if (exec) cudaGraphExecDestroy(exec);  // freed once its launches are done
+    if (graph) cudaGraphDestroy(graph);
+    cudaStreamDestroy(cs);
+    if (err != 0) return err;
+  } else {
+    for (int draw = 1; draw < num_samples; ++draw)
+      if ((err = one_draw(stream, draw, kRefreshed, nullptr)) != 0) return err;
+  }
+
+  unpack_kernel<<<ew_grid, EW, 0, stream>>>(th, sum_de2, (double)num_samples * (double)S.d, w1_out,
+                                            b1_out, w2_out, b2_out, var_e_out, S);
+  LAUNCH_CHECK();
+  return 0;
 }
 
 }  // namespace
@@ -224,93 +377,18 @@ const char* bnn_mclmc_error_string(int err) { return cudaGetErrorString((cudaErr
 // nu = sqrt(expm1(2 eps / L) / D) comes from the caller.  All pointers are
 // device pointers (stream is a cudaStream_t); hidden must be a multiple of
 // 128 and chains at most 65535 (a grid dimension), and the caller checks
-// num_samples >= 1; normals (S, C, D) may be null.  N and I are free.  Launches on the stream
-// without synchronising and returns the first launch error as a
-// cudaError_t (0 on success).
+// num_samples >= 1; normals (S, C, D) may be null.  N and I are free (D below
+// 2^31).  Launches on the stream without synchronising and returns the first
+// launch error as a cudaError_t (0 on success).
 int bnn_mclmc_run(const float* x, const float* y, const float* w1, const float* b1,
                   const float* w2, const float* b2, const float* u_in, float* w1_out,
                   float* b1_out, float* w2_out, float* b2_out, float* var_e_out,
                   void* workspace, int n, int in_dim, int hidden, int chains, int num_samples,
                   float step_size, float nu, float tau, unsigned long long seed,
                   const float* normals, void* stream_ptr) {
-  if (hidden % BN != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const Layout L = make_layout(n, in_dim, hidden, chains);
-  const BnnDims& S = L.s;
-  char* ws = (char*)workspace;
-  float* th = (float*)(ws + L.th);
-  float* u = (float*)(ws + L.u);
-  float* g = (float*)(ws + L.g);
-  const GradScratch scratch = grad_scratch(ws, L.grad_ws);
-  GradMaps maps;
-  double* pdot = (double*)(ws + L.pdot);
-  double* pnorm = (double*)(ws + L.pnorm);
-  double* logp_cur = (double*)(ws + L.logp_cur);
-  double* logp_prop = (double*)(ws + L.logp_prop);
-  double* dk = (double*)(ws + L.dk);
-  double* sum_de2 = (double*)(ws + L.sum_de2);
-  const uint2 key = seed_key(seed);
-  const dim3 ew_grid(S.ew_blocks, chains);
-  const float half = 0.5f * step_size;
-  int err;
-
-  auto gradient = [&]() -> int {
-    return launch_gradient(S, maps, y, th, g, nullptr, scratch, logp_prop, nullptr, tau, 0.f,
-                           0.f, 0, stream);
-  };
-  // V(coef) and, unless last, the drift X(eps/2) that follows it
-  auto rotate = [&](double coef, int last) -> int {
-    dots_kernel<<<ew_grid, EW, 0, stream>>>(g, u, pdot, S.dp);
-    LAUNCH_CHECK();
-    rotate_kernel<<<ew_grid, EW, 0, stream>>>(g, u, pdot, pnorm, dk, logp_cur, logp_prop, sum_de2,
-                                              S.d, S.dp, coef, last);
-    LAUNCH_CHECK();
-    if (!last) {
-      scale_kernel<<<ew_grid, EW, 0, stream>>>(u, th, pnorm, nullptr, S, half, 0.f, 0, key,
-                                               nullptr);
-      LAUNCH_CHECK();
-    }
-    return 0;
-  };
-
-  // zeros everywhere first: the padding slots of the packed state stay zero
-  if ((err = (int)cudaMemsetAsync(ws, 0, L.bytes, stream)) != 0) return err;
-  pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, th, nullptr, S);
-  LAUNCH_CHECK();
-  pack_flat_kernel<<<ew_grid, EW, 0, stream>>>(u_in, u, S);
-  LAUNCH_CHECK();
-  if ((err = prepare_gradient(S, x, th, scratch, &maps, stream)) != 0) return err;
-  // u <- unit(u); gradient and logp at the initial point
-  dots_kernel<<<ew_grid, EW, 0, stream>>>(u, u, pnorm, S.dp);
-  LAUNCH_CHECK();
-  scale_kernel<<<ew_grid, EW, 0, stream>>>(u, nullptr, pnorm, nullptr, S, 0.f, 0.f, 0, key,
-                                           nullptr);
-  LAUNCH_CHECK();
-  if ((err = gradient()) != 0) return err;
-  if ((err = (int)cudaMemcpyAsync(logp_cur, logp_prop, sizeof(double) * chains,
-                                  cudaMemcpyDeviceToDevice, stream)) != 0)
-    return err;
-
-  for (int draw = 0; draw < num_samples; ++draw) {
-    if ((err = rotate(B1 * step_size, 0)) != 0) return err;
-    if ((err = gradient()) != 0) return err;
-    if ((err = rotate((1.0 - 2.0 * B1) * step_size, 0)) != 0) return err;
-    if ((err = gradient()) != 0) return err;
-    if ((err = rotate(B1 * step_size, 1)) != 0) return err;
-    // refresh: u <- unit(unit(w) + nu z)
-    scale_kernel<<<ew_grid, EW, 0, stream>>>(u, nullptr, pnorm, pdot, S, 0.f, nu, draw, key,
-                                             normals);
-    LAUNCH_CHECK();
-    scale_kernel<<<ew_grid, EW, 0, stream>>>(u, nullptr, pdot, nullptr, S, 0.f, 0.f, draw, key,
-                                             nullptr);
-    LAUNCH_CHECK();
-  }
-
-  unpack_kernel<<<ew_grid, EW, 0, stream>>>(th, sum_de2, (double)num_samples * (double)S.d, w1_out,
-                                            b1_out, w2_out, b2_out, var_e_out, S);
-  LAUNCH_CHECK();
-  return 0;
+  return mclmc_run(x, y, w1, b1, w2, b2, u_in, w1_out, b1_out, w2_out, b2_out, var_e_out,
+                   workspace, n, in_dim, hidden, chains, num_samples, step_size, nu, tau, seed,
+                   normals, stream_ptr, kOptions);
 }
 
 }  // extern "C"

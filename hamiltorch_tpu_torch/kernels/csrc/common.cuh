@@ -3,8 +3,8 @@
 // PRNG, fixed-order float64 reductions over a warp or a block (a fixed
 // order makes every run deterministic), and Hopper's asynchronous machinery
 // as inline PTX: mbarriers, TMA tile loads, cp.async, wgmma and mma.sync on
-// tf32 operands, the split of a float into two tf32 parts, and a barrier
-// over the blocks of a cooperative launch.
+// tf32 operands, the split of a float into two tf32 parts, a barrier over
+// the blocks of a cooperative launch, and programmatic dependent launches.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
@@ -194,6 +194,36 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ---- programmatic dependent launch ----
+
+// Waits until the grid before this one on the stream has finished and its
+// writes are visible.  A kernel that launch_ex may start as a programmatic
+// dependent calls it before it touches device memory; in a kernel launched
+// otherwise it returns at once.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Launches kernel<<<grid, block, smem, stream>>>(args...); with dependent, as
+// a programmatic dependent launch, which the card may start while the grid
+// before it on the stream finishes (the kernel must call
+// grid_dependency_wait first).  Returns the launch's cudaError_t.
+template <typename... Params, typename... Args>
+int launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
+              bool dependent, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // ---- a barrier over every block of a cooperative launch ----

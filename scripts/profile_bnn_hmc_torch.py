@@ -49,7 +49,9 @@ if not hasattr(torch.autograd.profiler_util.FunctionEventAvg(), SELF_DEVICE):
 HMC_RUN = f"{DRAWS} draws x {STEPS} steps x {FLAGSHIP['c']} chains"
 
 
-def profile_path(name: str, fn, what: str = HMC_RUN) -> None:
+def profile_path(name: str, fn, what: str = HMC_RUN):
+    """Profile one call of fn after a warm-up; prints and returns its
+    ``key_averages()``."""
     fn()  # warm up: build, first-call allocations
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -63,6 +65,7 @@ def profile_path(name: str, fn, what: str = HMC_RUN) -> None:
     print(f"== {name}: device time {device_ms:.3f} ms of {wall_ms:.3f} ms wall "
           f"(busy {device_ms / wall_ms:.1%}) for {what}")
     print(events.table(sort_by=SELF_DEVICE, row_limit=12, max_name_column_width=60))
+    return events
 
 
 def main() -> int:
