@@ -42,7 +42,9 @@ the kernels are built for sm_90a).  It
    chain) alone;
 4. times each kernel and its plain version (CUDA events, median of 3, in
    turns), the GEMM pair of one flagship gradient beside cuBLAS's pair
-   (``torch.matmul``) on the same shapes, and the cuBLAS GEMMs of the
+   (``torch.matmul``) on the same shapes, that gradient's forward, backward
+   and per-chain kernels (device time a launch and CUDA launches a
+   gradient, ``torch.profiler``), and the cuBLAS GEMMs of the
    products each kernel computes in its body, and computes each kernel's
    bound: the larger of its FLOPs at the float32 FMA peak and its bytes at
    the memory rate, and for the BNN kernels, whose products run on the
@@ -680,7 +682,7 @@ def bnn_gemm_ms(torch, device):
     over 64 chains.  Kernel: ``_bnn_gradient`` (forward and backward GEMM
     with their epilogues and the per-chain reduction), (21 evaluations - 1)
     / 20 in one call each.  cuBLAS: one forward GEMM x W1 and one backward
-    GEMM x^T da, 20 pairs.  Medians of 3, in turns."""
+    GEMM x^T da (the same products), 20 pairs.  Medians of 3, in turns."""
     from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient
 
     x, y, w1, *rest = bnn_inputs(torch, **FLAGSHIP, seed=7, device=device)
@@ -697,6 +699,37 @@ def bnn_gemm_ms(torch, device):
                               "many": lambda s: _bnn_gradient(x, y, theta, repeats=21),
                               "gemm": pairs})
     return (t["many"][0] - t["one"][0]) / 20, t["gemm"][0] / 20
+
+
+def gradient_anatomy(torch, device, card):
+    """Device us a launch of the flagship gradient's forward, backward and
+    per-chain kernels and its CUDA launches a gradient (torch.profiler over
+    10 evaluations in one call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient
+
+    x, y, *parts = bnn_inputs(torch, **FLAGSHIP, seed=7, device=device)
+    theta = flat(torch, parts).contiguous()
+    _bnn_gradient(x, y, theta)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _bnn_gradient(x, y, theta, repeats=10)
+        torch.cuda.synchronize()
+    us, launches = {}, 0
+    for e in prof.key_averages():
+        for kernel in ("forward_kernel", "backward_kernel", "small_kernel"):
+            dev = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            if kernel in e.key and e.count and dev:
+                us[kernel] = dev / e.count
+                launches += e.count
+    if len(us) < 3:
+        print(f"BNN gradient kernels: torch.profiler recorded no device time: not measured [{card}]")
+        return
+    print(f"BNN gradient (flagship, 64 chains), device time a launch: forward "
+          f"{us['forward_kernel']:.1f} us, backward {us['backward_kernel']:.1f} us, per-chain "
+          f"{us['small_kernel']:.1f} us; {launches / 10:g} CUDA launches a gradient "
+          f"(torch.profiler) [{card}]")
 
 
 def compare_bnn_gradient(torch, shape, seed, device):
@@ -3615,10 +3648,11 @@ def main() -> int:
     # 4. kernels alone on Philox, their plain versions and cuBLAS, timed
     pair_ms, gemm_ms = bnn_gemm_ms(torch, device)
     flops = gradient_flops(FLAGSHIP)
-    print(f"flagship GEMM pair (x W1 and x^T da, 64 chains): kernel {pair_ms:.4f} ms per gradient "
+    print(f"flagship GEMM pair (W1^T x^T and da^T x, 64 chains): kernel {pair_ms:.4f} ms per gradient "
           f"(3xTF32 wgmma, with epilogues and the per-chain reduction), cuBLAS float32 "
           f"{gemm_ms:.4f} ms; bounds {bound(flops, 0)[0]:.4f} ms (float32 FMA), "
           f"{tf32_bound_ms(flops):.4f} ms (3xTF32 tensor cores) [{card}]")
+    gradient_anatomy(torch, device, card)
     draws, steps, eps = 10, 50, 2e-4
     times = {
         "bnn_hmc": time_bnn_hmc(torch, device, gemm_ms, draws, steps, eps, card),

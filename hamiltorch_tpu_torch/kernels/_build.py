@@ -79,23 +79,30 @@ def build_all(names) -> dict:
     registers and shared memory) and raises with the log if one fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, outs = {}, set()
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() or out in outs:  # built, or the same sources named twice
             continue
+        outs.add(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
     logs = {}
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_source(name).name}:\n{log}")
-        os.replace(tmp, out)
+    try:
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            logs[name] = log
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {_source(name).name}:\n{log}")
+            os.replace(tmp, out)
+    finally:  # a failed build leaves no compiler running
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return logs
 
 

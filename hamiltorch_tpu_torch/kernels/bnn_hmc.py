@@ -57,28 +57,7 @@ import functools
 import torch
 
 from ..utils.rng import draw_noise
-
-
-def _grads_and_logp(x, y, w1, b1, w2, b2, tau):
-    """Gradients of logp for every chain, and logp in float64."""
-    a = torch.matmul(x, w1) + b1[:, None, :]  # (C, N, H)
-    h = torch.tanh(a)
-    o = torch.sum(h * w2[:, None, :], dim=-1) + b2[:, None]  # (C, N)
-    resid = o - y[:, 0]
-    d = -tau * resid  # dlogp/do
-    g_w2 = torch.sum(h * d[..., None], dim=1) - w2
-    g_b2 = torch.sum(d, dim=1) - b2
-    da = d[..., None] * w2[:, None, :] * (1.0 - h * h)  # (C, N, H)
-    g_w1 = torch.matmul(x.T, da) - w1
-    g_b1 = torch.sum(da, dim=1) - b1
-    ll = -0.5 * tau * torch.sum(resid.double() ** 2, dim=1)
-    prior = -0.5 * _sq_sum((w1, b1, w2, b2))
-    return (g_w1, g_b1, g_w2, g_b2), ll + prior
-
-
-def _sq_sum(parts):
-    """Per-chain sum of squares over (C, ...) tensors, in float64."""
-    return sum(torch.sum(t.double().reshape(t.shape[0], -1) ** 2, dim=1) for t in parts)
+from .bnn_grad import _check, _grads_and_logp, _grids, _sq_sum
 
 
 def bnn_hmc_reference(
@@ -136,19 +115,6 @@ def bnn_hmc_reference(
     return (*theta, acc / num_samples)
 
 
-def _check(name, t, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x is on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 @functools.lru_cache(maxsize=None)
 def _library():
     from ._build import load
@@ -162,7 +128,7 @@ def _library():
         [ctypes.c_void_p] * 12
         + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong]
-        + [ctypes.c_void_p] * 3
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     lib.bnn_hmc_run.restype = ctypes.c_int
     return lib
@@ -228,7 +194,7 @@ def bnn_hmc(
             float(step_size), float(tau), int(seed) & (2**64 - 1),
             None if momenta is None else momenta.data_ptr(),
             None if uniforms is None else uniforms.data_ptr(),
-            stream,
+            *_grids(n, i_dim, h, c, device), stream,
         )
     if err != 0:
         msg = lib.bnn_hmc_error_string(err).decode()

@@ -54,7 +54,7 @@ import math
 import torch
 
 from ..utils.rng import draw_normals
-from .bnn_hmc import _check, _grads_and_logp
+from .bnn_grad import _check, _grads_and_logp, _grids
 
 _B1 = 0.1931833275037836  # minimal-norm (McLachlan) velocity coefficient
 
@@ -150,7 +150,7 @@ def _library():
         + [ctypes.c_int] * 5
         + [ctypes.c_float] * 3
         + [ctypes.c_ulonglong]
-        + [ctypes.c_void_p] * 2
+        + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     lib.bnn_mclmc_run.restype = ctypes.c_int
     return lib
@@ -219,7 +219,7 @@ def bnn_mclmc(
             float(step_size), _refresh_weight(step_size, length, dim), float(tau),
             int(seed) & (2**64 - 1),
             None if _noise is None else _noise.data_ptr(),
-            stream,
+            *_grids(n, i_dim, h, c, device), stream,
         )
     if err != 0:
         msg = lib.bnn_mclmc_error_string(err).decode()

@@ -1,7 +1,8 @@
 // One gradient evaluation of the one-hidden-layer tanh regression BNN for
 // every chain, written by hand for Hopper (sm_90a): the GEMM pair of
-// bnn_grad.cuh (forward x W1 and backward x^T da as TMA-fed wgmma tiles in
-// 3xTF32) and its per-chain reduction, alone, behind a plain C interface.
+// bnn_grad.cuh (forward W1^T x^T and backward da^T x as persistent,
+// warp-specialised wgmma tiles in 3xTF32) and its per-chain reduction,
+// alone, behind a plain C interface.
 //
 // It is not a sampler and replaces no TPU kernel: it is the gradient that
 // bnn_hmc.cu and bnn_mclmc.cu evaluate at every step (the Pallas kernels'
@@ -48,18 +49,21 @@ const char* bnn_grad_error_string(int err) { return cudaGetErrorString((cudaErro
 // b1, w2, b2) and logp in float64 (logp_out, (C,)) at theta (C, D, the same
 // layout) for every chain.  The gradient is evaluated `repeats` times at the
 // same theta (each evaluation gives the same result; more than one serves
-// timing).  All pointers are device pointers (stream is a cudaStream_t);
-// hidden must be a multiple of 128, chains at most 65535 and repeats at
-// least 1.  Launches on the stream without synchronising and returns the
-// first launch error as a cudaError_t (0 on success).
+// timing).  fwd_grid and bwd_grid are the GEMMs' blocks, from the plan
+// (kernels/bnn_grad.py::_plan).  All pointers are device pointers (stream
+// is a cudaStream_t); hidden must be a multiple of 128, chains at most
+// 65535 and repeats at least 1.  Launches on the stream without
+// synchronising and returns the first launch error as a cudaError_t (0 on
+// success).
 int bnn_grad_run(const float* x, const float* y, const float* theta, float* grad_out,
                  double* logp_out, void* workspace, int n, int in_dim, int hidden, int chains,
-                 int repeats, float tau, void* stream_ptr) {
-  if (hidden % BN != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535 || repeats < 1)
+                 int repeats, float tau, int fwd_grid, int bwd_grid, void* stream_ptr) {
+  if (hidden % HC != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535 || repeats < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Layout L = make_layout(n, in_dim, hidden, chains);
-  const BnnDims& S = L.s;
+  BnnDims S = L.s;
+  if (!set_grids(S, fwd_grid, bwd_grid)) return (int)cudaErrorInvalidValue;
   char* ws = (char*)workspace;
   float* th = (float*)(ws + L.th);
   float* g = (float*)(ws + L.g);

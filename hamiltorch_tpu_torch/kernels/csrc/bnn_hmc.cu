@@ -26,9 +26,11 @@
 // see bnn_grad.cuh) lives in device memory, x is split into tf32 parts and
 // staged once per run, and the host loops over draws and steps, launching
 // on the caller's stream three kernels per leapfrog step (launch_gradient,
-// bnn_grad.cuh: the forward and backward GEMMs as TMA-fed wgmma tiles in
-// 3xTF32, the backward fusing the kick and the next drift, and a per-chain
-// kernel for the small parameters and the energies) plus, per draw,
+// bnn_grad.cuh: the forward and backward GEMMs as persistent,
+// warp-specialised wgmma tiles in 3xTF32, the backward's epilogue fusing
+// the kick and the next drift while the block's other consumer warpgroup
+// multiplies, and a per-chain kernel for the small parameters and the
+// energies) plus, per draw,
 //   init_draw_kernel Philox + Box-Muller momenta (or given ones), kinetic
 //                    energy, the half kick and the first drift;
 //   mh_kernel / select_kernel  the Metropolis test and the state copy.
@@ -165,7 +167,9 @@ const char* bnn_hmc_error_string(int err) { return cudaGetErrorString((cudaError
 // All pointers are device pointers (stream is a cudaStream_t); hidden must
 // be a multiple of 128 and chains at most 65535 (a grid dimension), and the
 // caller checks num_samples, num_steps >= 1; momenta (S, C, D) and uniforms
-// (S, C) may be null.  N and I are free (TMA zero-fills ragged tiles).
+// (S, C) may be null; fwd_grid and bwd_grid are the GEMMs' blocks, from the
+// plan (kernels/bnn_grad.py::_plan).  N and I are free (TMA zero-fills
+// ragged tiles).
 // Launches on the stream without synchronising and returns the first
 // launch error as a cudaError_t (0 on success).
 int bnn_hmc_run(const float* x, const float* y, const float* w1, const float* b1,
@@ -173,12 +177,13 @@ int bnn_hmc_run(const float* x, const float* y, const float* w1, const float* b1
                 float* b2_out, float* acc_out, void* workspace, int n, int in_dim, int hidden,
                 int chains, int num_samples, int num_steps, float step_size, float tau,
                 unsigned long long seed, const float* momenta, const float* uniforms,
-                void* stream_ptr) {
-  if (hidden % BN != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535)
+                int fwd_grid, int bwd_grid, void* stream_ptr) {
+  if (hidden % HC != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Layout L = make_layout(n, in_dim, hidden, chains);
-  const BnnDims& S = L.s;
+  BnnDims S = L.s;
+  if (!set_grids(S, fwd_grid, bwd_grid)) return (int)cudaErrorInvalidValue;
   char* ws = (char*)workspace;
   float* theta = (float*)(ws + L.theta);
   float* grad = (float*)(ws + L.grad);

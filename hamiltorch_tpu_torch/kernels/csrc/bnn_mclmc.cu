@@ -271,13 +271,15 @@ int mclmc_run(const float* x, const float* y, const float* w1, const float* b1, 
               const float* b2, const float* u_in, float* w1_out, float* b1_out, float* w2_out,
               float* b2_out, float* var_e_out, void* workspace, int n, int in_dim, int hidden,
               int chains, int num_samples, float step_size, float nu, float tau,
-              unsigned long long seed, const float* normals, void* stream_ptr, int options) {
-  if (hidden % BN != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535 ||
+              unsigned long long seed, const float* normals, int fwd_grid, int bwd_grid,
+              void* stream_ptr, int options) {
+  if (hidden % HC != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535 ||
       (long long)in_dim * hidden + 2LL * hidden + 1 >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Layout L = make_layout(n, in_dim, hidden, chains);
-  const BnnDims& S = L.s;
+  BnnDims S = L.s;
+  if (!set_grids(S, fwd_grid, bwd_grid)) return (int)cudaErrorInvalidValue;
   char* ws = (char*)workspace;
   float* th = (float*)(ws + L.th);
   float* u = (float*)(ws + L.u);
@@ -377,18 +379,19 @@ const char* bnn_mclmc_error_string(int err) { return cudaGetErrorString((cudaErr
 // nu = sqrt(expm1(2 eps / L) / D) comes from the caller.  All pointers are
 // device pointers (stream is a cudaStream_t); hidden must be a multiple of
 // 128 and chains at most 65535 (a grid dimension), and the caller checks
-// num_samples >= 1; normals (S, C, D) may be null.  N and I are free (D below
-// 2^31).  Launches on the stream without synchronising and returns the first
-// launch error as a cudaError_t (0 on success).
+// num_samples >= 1; normals (S, C, D) may be null; fwd_grid and bwd_grid are
+// the GEMMs' blocks, from the plan (kernels/bnn_grad.py::_plan).  N and I
+// are free (D below 2^31).  Launches on the stream without synchronising and
+// returns the first launch error as a cudaError_t (0 on success).
 int bnn_mclmc_run(const float* x, const float* y, const float* w1, const float* b1,
                   const float* w2, const float* b2, const float* u_in, float* w1_out,
                   float* b1_out, float* w2_out, float* b2_out, float* var_e_out,
                   void* workspace, int n, int in_dim, int hidden, int chains, int num_samples,
                   float step_size, float nu, float tau, unsigned long long seed,
-                  const float* normals, void* stream_ptr) {
+                  const float* normals, int fwd_grid, int bwd_grid, void* stream_ptr) {
   return mclmc_run(x, y, w1, b1, w2, b2, u_in, w1_out, b1_out, w2_out, b2_out, var_e_out,
                    workspace, n, in_dim, hidden, chains, num_samples, step_size, nu, tau, seed,
-                   normals, stream_ptr, kOptions);
+                   normals, fwd_grid, bwd_grid, stream_ptr, kOptions);
 }
 
 }  // extern "C"

@@ -40,7 +40,7 @@ import functools
 import torch
 
 from ..utils.rng import draw_seed
-from .bnn_hmc import _check
+from .bnn_grad import _check
 
 
 def _grad(th, mu, precision):

@@ -60,7 +60,8 @@ def variants_library():
 
     lib = _build.load(VARIANTS)
     run_args = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
-                + [ctypes.c_ulonglong] + [ctypes.c_void_p] * 2)
+                + [ctypes.c_ulonglong] + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                + [ctypes.c_void_p])
     lib.bnn_mclmc_options_run.argtypes = run_args + [ctypes.c_int]
     lib.bnn_mclmc_former_run.argtypes = run_args
     for name in ("bnn_mclmc_workspace_bytes", "bnn_mclmc_former_workspace_bytes"):
@@ -73,6 +74,7 @@ def run_variant(design, seed, x, y, w1, b1, w2, b2, u, num_samples, step_size, l
                 tau=10.0, normals=None):
     """``bnn_mclmc``'s call with the variants library: design "former" or a
     name of OPTIONS.  Returns (w1, b1, w2, b2, var_e)."""
+    from hamiltorch_tpu_torch.kernels.bnn_grad import _grids
     from hamiltorch_tpu_torch.kernels.bnn_mclmc import _refresh_weight
 
     lib = variants_library()
@@ -90,7 +92,7 @@ def run_variant(design, seed, x, y, w1, b1, w2, b2, u, num_samples, step_size, l
             n, i_dim, h, c, num_samples, float(step_size),
             _refresh_weight(step_size, length, dim), float(tau), int(seed) & (2**64 - 1),
             None if normals is None else normals.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream]
+            *_grids(n, i_dim, h, c, x.device), torch.cuda.current_stream(x.device).cuda_stream]
     err = (lib.bnn_mclmc_former_run(*args) if former
            else lib.bnn_mclmc_options_run(*args, OPTIONS[design]))
     if err != 0:

@@ -185,11 +185,11 @@ int bnn_mclmc_options_run(const float* x, const float* y, const float* w1, const
                           float* b1_out, float* w2_out, float* b2_out, float* var_e_out,
                           void* workspace, int n, int in_dim, int hidden, int chains,
                           int num_samples, float step_size, float nu, float tau,
-                          unsigned long long seed, const float* normals, void* stream_ptr,
-                          int options) {
+                          unsigned long long seed, const float* normals, int fwd_grid,
+                          int bwd_grid, void* stream_ptr, int options) {
   return mclmc_run(x, y, w1, b1, w2, b2, u_in, w1_out, b1_out, w2_out, b2_out, var_e_out,
                    workspace, n, in_dim, hidden, chains, num_samples, step_size, nu, tau, seed,
-                   normals, stream_ptr, options);
+                   normals, fwd_grid, bwd_grid, stream_ptr, options);
 }
 
 // Bytes of device workspace bnn_mclmc_former_run needs for these shapes.
@@ -203,12 +203,13 @@ int bnn_mclmc_former_run(const float* x, const float* y, const float* w1, const 
                   float* b1_out, float* w2_out, float* b2_out, float* var_e_out,
                   void* workspace, int n, int in_dim, int hidden, int chains, int num_samples,
                   float step_size, float nu, float tau, unsigned long long seed,
-                  const float* normals, void* stream_ptr) {
-  if (hidden % BN != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535)
+                  const float* normals, int fwd_grid, int bwd_grid, void* stream_ptr) {
+  if (hidden % HC != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const FormerLayout L = make_former_layout(n, in_dim, hidden, chains);
-  const BnnDims& S = L.s;
+  BnnDims S = L.s;
+  if (!set_grids(S, fwd_grid, bwd_grid)) return (int)cudaErrorInvalidValue;
   char* ws = (char*)workspace;
   float* th = (float*)(ws + L.th);
   float* u = (float*)(ws + L.u);

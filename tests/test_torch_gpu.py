@@ -30,7 +30,7 @@ from hamiltorch_tpu_torch.kernels import (
     gaussian_hmc,
     gaussian_hmc_reference,
 )
-from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient, _bnn_gradient_reference
+from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient, _bnn_gradient_reference, _grids
 from hamiltorch_tpu_torch.kernels.gaussian_hmc import _energy, _grad, _plan
 from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
 from hamiltorch_tpu_torch.samplers.driver import MCMCConfig
@@ -53,8 +53,12 @@ def bnn_args(i_dim, h, n, c, seed, device):
     return [torch.as_tensor(a.astype(np.float32)).to(device) for a in arrays]
 
 
+# (I, H, N, C): besides the small, wide and flagship shapes, more chains than
+# SMs at small N (the persistent GEMMs' walks have a tail) and ragged N and I
+# at H = 384
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(50, 128, 100, 3), (784, 256, 200, 2), (784, 128, 1024, 4)])
+@pytest.mark.parametrize("shape", [(50, 128, 100, 3), (784, 256, 200, 2), (784, 128, 1024, 4),
+                                   (784, 128, 100, 133), (785, 384, 1023, 2)])
 def test_bnn_hmc_kernel_matches_plain_version(cuda_device, shape):
     i_dim, h, n, c = shape
     rng = np.random.RandomState(5)
@@ -131,7 +135,7 @@ MCLMC_STEP = {(784, 128, 100, 1): 5.0}
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(50, 128, 100, 3), (784, 128, 1024, 4), (113, 128, 200, 3),
-                                   (784, 128, 100, 1)])
+                                   (784, 128, 100, 1), (50, 128, 1023, 133), (785, 256, 1000, 2)])
 def test_bnn_mclmc_kernel_matches_plain_version(cuda_device, shape):
     i_dim, h, n, c = shape
     d = i_dim * h + 2 * h + 1
@@ -182,8 +186,17 @@ def test_bnn_mclmc_kernel_philox_is_deterministic_and_finite(cuda_device):
     assert all(bool(torch.isfinite(t).all()) for t in a)
 
 
+# (I, H, N, C): the small, wide and flagship shapes; one chain; more tiles
+# than SMs with a tail at small N; ragged N (1000, 1023) and I (50, 785); H =
+# 256 and 384
+GRADIENT_SHAPES = [(50, 128, 100, 3), (784, 256, 200, 2), (784, 128, 1024, 64),
+                   (784, 128, 1024, 1), (784, 128, 100, 133), (784, 128, 100, 200),
+                   (784, 128, 1000, 4), (50, 128, 1023, 3), (785, 128, 200, 5),
+                   (785, 384, 1000, 5), (50, 256, 1023, 2)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(50, 128, 100, 3), (784, 256, 200, 2), (784, 128, 1024, 64)])
+@pytest.mark.parametrize("shape", GRADIENT_SHAPES)
 def test_bnn_gradient_kernel_matches_plain_version(cuda_device, shape):
     i_dim, h, n, c = shape
     x, y, *parts = bnn_args(i_dim, h, n, c, 4, cuda_device)
@@ -195,6 +208,21 @@ def test_bnn_gradient_kernel_matches_plain_version(cuda_device, shape):
     assert _bnn_gradient.launches == before + 1
     assert float((g - want_g).abs().max()) <= 1e-5 * float(want_g.abs().max())
     assert float(((logp - want_logp) / want_logp).abs().max()) <= 1e-6
+    fwd_grid, bwd_grid = _grids(n, i_dim, h, c, cuda_device)
+    sm_count = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert 1 <= fwd_grid <= sm_count and 1 <= bwd_grid <= sm_count
+
+
+# every partial sum lies in a slot fixed by its tile: two calls agree bit for bit
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(784, 128, 1024, 64), (784, 128, 100, 133), (785, 384, 1000, 5)])
+def test_bnn_gradient_kernel_repeats_bit_for_bit(cuda_device, shape):
+    i_dim, h, n, c = shape
+    x, y, *parts = bnn_args(i_dim, h, n, c, 5, cuda_device)
+    theta = torch.cat([t.reshape(c, -1) for t in parts], dim=1).contiguous()
+    g1, logp1 = _bnn_gradient(x, y, theta, tau=10.0)
+    g2, logp2 = _bnn_gradient(x, y, theta, tau=10.0, repeats=3)
+    assert torch.equal(g1, g2) and torch.equal(logp1, logp2)
 
 
 @pytest.mark.gpu
