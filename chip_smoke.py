@@ -43,8 +43,8 @@ the kernels are built for sm_90a).  It
 4. times each kernel and its plain version (CUDA events, median of 3, in
    turns), the GEMM pair of one flagship gradient beside cuBLAS's pair
    (``torch.matmul``) on the same shapes, that gradient's forward, backward
-   and per-chain kernels (device time a launch and CUDA launches a
-   gradient, ``torch.profiler``), and the cuBLAS GEMMs of the
+   and per-chain kernels (device time a launch, ``torch.profiler``), and
+   the cuBLAS GEMMs of the
    products each kernel computes in its body, and computes each kernel's
    bound: the larger of its FLOPs at the float32 FMA peak and its bytes at
    the memory rate, and for the BNN kernels, whose products run on the
@@ -66,9 +66,9 @@ the kernels are built for sm_90a).  It
    ``gaussian_hmc`` at dense P) takes the 3xTF32 time of its operations as
    its ``bound_ms`` where that is below the float32 FMA time
    (``bound_ops_peak`` names the peak taken); for ``bnn_mclmc`` also its
-   CUDA launches a draw (counted by ``torch.profiler``) and a model, from
-   the shapes and not measured, of the bytes its velocity algebra moves a
-   draw in this design and the former;
+   CUDA launches a draw (counted by the recorder, ``utils/profiling.py``)
+   and a model, from the shapes and not measured, of the bytes its velocity
+   algebra moves a draw in this design and the former;
 5. drives the main paths, each with the launch counts set to 0 just before
    it and read just after, and fails if its kernel was not launched:
    - HMC: the fused flagship sampler ``kernels.bnn_hmc`` and
@@ -703,8 +703,7 @@ def bnn_gemm_ms(torch, device):
 
 def gradient_anatomy(torch, device, card):
     """Device us a launch of the flagship gradient's forward, backward and
-    per-chain kernels and its CUDA launches a gradient (torch.profiler over
-    10 evaluations in one call)."""
+    per-chain kernels (torch.profiler over 10 evaluations in one call)."""
     from torch.profiler import ProfilerActivity, profile
 
     from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient
@@ -716,20 +715,18 @@ def gradient_anatomy(torch, device, card):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _bnn_gradient(x, y, theta, repeats=10)
         torch.cuda.synchronize()
-    us, launches = {}, 0
+    us = {}
     for e in prof.key_averages():
         for kernel in ("forward_kernel", "backward_kernel", "small_kernel"):
             dev = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
             if kernel in e.key and e.count and dev:
                 us[kernel] = dev / e.count
-                launches += e.count
     if len(us) < 3:
         print(f"BNN gradient kernels: torch.profiler recorded no device time: not measured [{card}]")
         return
     print(f"BNN gradient (flagship, 64 chains), device time a launch: forward "
           f"{us['forward_kernel']:.1f} us, backward {us['backward_kernel']:.1f} us, per-chain "
-          f"{us['small_kernel']:.1f} us; {launches / 10:g} CUDA launches a gradient "
-          f"(torch.profiler) [{card}]")
+          f"{us['small_kernel']:.1f} us (torch.profiler) [{card}]")
 
 
 def compare_bnn_gradient(torch, shape, seed, device):
@@ -833,20 +830,19 @@ def velocity_bytes(shape, passes):
     return passes * 4 * shape["c"] * packed_floats(shape)
 
 
-def launches_per_draw(torch, fn):
-    """CUDA launches a draw of fn(num_samples), counted by torch.profiler over
-    runs of 4 and 2 draws (the start and the end cancel)."""
-    from torch.profiler import ProfilerActivity, profile
+def launches_per_draw(fn, entry):
+    """Operations a draw of fn(num_samples) queues, as the recorder counts
+    them in the C entry (``<entry>.kernel_launches``), over runs of 4 and 2
+    draws (the start and the end cancel)."""
+    from hamiltorch_tpu_torch.utils import profiling
 
     counts = []
     for draws in (2, 4):
-        fn(draws)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiling.reset()
+        with profiling.recording():
             fn(draws)
-            torch.cuda.synchronize()
-        counts.append(sum(e.count for e in prof.key_averages()
-                          if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA))
+        counts.append(profiling.counters()[f"{entry}.kernel_launches"])
+    profiling.reset()
     return (counts[1] - counts[0]) / 2
 
 
@@ -859,9 +855,10 @@ def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
     kw = dict(num_samples=draws, step_size=eps, length=length, tau=10.0)
     t = time_in_turns(torch, {"kernel": lambda s: bnn_mclmc(s, *args, u, **kw),
                               "plain": lambda s: bnn_mclmc_reference(s, *args, u, **kw)})
-    per_draw = launches_per_draw(torch, lambda k: bnn_mclmc(0, *args, u, **{**kw, "num_samples": k}))
+    per_draw = launches_per_draw(lambda k: bnn_mclmc(0, *args, u, **{**kw, "num_samples": k}),
+                                 "bnn_mclmc")
     this_b, former_b = (velocity_bytes(FLAGSHIP, p) for p in MCLMC_PASSES)
-    print(f"bnn_mclmc: {per_draw:g} CUDA launches a draw (torch.profiler); velocity algebra "
+    print(f"bnn_mclmc: {per_draw:g} CUDA launches a draw (the recorder); velocity algebra "
           f"{this_b / 1e6:.1f} MB a draw modelled from the shapes ({MCLMC_PASSES[0]} passes over "
           f"the state; the former design's {MCLMC_PASSES[1]}: {former_b / 1e6:.1f} MB), not "
           f"measured [{card}]")

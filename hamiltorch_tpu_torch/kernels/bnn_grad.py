@@ -19,6 +19,10 @@ calls it.
 persistent grid has; ``_walk`` is the tile list a block takes from it, and
 in the backward each of its consumer warpgroups takes alternate tiles of
 that list (``csrc/bnn_grad.cuh`` walks the same lists).
+
+``BACKWARD_PHASES`` names the backward kernel's phase counters
+(``csrc/bnn_grad.cuh``'s ``BwdPhase``), which ``bnn_hmc`` and
+``bnn_mclmc`` pass down while the recorder (``utils/profiling.py``) records.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+
+BACKWARD_PHASES = ("products_cycles", "epilogue_cycles")
 
 
 def _grads_and_logp(x, y, w1, b1, w2, b2, tau):

@@ -56,8 +56,9 @@ import functools
 
 import torch
 
+from ..utils import profiling
 from ..utils.rng import draw_noise
-from .bnn_grad import _check, _grads_and_logp, _grids, _sq_sum
+from .bnn_grad import BACKWARD_PHASES, _check, _grads_and_logp, _grids, _sq_sum
 
 
 def bnn_hmc_reference(
@@ -128,7 +129,7 @@ def _library():
         [ctypes.c_void_p] * 12
         + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong]
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     )
     lib.bnn_hmc_run.restype = ctypes.c_int
     return lib
@@ -154,53 +155,64 @@ def bnn_hmc(
     acceptance rates.  On CUDA, H must be a multiple of 128 and C at most
     65535 (the kernel rejects other shapes with cudaErrorInvalidValue, and
     this raises); N and I are free.  ``bnn_hmc.launches`` counts the runs of
-    the CUDA kernel.
+    the CUDA kernel.  While the recorder (``utils/profiling.py``) records, a
+    call is the span ``bnn_hmc`` with the children ``.prepare``,
+    ``.enqueue`` and the C entry's ``.prologue``, and adds to the counters
+    ``bnn_hmc.kernel_launches``, ``.launch_ns`` and ``.prologue_ns`` and to
+    the backward GEMM's ``bnn_backward.<BACKWARD_PHASES>``.
     """
-    device = x.device
-    n, i_dim = x.shape
-    c, _, h = w1.shape
-    for name, t, shape in (
-        ("x", x, (n, i_dim)), ("y", y, (n, 1)), ("w1", w1, (c, i_dim, h)),
-        ("b1", b1, (c, h)), ("w2", w2, (c, h)), ("b2", b2, (c,)),
-    ):
-        _check(name, t, shape, device)
-    if num_samples < 1 or num_steps < 1:
-        raise ValueError("num_samples and num_steps must be >= 1")
-    dim = i_dim * h + 2 * h + 1
-    if _noise is not None:
-        _check("momenta", _noise[0], (num_samples, c, dim), device)
-        _check("uniforms", _noise[1], (num_samples, c), device)
+    with profiling.annotate("bnn_hmc"):
+        device = x.device
+        with profiling.annotate("bnn_hmc.prepare"):
+            n, i_dim = x.shape
+            c, _, h = w1.shape
+            for name, t, shape in (
+                ("x", x, (n, i_dim)), ("y", y, (n, 1)), ("w1", w1, (c, i_dim, h)),
+                ("b1", b1, (c, h)), ("w2", w2, (c, h)), ("b2", b2, (c,)),
+            ):
+                _check(name, t, shape, device)
+            if num_samples < 1 or num_steps < 1:
+                raise ValueError("num_samples and num_steps must be >= 1")
+            dim = i_dim * h + 2 * h + 1
+            if _noise is not None:
+                _check("momenta", _noise[0], (num_samples, c, dim), device)
+                _check("uniforms", _noise[1], (num_samples, c), device)
+            if device.type == "cuda":
+                lib = _library()
+                outs = (torch.empty_like(w1), torch.empty_like(b1), torch.empty_like(w2),
+                        torch.empty_like(b2), torch.empty((c,), dtype=torch.float32,
+                                                          device=device))
+                workspace = torch.empty((lib.bnn_hmc_workspace_bytes(n, i_dim, h, c),),
+                                        dtype=torch.uint8, device=device)
+                grids = _grids(n, i_dim, h, c, device)
+                stats = profiling.launch_stats()
+                phases = profiling.device_counters("bnn_backward", BACKWARD_PHASES, device)
 
-    if device.type == "cpu":
-        return bnn_hmc_reference(seed, x, y, w1, b1, w2, b2, num_samples,
-                                 num_steps, step_size, tau, _noise=_noise)
-    if device.type != "cuda":
-        raise ValueError(f"bnn_hmc runs on CUDA or CPU tensors, not {device}")
+        if device.type == "cpu":
+            return bnn_hmc_reference(seed, x, y, w1, b1, w2, b2, num_samples,
+                                     num_steps, step_size, tau, _noise=_noise)
+        if device.type != "cuda":
+            raise ValueError(f"bnn_hmc runs on CUDA or CPU tensors, not {device}")
 
-    lib = _library()
-    outs = (torch.empty_like(w1), torch.empty_like(b1), torch.empty_like(w2),
-            torch.empty_like(b2), torch.empty((c,), dtype=torch.float32, device=device))
-    workspace = torch.empty(
-        (lib.bnn_hmc_workspace_bytes(n, i_dim, h, c),), dtype=torch.uint8, device=device
-    )
-    momenta, uniforms = (None, None) if _noise is None else _noise
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.bnn_hmc_run(
-            x.data_ptr(), y.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            *(o.data_ptr() for o in outs), workspace.data_ptr(),
-            n, i_dim, h, c, num_samples, num_steps,
-            float(step_size), float(tau), int(seed) & (2**64 - 1),
-            None if momenta is None else momenta.data_ptr(),
-            None if uniforms is None else uniforms.data_ptr(),
-            *_grids(n, i_dim, h, c, device), stream,
-        )
-    if err != 0:
-        msg = lib.bnn_hmc_error_string(err).decode()
-        raise RuntimeError(f"bnn_hmc CUDA kernel failed: cudaError_t {err} ({msg})")
-    bnn_hmc.launches += 1
-    return outs
+        momenta, uniforms = (None, None) if _noise is None else _noise
+        with profiling.annotate("bnn_hmc.enqueue"), torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.bnn_hmc_run(
+                x.data_ptr(), y.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                *(o.data_ptr() for o in outs), workspace.data_ptr(),
+                n, i_dim, h, c, num_samples, num_steps,
+                float(step_size), float(tau), int(seed) & (2**64 - 1),
+                None if momenta is None else momenta.data_ptr(),
+                None if uniforms is None else uniforms.data_ptr(),
+                *grids, stream, stats, None if phases is None else phases.data_ptr(),
+            )
+        if err != 0:
+            msg = lib.bnn_hmc_error_string(err).decode()
+            raise RuntimeError(f"bnn_hmc CUDA kernel failed: cudaError_t {err} ({msg})")
+        profiling.record_launch_stats("bnn_hmc", stats)
+        bnn_hmc.launches += 1
+        return outs
 
 
 bnn_hmc.launches = 0

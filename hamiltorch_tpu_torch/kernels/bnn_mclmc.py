@@ -53,8 +53,9 @@ import math
 
 import torch
 
+from ..utils import profiling
 from ..utils.rng import draw_normals
-from .bnn_grad import _check, _grads_and_logp, _grids
+from .bnn_grad import BACKWARD_PHASES, _check, _grads_and_logp, _grids
 
 _B1 = 0.1931833275037836  # minimal-norm (McLachlan) velocity coefficient
 
@@ -150,7 +151,7 @@ def _library():
         + [ctypes.c_int] * 5
         + [ctypes.c_float] * 3
         + [ctypes.c_ulonglong]
-        + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     )
     lib.bnn_mclmc_run.restype = ctypes.c_int
     return lib
@@ -180,52 +181,62 @@ def bnn_mclmc(
     On CUDA, H must be a multiple of 128 and C at most 65535 (the kernel
     rejects other shapes with cudaErrorInvalidValue, and this raises); N and
     I are free.  ``bnn_mclmc.launches`` counts the runs of the CUDA kernel.
+    While the recorder (``utils/profiling.py``) records, a call is recorded
+    as ``bnn_hmc``'s is, under the name ``bnn_mclmc``, and adds to the same
+    ``bnn_backward`` counters.
     """
-    device = x.device
-    n, i_dim = x.shape
-    c, _, h = w1.shape
-    dim = i_dim * h + 2 * h + 1
-    for name, t, shape in (
-        ("x", x, (n, i_dim)), ("y", y, (n, 1)), ("w1", w1, (c, i_dim, h)),
-        ("b1", b1, (c, h)), ("w2", w2, (c, h)), ("b2", b2, (c,)), ("u", u, (c, dim)),
-    ):
-        _check(name, t, shape, device)
-    if num_samples < 1:
-        raise ValueError("num_samples must be >= 1")
-    if not (step_size > 0 and length > 0):
-        raise ValueError("step_size and length must be positive")
-    if _noise is not None:
-        _check("normals", _noise, (num_samples, c, dim), device)
+    with profiling.annotate("bnn_mclmc"):
+        device = x.device
+        with profiling.annotate("bnn_mclmc.prepare"):
+            n, i_dim = x.shape
+            c, _, h = w1.shape
+            dim = i_dim * h + 2 * h + 1
+            for name, t, shape in (
+                ("x", x, (n, i_dim)), ("y", y, (n, 1)), ("w1", w1, (c, i_dim, h)),
+                ("b1", b1, (c, h)), ("w2", w2, (c, h)), ("b2", b2, (c,)), ("u", u, (c, dim)),
+            ):
+                _check(name, t, shape, device)
+            if num_samples < 1:
+                raise ValueError("num_samples must be >= 1")
+            if not (step_size > 0 and length > 0):
+                raise ValueError("step_size and length must be positive")
+            if _noise is not None:
+                _check("normals", _noise, (num_samples, c, dim), device)
+            if device.type == "cuda":
+                lib = _library()
+                outs = (torch.empty_like(w1), torch.empty_like(b1), torch.empty_like(w2),
+                        torch.empty_like(b2), torch.empty((c,), dtype=torch.float32,
+                                                          device=device))
+                workspace = torch.empty((lib.bnn_mclmc_workspace_bytes(n, i_dim, h, c),),
+                                        dtype=torch.uint8, device=device)
+                grids = _grids(n, i_dim, h, c, device)
+                stats = profiling.launch_stats()
+                phases = profiling.device_counters("bnn_backward", BACKWARD_PHASES, device)
 
-    if device.type == "cpu":
-        return bnn_mclmc_reference(seed, x, y, w1, b1, w2, b2, u, num_samples, step_size,
-                                   length, tau, _noise=_noise)
-    if device.type != "cuda":
-        raise ValueError(f"bnn_mclmc runs on CUDA or CPU tensors, not {device}")
+        if device.type == "cpu":
+            return bnn_mclmc_reference(seed, x, y, w1, b1, w2, b2, u, num_samples, step_size,
+                                       length, tau, _noise=_noise)
+        if device.type != "cuda":
+            raise ValueError(f"bnn_mclmc runs on CUDA or CPU tensors, not {device}")
 
-    lib = _library()
-    outs = (torch.empty_like(w1), torch.empty_like(b1), torch.empty_like(w2),
-            torch.empty_like(b2), torch.empty((c,), dtype=torch.float32, device=device))
-    workspace = torch.empty(
-        (lib.bnn_mclmc_workspace_bytes(n, i_dim, h, c),), dtype=torch.uint8, device=device
-    )
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.bnn_mclmc_run(
-            x.data_ptr(), y.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), u.data_ptr(),
-            *(o.data_ptr() for o in outs), workspace.data_ptr(),
-            n, i_dim, h, c, num_samples,
-            float(step_size), _refresh_weight(step_size, length, dim), float(tau),
-            int(seed) & (2**64 - 1),
-            None if _noise is None else _noise.data_ptr(),
-            *_grids(n, i_dim, h, c, device), stream,
-        )
-    if err != 0:
-        msg = lib.bnn_mclmc_error_string(err).decode()
-        raise RuntimeError(f"bnn_mclmc CUDA kernel failed: cudaError_t {err} ({msg})")
-    bnn_mclmc.launches += 1
-    return outs
+        with profiling.annotate("bnn_mclmc.enqueue"), torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.bnn_mclmc_run(
+                x.data_ptr(), y.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), u.data_ptr(),
+                *(o.data_ptr() for o in outs), workspace.data_ptr(),
+                n, i_dim, h, c, num_samples,
+                float(step_size), _refresh_weight(step_size, length, dim), float(tau),
+                int(seed) & (2**64 - 1),
+                None if _noise is None else _noise.data_ptr(),
+                *grids, stream, stats, None if phases is None else phases.data_ptr(),
+            )
+        if err != 0:
+            msg = lib.bnn_mclmc_error_string(err).decode()
+            raise RuntimeError(f"bnn_mclmc CUDA kernel failed: cudaError_t {err} ({msg})")
+        profiling.record_launch_stats("bnn_mclmc", stats)
+        bnn_mclmc.launches += 1
+        return outs
 
 
 bnn_mclmc.launches = 0

@@ -74,15 +74,13 @@ int bnn_grad_run(const float* x, const float* y, const float* theta, float* grad
   int err;
 
   if ((err = (int)cudaMemsetAsync(ws, 0, L.bytes, stream)) != 0) return err;
-  pack_flat_kernel<<<ew_grid, EW, 0, stream>>>(theta, th, S);
-  LAUNCH_CHECK();
+  LAUNCH(pack_flat_kernel<<<ew_grid, EW, 0, stream>>>(theta, th, S));
   if ((err = prepare_gradient(S, x, th, scratch, &maps, stream)) != 0) return err;
   for (int r = 0; r < repeats; ++r)
     if ((err = launch_gradient(S, maps, y, th, g, nullptr, scratch, logp, nullptr, tau, 0.f, 0.f,
                                0, stream)) != 0)
       return err;
-  unpack_flat_kernel<<<ew_grid, EW, 0, stream>>>(g, grad_out, S);
-  LAUNCH_CHECK();
+  LAUNCH(unpack_flat_kernel<<<ew_grid, EW, 0, stream>>>(g, grad_out, S));
   if ((err = (int)cudaMemcpyAsync(logp_out, logp, sizeof(double) * chains,
                                   cudaMemcpyDeviceToDevice, stream)) != 0)
     return err;

@@ -169,7 +169,9 @@ const char* bnn_hmc_error_string(int err) { return cudaGetErrorString((cudaError
 // caller checks num_samples, num_steps >= 1; momenta (S, C, D) and uniforms
 // (S, C) may be null; fwd_grid and bwd_grid are the GEMMs' blocks, from the
 // plan (kernels/bnn_grad.py::_plan).  N and I are free (TMA zero-fills
-// ragged tiles).
+// ragged tiles).  stats (host, kHostStats long longs) and phases (device,
+// BWD_PHASES long longs) may be null; else the run's launch accounting is
+// written to stats and the backward's phase cycles added into phases.
 // Launches on the stream without synchronising and returns the first
 // launch error as a cudaError_t (0 on success).
 int bnn_hmc_run(const float* x, const float* y, const float* w1, const float* b1,
@@ -177,7 +179,9 @@ int bnn_hmc_run(const float* x, const float* y, const float* w1, const float* b1
                 float* b2_out, float* acc_out, void* workspace, int n, int in_dim, int hidden,
                 int chains, int num_samples, int num_steps, float step_size, float tau,
                 unsigned long long seed, const float* momenta, const float* uniforms,
-                int fwd_grid, int bwd_grid, void* stream_ptr) {
+                int fwd_grid, int bwd_grid, void* stream_ptr, long long* stats,
+                long long* phases) {
+  const HostStatsScope accounted(stats);
   if (hidden % HC != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
@@ -205,32 +209,30 @@ int bnn_hmc_run(const float* x, const float* y, const float* w1, const float* b1
 
   auto gradient = [&](float kappa, int drift) -> int {
     return launch_gradient(S, maps, y, th, gr, p, scratch, logp_prop, kin_prop, tau, kappa,
-                           step_size, drift, stream);
+                           step_size, drift, stream, phases);
   };
   auto metropolis = [&](int draw, int force) -> int {
-    mh_kernel<<<mh_blocks, 128, 0, stream>>>(pk0, S.ew_blocks, logp_cur, logp_prop, kin_prop,
-                                             flag, count, chains, draw, key, uniforms, force);
-    LAUNCH_CHECK();
-    select_kernel<<<ew_grid, EW, 0, stream>>>(theta, grad, th, gr, flag, S.dp);
-    LAUNCH_CHECK();
+    LAUNCH(mh_kernel<<<mh_blocks, 128, 0, stream>>>(pk0, S.ew_blocks, logp_cur, logp_prop,
+                                                    kin_prop, flag, count, chains, draw, key,
+                                                    uniforms, force));
+    LAUNCH(select_kernel<<<ew_grid, EW, 0, stream>>>(theta, grad, th, gr, flag, S.dp));
     return 0;
   };
 
   int err;
+  if ((err = prepare_gradient_maps(S, th, scratch, &maps, phases != nullptr)) != 0) return err;
   // zeros everywhere first: the padding slots of the packed state stay zero
-  if ((err = (int)cudaMemsetAsync(ws, 0, L.bytes, stream)) != 0) return err;
-  pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, theta, th, S);
-  LAUNCH_CHECK();
-  if ((err = prepare_gradient(S, x, th, scratch, &maps, stream)) != 0) return err;
+  if ((err = queued([&] { return cudaMemsetAsync(ws, 0, L.bytes, stream); })) != 0) return err;
+  LAUNCH(pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, theta, th, S));
+  if ((err = stage_x(S, x, scratch, stream)) != 0) return err;
 
   // gradient and logp at the initial point; "accept" it as the current state
   if ((err = gradient(0.0f, 0)) != 0) return err;
   if ((err = metropolis(0, 1)) != 0) return err;
 
   for (int draw = 0; draw < num_samples; ++draw) {
-    init_draw_kernel<<<ew_grid, EW, 0, stream>>>(theta, grad, th, p, pk0, S, draw, step_size, key,
-                                                 momenta);
-    LAUNCH_CHECK();
+    LAUNCH(init_draw_kernel<<<ew_grid, EW, 0, stream>>>(theta, grad, th, p, pk0, S, draw,
+                                                        step_size, key, momenta));
     for (int s = 1; s <= num_steps; ++s) {
       const bool last = (s == num_steps);
       // the last kick is a full one minus the half pulled back
@@ -239,9 +241,8 @@ int bnn_hmc_run(const float* x, const float* y, const float* w1, const float* b1
     if ((err = metropolis(draw, 0)) != 0) return err;
   }
 
-  unpack_kernel<<<ew_grid, EW, 0, stream>>>(theta, count, (double)num_samples, w1_out, b1_out,
-                                            w2_out, b2_out, acc_out, S);
-  LAUNCH_CHECK();
+  LAUNCH(unpack_kernel<<<ew_grid, EW, 0, stream>>>(theta, count, (double)num_samples, w1_out,
+                                                   b1_out, w2_out, b2_out, acc_out, S));
   return 0;
 }
 

@@ -272,7 +272,7 @@ int mclmc_run(const float* x, const float* y, const float* w1, const float* b1, 
               float* b2_out, float* var_e_out, void* workspace, int n, int in_dim, int hidden,
               int chains, int num_samples, float step_size, float nu, float tau,
               unsigned long long seed, const float* normals, int fwd_grid, int bwd_grid,
-              void* stream_ptr, int options) {
+              void* stream_ptr, int options, long long* phases = nullptr) {
   if (hidden % HC != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535 ||
       (long long)in_dim * hidden + 2LL * hidden + 1 >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -302,7 +302,8 @@ int mclmc_run(const float* x, const float* y, const float* w1, const float* b1, 
   int err;
 
   auto gradient = [&](cudaStream_t st) -> int {
-    return launch_gradient_dots(S, maps, y, th, g, u, scratch, logp_prop, dots, tau, dep, st);
+    return launch_gradient_dots(S, maps, y, th, g, u, scratch, logp_prop, dots, tau, dep, st,
+                                phases);
   };
   // V(coef) then X(eps/2)
   auto rotate_drift = [&](cudaStream_t st, int src, double coef, int* ctr) -> int {
@@ -320,17 +321,18 @@ int mclmc_run(const float* x, const float* y, const float* w1, const float* b1, 
                      normals, rev);
   };
 
+  if ((err = prepare_gradient_maps(S, th, scratch, &maps, phases != nullptr)) != 0) return err;
   // zeros everywhere first: the padding slots of the packed state stay zero
-  if ((err = (int)cudaMemsetAsync(ws, 0, L.bytes, stream)) != 0) return err;
-  pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, th, nullptr, S);
-  LAUNCH_CHECK();
-  pack_flat_kernel<<<ew_grid, EW, 0, stream>>>(u_in, u, S);
-  LAUNCH_CHECK();
-  if ((err = prepare_gradient(S, x, th, scratch, &maps, stream)) != 0) return err;
+  if ((err = queued([&] { return cudaMemsetAsync(ws, 0, L.bytes, stream); })) != 0) return err;
+  LAUNCH(pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, th, nullptr, S));
+  LAUNCH(pack_flat_kernel<<<ew_grid, EW, 0, stream>>>(u_in, u, S));
+  if ((err = stage_x(S, x, scratch, stream)) != 0) return err;
   // gradient, logp and the dots of the given u at the initial point
   if ((err = gradient(stream)) != 0) return err;
-  if ((err = (int)cudaMemcpyAsync(logp_cur, logp_prop, sizeof(double) * chains,
-                                  cudaMemcpyDeviceToDevice, stream)) != 0)
+  if ((err = queued([&] {
+         return cudaMemcpyAsync(logp_cur, logp_prop, sizeof(double) * chains,
+                                cudaMemcpyDeviceToDevice, stream);
+       })) != 0)
     return err;
 
   if ((err = one_draw(stream, 0, kGiven, nullptr)) != 0) return err;
@@ -338,16 +340,18 @@ int mclmc_run(const float* x, const float* y, const float* w1, const float* b1, 
     cudaStream_t cs;
     cudaGraph_t graph = nullptr;
     cudaGraphExec_t exec = nullptr;
+    long long captured[kHostStats] = {};  // the graph's kernels, each queued per replay
     if ((err = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking)) != 0) return err;
     err = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
     if (err == 0) {
+      const CaptureStats capture(captured);
       err = one_draw(cs, 0, kRefreshed, draw_ctr);
       const int end = (int)cudaStreamEndCapture(cs, &graph);
       if (err == 0) err = end;
     }
     if (err == 0) err = (int)cudaGraphInstantiate(&exec, graph, 0);
     for (int draw = 1; err == 0 && draw < num_samples; ++draw)
-      err = (int)cudaGraphLaunch(exec, stream);
+      err = queued([&] { return cudaGraphLaunch(exec, stream); }, captured[kLaunches]);
     if (exec) cudaGraphExecDestroy(exec);  // freed once its launches are done
     if (graph) cudaGraphDestroy(graph);
     cudaStreamDestroy(cs);
@@ -357,9 +361,9 @@ int mclmc_run(const float* x, const float* y, const float* w1, const float* b1, 
       if ((err = one_draw(stream, draw, kRefreshed, nullptr)) != 0) return err;
   }
 
-  unpack_kernel<<<ew_grid, EW, 0, stream>>>(th, sum_de2, (double)num_samples * (double)S.d, w1_out,
-                                            b1_out, w2_out, b2_out, var_e_out, S);
-  LAUNCH_CHECK();
+  LAUNCH(unpack_kernel<<<ew_grid, EW, 0, stream>>>(
+      th, sum_de2, (double)num_samples * (double)S.d, w1_out, b1_out, w2_out, b2_out, var_e_out,
+      S));
   return 0;
 }
 
@@ -381,17 +385,20 @@ const char* bnn_mclmc_error_string(int err) { return cudaGetErrorString((cudaErr
 // 128 and chains at most 65535 (a grid dimension), and the caller checks
 // num_samples >= 1; normals (S, C, D) may be null; fwd_grid and bwd_grid are
 // the GEMMs' blocks, from the plan (kernels/bnn_grad.py::_plan).  N and I
-// are free (D below 2^31).  Launches on the stream without synchronising and
-// returns the first launch error as a cudaError_t (0 on success).
+// are free (D below 2^31).  stats and phases as bnn_hmc_run's.  Launches on
+// the stream without synchronising and returns the first launch error as a
+// cudaError_t (0 on success).
 int bnn_mclmc_run(const float* x, const float* y, const float* w1, const float* b1,
                   const float* w2, const float* b2, const float* u_in, float* w1_out,
                   float* b1_out, float* w2_out, float* b2_out, float* var_e_out,
                   void* workspace, int n, int in_dim, int hidden, int chains, int num_samples,
                   float step_size, float nu, float tau, unsigned long long seed,
-                  const float* normals, int fwd_grid, int bwd_grid, void* stream_ptr) {
+                  const float* normals, int fwd_grid, int bwd_grid, void* stream_ptr,
+                  long long* stats, long long* phases) {
+  const HostStatsScope accounted(stats);
   return mclmc_run(x, y, w1, b1, w2, b2, u_in, w1_out, b1_out, w2_out, b2_out, var_e_out,
                    workspace, n, in_dim, hidden, chains, num_samples, step_size, nu, tau, seed,
-                   normals, fwd_grid, bwd_grid, stream_ptr, kOptions);
+                   normals, fwd_grid, bwd_grid, stream_ptr, kOptions, phases);
 }
 
 }  // extern "C"

@@ -5,12 +5,15 @@
 // as inline PTX: mbarriers, TMA tile loads, cp.async, wgmma and mma.sync on
 // tf32 operands, the split of a float into two tf32 parts, register
 // rebalancing between warpgroups (setmaxnreg), a barrier over the blocks of
-// a cooperative launch, and programmatic dependent launches.
+// a cooperative launch, and programmatic dependent launches; and the
+// accounting that the recorder (utils/profiling.py) reads: a C entry's
+// launches on the host, a kernel's phases on the device.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <time.h>
 
 namespace {
 
@@ -203,6 +206,104 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
+// ---- a C entry's launch accounting, on the host ----
+
+// The array a C entry's caller may pass (utils/profiling.py's LAUNCH_STATS):
+// the operations queued on the stream (kernels, memsets and copies; a graph
+// launch counts the kernels it holds), the host ns spent inside the launch
+// statements (where the host waits for room in the launch queue; the
+// cudaGetLastError after a launch is outside), the ns from the entry to its
+// first launch, and the entry's own time, all on CLOCK_MONOTONIC (Python's
+// perf_counter_ns).  With no array nothing reads the clock.
+enum HostStat { kLaunches, kLaunchNs, kPrologueNs, kEntryNs, kHostStats };
+
+thread_local long long* host_stats = nullptr;
+
+inline long long host_ns() {
+  timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return t.tv_sec * 1000000000LL + t.tv_nsec;
+}
+
+// For the duration of a C entry: its array (null: none) zeroed and stamped.
+struct HostStatsScope {
+  explicit HostStatsScope(long long* stats) {
+    if (stats) {
+      for (int i = 0; i < kHostStats; ++i) stats[i] = 0;
+      stats[kEntryNs] = host_ns();
+    }
+    host_stats = stats;
+  }
+  ~HostStatsScope() { host_stats = nullptr; }
+};
+
+// For the duration of a stream capture: its launches are counted into
+// `into` (zeroed by the caller), not as queued.
+struct CaptureStats {
+  long long* saved;
+  explicit CaptureStats(long long* into) : saved(host_stats) {
+    if (host_stats) host_stats = into;
+  }
+  ~CaptureStats() { host_stats = saved; }
+};
+
+inline long long launch_begin() { return host_stats ? host_ns() : 0; }
+
+// after a launch statement that began at t0 and queued n operations
+inline void launch_end(long long t0, long long n = 1) {
+  if (!host_stats) return;
+  const long long t1 = host_ns();
+  if (host_stats[kLaunches] == 0) host_stats[kPrologueNs] = t0 - host_stats[kEntryNs];
+  host_stats[kLaunches] += n;
+  host_stats[kLaunchNs] += t1 - t0;
+}
+
+// call() (a launch, memset, copy or graph launch that queues n operations
+// and returns a cudaError_t), accounted; returns its error as an int
+template <typename Call>
+int queued(Call&& call, long long n = 1) {
+  const long long t0 = launch_begin();
+  const int err = (int)call();
+  launch_end(t0, n);
+  return err;
+}
+
+// ---- a kernel's phase cycles, on the device ----
+
+// Per-phase SM cycles (clock64) that a thread adds up in registers as it
+// passes the kernel's phase boundaries: lap(p) gives phase p (a constant)
+// the cycles since the last lap or start(); flush adds the owner thread's
+// sums into the kernel's N device counters, one atomicAdd each.  With ON
+// false every call compiles to nothing, so the kernel is the one built
+// without counters.
+template <bool ON, int N>
+struct PhaseClock {
+  long long sum[N] = {}, last = 0;
+  long long* counters;  // the owner's device counters; null in the other threads
+
+  __device__ __forceinline__ PhaseClock(bool owner, long long* counters_)
+      : counters(owner ? counters_ : nullptr) {}
+  __device__ __forceinline__ void start() {
+    if constexpr (ON) last = clock64();
+  }
+  __device__ __forceinline__ void lap(int p) {
+    if constexpr (ON) {
+      const long long t = clock64();
+      sum[p] += t - last;
+      last = t;
+    }
+  }
+  __device__ __forceinline__ void flush() {
+    if constexpr (ON) {
+      if (counters)
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          atomicAdd(reinterpret_cast<unsigned long long*>(counters) + i,
+                    (unsigned long long)sum[i]);
+    }
+  }
+};
+
 // ---- programmatic dependent launch ----
 
 // Waits until the grid before this one on the stream has finished and its
@@ -230,7 +331,7 @@ int launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem, cud
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = dependent ? 1 : 0;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  return queued([&] { return cudaLaunchKernelEx(&cfg, kernel, args...); });
 }
 
 // ---- a barrier over every block of a cooperative launch ----
@@ -369,4 +470,14 @@ __device__ __forceinline__ void regs_inc() {
   do {                                        \
     const cudaError_t e_ = cudaGetLastError(); \
     if (e_ != cudaSuccess) return (int)e_;    \
+  } while (0)
+
+// `launch;` (a kernel<<<...>>>(...) statement), accounted, then its
+// LAUNCH_CHECK
+#define LAUNCH(...)                          \
+  do {                                       \
+    const long long t_ = launch_begin();     \
+    __VA_ARGS__;                             \
+    launch_end(t_);                          \
+    LAUNCH_CHECK();                          \
   } while (0)

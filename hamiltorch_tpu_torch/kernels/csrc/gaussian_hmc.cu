@@ -159,14 +159,19 @@ size_t gaussian_hmc_scratch_bytes(int chains, int d, int dense, int variant, int
 //       `shared` = diag_wide_shared(cpw).
 // Returns cudaErrorInvalidValue for any other plan (variant 0: the wrapper
 // found none, which is how a D beyond the any-D variant's range and a
-// chain_tile below 1 are refused).  Launches on the stream without
-// synchronising and returns the first launch error as a cudaError_t (0 on
-// success).
+// chain_tile below 1 are refused).  stats (host, kHostStats long longs) may
+// be null; else the run's launch accounting is written to it.  phases
+// (device, DENSE_PHASES long longs) may be null; else variant 5 with dense P
+// adds its phases' cycles into it (the other variants ignore it).  Launches
+// on the stream without synchronising and returns the first launch error as
+// a cudaError_t (0 on success).
 int gaussian_hmc_run(const float* theta0, const float* prec, const float* mean, float* out,
                      float* acc, int chains, int d, int dense, int num_samples, int num_steps,
                      float step_size, unsigned long long seed, int variant, int group,
                      int consumers, int cpw, int shared, const float* momenta,
-                     const float* uniforms, void* scratch, void* stream_ptr) {
+                     const float* uniforms, void* scratch, void* stream_ptr, long long* stats,
+                     long long* phases) {
+  const HostStatsScope accounted(stats);
   const int invalid = (int)cudaErrorInvalidValue;
   if (d < 1 || (variant < 5 && d > MAX_D) || chains < 1 || (variant < 3 && group < d))
     return invalid;
@@ -198,10 +203,10 @@ int gaussian_hmc_run(const float* theta0, const float* prec, const float* mean, 
     return consumers == 8 ? launch_mma<2, 8, 2>(a, shared, s) : invalid;
   } else if (variant == 5 && consumers == 8 && dense && cpw == 0) {
     switch (group) {
-      case 8: return launch_dense<1, 1, 1>(a, scratch, shared, s);
-      case 16: return launch_dense<1, 2, 1>(a, scratch, shared, s);
-      case 32: return launch_dense<1, 4, 1>(a, scratch, shared, s);
-      case 64: return launch_dense<2, 4, 2>(a, scratch, shared, s);
+      case 8: return launch_dense<1, 1, 1>(a, scratch, shared, s, phases);
+      case 16: return launch_dense<1, 2, 1>(a, scratch, shared, s, phases);
+      case 32: return launch_dense<1, 4, 1>(a, scratch, shared, s, phases);
+      case 64: return launch_dense<2, 4, 2>(a, scratch, shared, s, phases);
     }
   } else if (variant == 5 && consumers == 8 && !dense && d <= DIAG_MAX_D && shared == 0) {
     switch (cpw) {

@@ -735,6 +735,7 @@ struct DenseArgs {
   double* e1;  // [n_mt][Cp]: each tile row's part of h1 per chain
   int* count;       // [Cp] accepted draws (kept by the blocks of tile row 0)
   unsigned int* bar;
+  long long* phases;  // device, DENSE_PHASES counters; null: not counted
   int dp, cp, n_mt, n_nt;
 };
 
@@ -1093,7 +1094,15 @@ __device__ __forceinline__ void dense_between_draws(const DenseArgs& s, int mt, 
 
 // The whole run in one cooperative launch: warps of MI x NI m16 x n8 tiles
 // each, WN of them across a tile's chains and 8 / WN across its rows.
-template <int MI, int NI, int WN, int ST, bool PA, bool PB>
+// PHASES: thread 0 of each block adds the cycles of the draws' phases (the
+// steps' products, their epilogues, the grid barriers, the work between
+// draws) into s.phases (DensePhase order); the set-up before the first
+// draw is in none.  Every draw is timed: on an H100 the counting kernel
+// takes ~1.1% longer at 1,024 chains of D = 250 and 0.5-0.75% at 4, and
+// timing one draw in 4 or 8 took no less (the laps' code in the step loop
+// costs, not the clock reads it makes).
+enum DensePhase { kDenseProduct, kDenseEpilogue, kDenseBarrier, kDenseBetweenDraws, DENSE_PHASES };
+template <int MI, int NI, int WN, int ST, bool PA, bool PB, bool PHASES = false>
 __global__ void __launch_bounds__(DT_THREADS, 1) dense_grid_kernel(DenseArgs s) {
   constexpr int BN = 8 * NI * WN;
   static_assert(MI * (8 / WN) * 16 == DT_ROWS, "the warps' rows make up a tile's");
@@ -1147,25 +1156,35 @@ __global__ void __launch_bounds__(DT_THREADS, 1) dense_grid_kernel(DenseArgs s) 
     dense_epilogue<MI, NI, WN, PB>(s, DENSE_INIT, mt, nt, tot, nullptr, red);
   }
   grid_barrier(s.bar, target);
+  PhaseClock<PHASES, DENSE_PHASES> phase_clock(threadIdx.x == 0 && blockIdx.x < n_items,
+                                               s.phases);
+  phase_clock.start();
   int cur = 0;  // the Delta buffer the next product reads
   for (int n = 0; n < S; ++n) {
     for (int item = blockIdx.x; item < n_items; item += gridDim.x)
       dense_between_draws<MI, NI, WN, PB>(s, item % s.n_mt, item / s.n_mt, n - 1, n,
                                           s.delta + cur * buf);
+    phase_clock.lap(kDenseBetweenDraws);
     grid_barrier(s.bar, target);
+    phase_clock.lap(kDenseBarrier);
     for (int step = 0; step < L; ++step) {
       const DenseMode mode = step + 1 < L ? DENSE_STEP : DENSE_LAST;
       for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
         const int mt = item % s.n_mt, nt = item / s.n_mt;
         dense_product<MI, NI, WN, ST, PA, PB>(s, s.delta + cur * buf, mt, nt, stages, tot);
+        phase_clock.lap(kDenseProduct);
         dense_epilogue<MI, NI, WN, PB>(s, mode, mt, nt, tot, s.delta + (cur ^ 1) * buf, red);
+        phase_clock.lap(kDenseEpilogue);
       }
       if (mode == DENSE_STEP) cur ^= 1;
       grid_barrier(s.bar, target);
+      phase_clock.lap(kDenseBarrier);
     }
   }
   for (int item = blockIdx.x; item < n_items; item += gridDim.x)
     dense_between_draws<MI, NI, WN, PB>(s, item % s.n_mt, item / s.n_mt, S - 1, S, nullptr);
+  phase_clock.lap(kDenseBetweenDraws);
+  phase_clock.flush();
 }
 
 // ---- launches ----
@@ -1187,8 +1206,7 @@ int launch_chain(const Args& a, int warps, int consumers, int cpw, size_t shared
   auto kernel = chain_kernel<G, EPL, DENSE, RING>;
   if (const int e = allow_shared(kernel, shared)) return e;
   const int cb = consumers * cpw;
-  kernel<<<(a.chains + cb - 1) / cb, 32 * warps, shared, stream>>>(a, consumers, cpw);
-  LAUNCH_CHECK();
+  LAUNCH(kernel<<<(a.chains + cb - 1) / cb, 32 * warps, shared, stream>>>(a, consumers, cpw));
   return 0;
 }
 
@@ -1198,8 +1216,7 @@ template <int NT, int W, int PW>
 int launch_mma(const Args& a, size_t shared, cudaStream_t stream) {
   auto kernel = mma_kernel<NT, W, PW>;
   if (const int e = allow_shared(kernel, shared)) return e;
-  kernel<<<(a.chains + MMA_ROWS - 1) / MMA_ROWS, 32 * (W + PW), shared, stream>>>(a);
-  LAUNCH_CHECK();
+  LAUNCH(kernel<<<(a.chains + MMA_ROWS - 1) / MMA_ROWS, 32 * (W + PW), shared, stream>>>(a));
   return 0;
 }
 
@@ -1215,25 +1232,28 @@ int launch_diag(const Args& a, int chains_per_block, cudaStream_t stream) {
   auto kernel = diag_kernel<GPT, THREADS>;
   const size_t shared = THREADS == DIAG_THREADS ? 0 : diag_wide_shared(GPT);
   if (const int e = allow_shared(kernel, shared)) return e;
-  kernel<<<(a.chains + chains_per_block - 1) / chains_per_block, THREADS, shared, stream>>>(a,
-                                                                                            tpc);
-  LAUNCH_CHECK();
+  LAUNCH(kernel<<<(a.chains + chains_per_block - 1) / chains_per_block, THREADS, shared,
+                  stream>>>(a, tpc));
   return 0;
 }
 
 // One cooperative launch of as many blocks as there are tiles, at most as
 // many as the card holds at once; `scratch` holds dense_scratch's arrays
 // (its bytes: gaussian_hmc_scratch_bytes) and `shared` the stages and the
-// energy reduction.
+// energy reduction.  With phases (device, DENSE_PHASES counters) the
+// kernel that counts its phases runs.
 template <int MI, int NI, int WN, int ST = DT_STAGES, bool PA = false, bool PB = false>
-int launch_dense(const Args& a, void* scratch, size_t shared, cudaStream_t stream) {
+int launch_dense(const Args& a, void* scratch, size_t shared, cudaStream_t stream,
+                 long long* phases = nullptr) {
   constexpr int BN = 8 * NI * WN;
   if (!scratch || shared != dense_shared_bytes(BN, WN, ST, PA, PB))
     return (int)cudaErrorInvalidValue;
-  auto kernel = dense_grid_kernel<MI, NI, WN, ST, PA, PB>;
+  auto kernel = phases ? dense_grid_kernel<MI, NI, WN, ST, PA, PB, true>
+                       : dense_grid_kernel<MI, NI, WN, ST, PA, PB>;
   if (const int e = allow_shared(kernel, shared)) return e;
   DenseArgs s;
   s.a = a;
+  s.phases = phases;
   dense_scratch(&s, static_cast<char*>(scratch), a.chains, a.d, BN, PA, PB);
   int dev = 0, sms = 0, per_sm = 0;
   if (const cudaError_t e = cudaGetDevice(&dev)) return (int)e;
@@ -1244,11 +1264,14 @@ int launch_dense(const Args& a, void* scratch, size_t shared, cudaStream_t strea
     return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int grid = std::min(s.n_mt * s.n_nt, per_sm * sms);
-  if (const cudaError_t e = cudaMemsetAsync(s.bar, 0, sizeof(unsigned int), stream)) return (int)e;
+  if (const int e = queued([&] { return cudaMemsetAsync(s.bar, 0, sizeof(unsigned int), stream); }))
+    return e;
   void* args[] = {&s};
-  if (const cudaError_t e = cudaLaunchCooperativeKernel((const void*)kernel, grid, DT_THREADS,
-                                                        args, shared, stream))
-    return (int)e;
+  if (const int e = queued([&] {
+        return cudaLaunchCooperativeKernel((const void*)kernel, grid, DT_THREADS, args, shared,
+                                           stream);
+      }))
+    return e;
   LAUNCH_CHECK();
   return 0;
 }

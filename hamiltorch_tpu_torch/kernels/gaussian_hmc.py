@@ -39,8 +39,12 @@ import functools
 
 import torch
 
+from ..utils import profiling
 from ..utils.rng import draw_seed
 from .bnn_grad import _check
+
+# the any-D dense kernel's phase counters (csrc/gaussian_hmc.cuh's DensePhase)
+DENSE_PHASES = ("product_cycles", "epilogue_cycles", "barrier_cycles", "between_draws_cycles")
 
 
 def _grad(th, mu, precision):
@@ -265,7 +269,7 @@ def _declare(lib):
         + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_ulonglong]
         + [ctypes.c_int] * 5
-        + [ctypes.c_void_p] * 4
+        + [ctypes.c_void_p] * 6
     )
     lib.gaussian_hmc_run.restype = ctypes.c_int
     return lib
@@ -292,60 +296,75 @@ def gaussian_hmc(seed, theta0, precision, num_samples, num_steps=10, step_size=0
     chains over more SMs or is needed to fit a dense P; the draws do not
     depend on it, nor on the variant.  ``_variant=5`` runs the any-D variant
     whatever D is (a test hook: it must draw what the others draw).
-    ``gaussian_hmc.launches`` counts the runs of the CUDA kernel.
+    ``gaussian_hmc.launches`` counts the runs of the CUDA kernel.  While the
+    recorder (``utils/profiling.py``) records, a call is the span
+    ``gaussian_hmc`` with the children ``.prepare``, ``.enqueue`` and
+    ``.prologue``, adds to ``gaussian_hmc.kernel_launches``, ``.launch_ns``
+    and ``.prologue_ns``, and the any-D kernel at dense P to the counters
+    ``dense_grid.<DENSE_PHASES>``.
     """
-    device = theta0.device
-    if theta0.ndim != 2:
-        raise ValueError(f"theta0 must be (C, D), got shape {tuple(theta0.shape)}")
-    c, d = theta0.shape
-    _check("theta0", theta0, (c, d), device)
-    if precision.ndim not in (1, 2):
-        raise ValueError(f"precision must be (D,) or (D, D), got shape {tuple(precision.shape)}")
-    _check("precision", precision, (d,) * precision.ndim, device)
-    if mean is not None:
-        _check("mean", mean, (d,), device)
-    if num_samples < 1 or num_steps < 1:
-        raise ValueError("num_samples and num_steps must be >= 1")
-    if int(chain_tile) < 1:
-        raise ValueError(f"chain_tile must be >= 1, got {chain_tile}")
-    if _variant not in (None, 5):
-        raise ValueError(f"_variant must be None or 5, got {_variant}")
-    if _noise is not None:
-        _check("momenta", _noise[0], (num_samples, c, d), device)
-        _check("uniforms", _noise[1], (num_samples, c), device)
+    with profiling.annotate("gaussian_hmc"):
+        device = theta0.device
+        with profiling.annotate("gaussian_hmc.prepare"):
+            if theta0.ndim != 2:
+                raise ValueError(f"theta0 must be (C, D), got shape {tuple(theta0.shape)}")
+            c, d = theta0.shape
+            _check("theta0", theta0, (c, d), device)
+            if precision.ndim not in (1, 2):
+                raise ValueError("precision must be (D,) or (D, D), got shape "
+                                 f"{tuple(precision.shape)}")
+            _check("precision", precision, (d,) * precision.ndim, device)
+            if mean is not None:
+                _check("mean", mean, (d,), device)
+            if num_samples < 1 or num_steps < 1:
+                raise ValueError("num_samples and num_steps must be >= 1")
+            if int(chain_tile) < 1:
+                raise ValueError(f"chain_tile must be >= 1, got {chain_tile}")
+            if _variant not in (None, 5):
+                raise ValueError(f"_variant must be None or 5, got {_variant}")
+            if _noise is not None:
+                _check("momenta", _noise[0], (num_samples, c, d), device)
+                _check("uniforms", _noise[1], (num_samples, c), device)
+            if device.type == "cuda":
+                lib = _library()
+                dense = precision.ndim == 2
+                plan = (_plan(d, dense, int(chain_tile), c) if _variant is None
+                        else _wide_plan(d, dense, c))
+                out = torch.empty((c, num_samples, d), dtype=torch.float32, device=device)
+                acc = torch.empty((c,), dtype=torch.float32, device=device)
+                nbytes = lib.gaussian_hmc_scratch_bytes(c, d, int(dense), plan.variant,
+                                                        plan.group)
+                scratch = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+                stats = profiling.launch_stats()
+                phases = (profiling.device_counters("dense_grid", DENSE_PHASES, device)
+                          if dense and plan.variant == 5 else None)
 
-    if device.type == "cpu":
-        return gaussian_hmc_reference(seed, theta0, precision, num_samples, num_steps,
-                                      step_size, chain_tile, mean, _noise=_noise)
-    if device.type != "cuda":
-        raise ValueError(f"gaussian_hmc runs on CUDA or CPU tensors, not {device}")
+        if device.type == "cpu":
+            return gaussian_hmc_reference(seed, theta0, precision, num_samples, num_steps,
+                                          step_size, chain_tile, mean, _noise=_noise)
+        if device.type != "cuda":
+            raise ValueError(f"gaussian_hmc runs on CUDA or CPU tensors, not {device}")
 
-    lib = _library()
-    dense = precision.ndim == 2
-    plan = _plan(d, dense, int(chain_tile), c) if _variant is None else _wide_plan(d, dense, c)
-    out = torch.empty((c, num_samples, d), dtype=torch.float32, device=device)
-    acc = torch.empty((c,), dtype=torch.float32, device=device)
-    momenta, uniforms = (None, None) if _noise is None else _noise
-    nbytes = lib.gaussian_hmc_scratch_bytes(c, d, int(dense), plan.variant, plan.group)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.gaussian_hmc_run(
-            theta0.data_ptr(), precision.data_ptr(),
-            None if mean is None else mean.data_ptr(), out.data_ptr(), acc.data_ptr(),
-            c, d, int(dense), num_samples, num_steps,
-            float(step_size), int(seed) & (2**64 - 1), *plan,
-            None if momenta is None else momenta.data_ptr(),
-            None if uniforms is None else uniforms.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            stream,
-        )
-    if err != 0:
-        msg = lib.gaussian_hmc_error_string(err).decode()
-        raise RuntimeError(f"gaussian_hmc CUDA kernel failed: cudaError_t {err} ({msg}); "
-                           "see the docstring for the shapes it takes")
-    gaussian_hmc.launches += 1
-    return out, acc
+        momenta, uniforms = (None, None) if _noise is None else _noise
+        with profiling.annotate("gaussian_hmc.enqueue"), torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.gaussian_hmc_run(
+                theta0.data_ptr(), precision.data_ptr(),
+                None if mean is None else mean.data_ptr(), out.data_ptr(), acc.data_ptr(),
+                c, d, int(dense), num_samples, num_steps,
+                float(step_size), int(seed) & (2**64 - 1), *plan,
+                None if momenta is None else momenta.data_ptr(),
+                None if uniforms is None else uniforms.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                stream, stats, None if phases is None else phases.data_ptr(),
+            )
+        if err != 0:
+            msg = lib.gaussian_hmc_error_string(err).decode()
+            raise RuntimeError(f"gaussian_hmc CUDA kernel failed: cudaError_t {err} ({msg}); "
+                               "see the docstring for the shapes it takes")
+        profiling.record_launch_stats("gaussian_hmc", stats)
+        gaussian_hmc.launches += 1
+        return out, acc
 
 
 gaussian_hmc.launches = 0

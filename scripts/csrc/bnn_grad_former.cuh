@@ -858,11 +858,11 @@ __global__ void small_kernel(float* __restrict__ th, float* __restrict__ gr, flo
   }
 }
 
-// Once per run, before the first gradient: x staged and split into the
-// workspace, the TMA descriptors of the operands (W1^T read from th), and
-// the GEMM kernels' shared-memory allowance.  Returns a cudaError_t.
-int prepare_gradient(const BnnDims& s, const float* x, const float* th, const GradScratch& w,
-                     GradMaps* m, cudaStream_t stream) {
+// Once per run, before anything is launched: the TMA descriptors of the
+// operands (W1^T read from th) and the GEMM kernels' shared-memory
+// allowance.  Returns a cudaError_t.
+int prepare_gradient_maps(const BnnDims& s, const float* th, const GradScratch& w, GradMaps* m,
+                          bool /*phases: this design counts none*/ = false) {
   int err;
   if ((err = (int)cudaFuncSetAttribute(forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        FWD_SMEM)) != 0)
@@ -885,11 +885,24 @@ int prepare_gradient(const BnnDims& s, const float* x, const float* th, const Gr
   if ((err = encode_3d(&m->xt, w.xts, s.n, s.in_dim, 2, s.np * f,
                        (uint64_t)s.in_dim * s.np * f, BNB)) != 0)
     return err;
+  return 0;
+}
+
+// x staged and split into the workspace.  Returns the launch's cudaError_t.
+int stage_x(const BnnDims& s, const float* x, const GradScratch& w, cudaStream_t stream) {
   const long long elems = (long long)s.n * s.in_dim;
   const int blocks = (int)((elems + EW - 1) / EW < 1024 ? (elems + EW - 1) / EW : 1024);
-  stage_x_kernel<<<blocks, EW, 0, stream>>>(x, w.xs, w.xts, s);
-  LAUNCH_CHECK();
+  LAUNCH(stage_x_kernel<<<blocks, EW, 0, stream>>>(x, w.xs, w.xts, s));
   return 0;
+}
+
+// Once per run, before the first gradient: prepare_gradient_maps, then
+// stage_x.  Returns a cudaError_t.
+int prepare_gradient(const BnnDims& s, const float* x, const float* th, const GradScratch& w,
+                     GradMaps* m, cudaStream_t stream) {
+  int err;
+  if ((err = prepare_gradient_maps(s, th, w, m)) != 0) return err;
+  return stage_x(s, x, w, stream);
 }
 
 // One gradient evaluation at th (the buffer prepare_gradient described) for
@@ -899,7 +912,8 @@ int prepare_gradient(const BnnDims& s, const float* x, const float* th, const Gr
 // a cudaError_t (0 on success).
 int launch_gradient(const BnnDims& s, const GradMaps& m, const float* y, float* th, float* gr,
                     float* p, const GradScratch& w, double* logp_prop, double* kin_prop,
-                    float tau, float kappa, float eps, int drift, cudaStream_t stream) {
+                    float tau, float kappa, float eps, int drift, cudaStream_t stream,
+                    long long* /*phases: this design counts none*/ = nullptr) {
   const dim3 fwd_grid((s.n_tiles + WGS - 1) / WGS, s.chains);
   const dim3 bwd_grid(s.i_tiles, s.hidden / (WGS * BM), s.chains);
   forward_kernel<<<fwd_grid, NT, FWD_SMEM, stream>>>(m.x, m.w1t, y, th, w.dat, w.pgw2, w.pgb1,
@@ -922,7 +936,8 @@ int launch_gradient(const BnnDims& s, const GradMaps& m, const float* y, float* 
 // first launch error as a cudaError_t (0 on success).
 int launch_gradient_dots(const BnnDims& s, const GradMaps& m, const float* y, float* th, float* gr,
                          const float* u, const GradScratch& w, double* logp_prop, double* dots,
-                         float tau, bool dependent, cudaStream_t stream) {
+                         float tau, bool dependent, cudaStream_t stream,
+                         long long* /*phases: this design counts none*/ = nullptr) {
   const dim3 fwd_grid((s.n_tiles + WGS - 1) / WGS, s.chains);
   const dim3 bwd_grid(s.i_tiles, s.hidden / (WGS * BM), s.chains);
   forward_kernel<<<fwd_grid, NT, FWD_SMEM, stream>>>(m.x, m.w1t, y, th, w.dat, w.pgw2, w.pgb1,

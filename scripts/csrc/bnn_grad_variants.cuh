@@ -1229,8 +1229,11 @@ int check_registers(const void* kernel) {
   return 0;
 }
 
-int prepare_gradient(const BnnDims& s, const float* x, const float* th, const GradScratch& w,
-                     GradMaps* m, cudaStream_t stream) {
+// Once per run, before anything is launched: the GEMM kernels' registers and
+// shared-memory allowance and the TMA descriptors of the operands (W1^T read
+// from th).  Returns a cudaError_t.
+int prepare_gradient_maps(const BnnDims& s, const float* th, const GradScratch& w, GradMaps* m,
+                          bool /*phases: this design counts none*/ = false) {
   int err;
   if ((err = check_registers((const void*)forward_gemm<FWD_PINGPONG>())) != 0) return err;
   if ((err = check_registers((const void*)backward_kernel<false>)) != 0) return err;
@@ -1259,11 +1262,24 @@ int prepare_gradient(const BnnDims& s, const float* x, const float* th, const Gr
   if ((err = encode_3d(&m->xt, w.xts, s.n, s.in_dim, 2, s.np * f,
                        (uint64_t)s.in_dim * s.np * f, BNB)) != 0)
     return err;
+  return 0;
+}
+
+// x staged and split into the workspace.  Returns the launch's cudaError_t.
+int stage_x(const BnnDims& s, const float* x, const GradScratch& w, cudaStream_t stream) {
   const long long elems = (long long)s.n * s.in_dim;
   const int blocks = (int)((elems + EW - 1) / EW < 1024 ? (elems + EW - 1) / EW : 1024);
-  stage_x_kernel<<<blocks, EW, 0, stream>>>(x, w.xs, w.xts, s);
-  LAUNCH_CHECK();
+  LAUNCH(stage_x_kernel<<<blocks, EW, 0, stream>>>(x, w.xs, w.xts, s));
   return 0;
+}
+
+// Once per run, before the first gradient: prepare_gradient_maps, then
+// stage_x.  Returns a cudaError_t.
+int prepare_gradient(const BnnDims& s, const float* x, const float* th, const GradScratch& w,
+                     GradMaps* m, cudaStream_t stream) {
+  int err;
+  if ((err = prepare_gradient_maps(s, th, w, m)) != 0) return err;
+  return stage_x(s, x, w, stream);
 }
 
 // One gradient evaluation at th (the buffer prepare_gradient described) for
@@ -1273,7 +1289,8 @@ int prepare_gradient(const BnnDims& s, const float* x, const float* th, const Gr
 // Returns the first launch error as a cudaError_t (0 on success).
 int launch_gradient(const BnnDims& s, const GradMaps& m, const float* y, float* th, float* gr,
                     float* p, const GradScratch& w, double* logp_prop, double* kin_prop,
-                    float tau, float kappa, float eps, int drift, cudaStream_t stream) {
+                    float tau, float kappa, float eps, int drift, cudaStream_t stream,
+                    long long* /*phases: this design counts none*/ = nullptr) {
   const auto forward = forward_gemm<FWD_PINGPONG>();
   forward<<<s.fwd_grid, NT, GEMM_SMEM, stream>>>(m.x, m.w1t, y, th, w.dat, w.pgw2, w.pgb1, w.pgb2,
                                                  w.pll, s, tau);
@@ -1295,7 +1312,8 @@ int launch_gradient(const BnnDims& s, const GradMaps& m, const float* y, float* 
 // first launch error as a cudaError_t (0 on success).
 int launch_gradient_dots(const BnnDims& s, const GradMaps& m, const float* y, float* th, float* gr,
                          const float* u, const GradScratch& w, double* logp_prop, double* dots,
-                         float tau, bool dependent, cudaStream_t stream) {
+                         float tau, bool dependent, cudaStream_t stream,
+                         long long* /*phases: this design counts none*/ = nullptr) {
   const auto forward = forward_gemm<FWD_PINGPONG>();
   forward<<<s.fwd_grid, NT, GEMM_SMEM, stream>>>(m.x, m.w1t, y, th, w.dat, w.pgw2, w.pgb1, w.pgb2,
                                                  w.pll, s, tau);

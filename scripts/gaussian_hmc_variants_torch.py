@@ -254,7 +254,7 @@ def dense_anatomy(card):
                 theta0.data_ptr(), prec.data_ptr(), None, out.data_ptr(), acc.data_ptr(), c, d,
                 int(dense), draws, steps, 0.2, 3, *plan, None, None,
                 None if scratch is None else scratch.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream, None, None)
             if err != 0:
                 raise RuntimeError(f"{plan}: cudaError_t {err}")
 

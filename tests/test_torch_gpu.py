@@ -1519,3 +1519,103 @@ def test_make_mesh_raises_without_a_card_unless_asked_for_the_cpu(monkeypatch):
         assert dist.get_backend() == "gloo" and sh.mesh_device(mesh).type == "cpu"
     finally:
         dist.destroy_process_group()
+
+
+# ---- the recorder (utils/profiling.py) inside the fused paths ----
+
+
+def recorded(fn):
+    """fn() with the recorder on and emptied first: (its result, spans, counters)."""
+    from hamiltorch_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with profiling.recording():
+        out = fn()
+    torch.cuda.synchronize()
+    got = profiling.spans(), profiling.counters()
+    profiling.reset()
+    return (out, *got)
+
+
+def check_call_spans(spans, entry):
+    """One top-level call of ``entry`` with its prepare, enqueue and
+    prologue children, the prologue (stamped in C) inside the enqueue."""
+    by = {s.name: s for s in spans}
+    assert [s.name for s in spans if s.parent is None] == [entry]
+    top = by[entry]
+    for part in ("prepare", "enqueue", "prologue"):
+        child = by[f"{entry}.{part}"]
+        assert child.parent == top.id and child.call == top.id
+        assert top.start_ns <= child.start_ns <= child.end_ns <= top.end_ns
+    enqueue, prologue = by[f"{entry}.enqueue"], by[f"{entry}.prologue"]
+    assert enqueue.start_ns <= prologue.start_ns <= prologue.end_ns <= enqueue.end_ns
+
+
+# (I, H, N, C, draws, steps)
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(50, 128, 100, 3, 2, 3), (113, 256, 200, 5, 3, 5)])
+def test_bnn_hmc_counts_its_launches(cuda_device, shape):
+    i_dim, h, n, c, draws, steps = shape
+    args = bnn_args(i_dim, h, n, c, 4, cuda_device)
+    _, spans, counters = recorded(lambda: bnn_hmc(0, *args, num_samples=draws,
+                                                  num_steps=steps, step_size=0.01))
+    assert counters["bnn_hmc.kernel_launches"] == 9 + draws * (3 * steps + 3)
+    assert 0 < counters["bnn_hmc.launch_ns"] and 0 < counters["bnn_hmc.prologue_ns"]
+    check_call_spans(spans, "bnn_hmc")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("draws", [1, 4])
+def test_bnn_mclmc_counts_its_launches(cuda_device, draws):
+    """9 a draw (every draw after the first replays one graph of 9)."""
+    args = bnn_args(50, 128, 100, 3, 4, cuda_device)
+    u = torch.randn(3, 50 * 128 + 2 * 128 + 1, device=cuda_device)
+    _, spans, counters = recorded(lambda: bnn_mclmc(0, *args, u, num_samples=draws,
+                                                    step_size=0.05, length=1.0))
+    assert counters["bnn_mclmc.kernel_launches"] == 9 + 9 * draws
+    check_call_spans(spans, "bnn_mclmc")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,chains", [(250, 4), (300, 70)])
+def test_gaussian_hmc_dense_grid_counts_its_launches(cuda_device, d, chains):
+    """The any-D dense variant: the barrier's memset and one cooperative launch."""
+    *args, mean, _ = gaussian_case(d, True, cuda_device, chains)
+    _, spans, counters = recorded(lambda: gaussian_hmc(0, *args, 5, 4, 0.1, mean=mean,
+                                                       _variant=5))
+    assert counters["gaussian_hmc.kernel_launches"] == 2
+    check_call_spans(spans, "gaussian_hmc")
+
+
+def bnn_hmc_call(device):
+    args = bnn_args(784, 128, 1024, 4, 6, device)
+    return lambda: bnn_hmc(11, *args, num_samples=2, num_steps=4, step_size=2e-4)
+
+
+def bnn_mclmc_call(device):
+    args = bnn_args(784, 128, 1024, 4, 6, device)
+    u = torch.randn(4, 784 * 128 + 2 * 128 + 1, generator=torch.Generator().manual_seed(3))
+    return lambda: bnn_mclmc(11, *args, u.to(device), num_samples=3, step_size=2e-3, length=1.0)
+
+
+def gaussian_dense_call(device):
+    *args, mean, _ = gaussian_case(250, True, device, 64)
+    return lambda: gaussian_hmc(11, *args, 20, 10, 0.02, mean=mean, _variant=5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call,kernel,phases", [
+    (bnn_hmc_call, "bnn_backward", ("products_cycles", "epilogue_cycles")),
+    (bnn_mclmc_call, "bnn_backward", ("products_cycles", "epilogue_cycles")),
+    (gaussian_dense_call, "dense_grid", ("product_cycles", "epilogue_cycles", "barrier_cycles",
+                                         "between_draws_cycles")),
+], ids=["bnn_hmc", "bnn_mclmc", "gaussian_hmc"])
+def test_recorder_leaves_outputs_bit_identical_and_counts_every_phase(cuda_device, call, kernel,
+                                                                      phases):
+    fn = call(cuda_device)
+    off = fn()
+    on, _, counters = recorded(fn)
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    for phase in phases:
+        assert counters[f"{kernel}.{phase}"] > 0, phase
