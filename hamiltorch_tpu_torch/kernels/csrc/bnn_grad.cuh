@@ -82,7 +82,15 @@
 //                  and partial sums of W1^2 (prior); for HMC the momentum
 //                  kick, the next drift and partial sums of the kinetic
 //                  energy; for MCLMC (backward_kernel<true>) float64 partial
-//                  sums of |g|^2, u.g and |u|^2 against the velocity u;
+//                  sums of |g|^2, u.g and |u|^2 against the velocity u.  A
+//                  thread's 14 x 2 steps run in BWD_BATCHES batches, each
+//                  reading all its W1 and p (HMC) or u (MCLMC) into
+//                  registers before its first store: a store to th or p
+//                  may alias a later load of the same array as far as the
+//                  compiler knows, so step by step each load waited for the
+//                  store before it, one memory round trip a step (the two
+//                  accumulators are added first, so that a batch fits in
+//                  the 168 registers ptxas compiles the kernel to);
 //   small_kernel   reduces the partials per chain: the b1/w2/b2 gradients
 //                  (with HMC's kick and drift), logp, the kinetic energy
 //                  and, in small_kernel<true>, each chain's |g|^2, u.g and
@@ -111,6 +119,7 @@ constexpr int FN = 64;             // rows of x of a forward partial-sum slot
 constexpr int BWD_MB = 1;          // M blocks of a backward tile
 constexpr int HB = BWD_MB * BM;    // hidden units of a backward tile
 constexpr int BNB = 112;           // backward tile: inputs (the wgmma N; 784 = 7 x 112)
+constexpr int BWD_BATCHES = 2;     // load batches of a backward epilogue (loads, then stores)
 constexpr int BK = 32;             // k-depth of a ring slice: 32 floats, one 128-byte swizzle row
 constexpr int CONSUMERS = 2;       // consumer warpgroups, each on its own tiles and ring
 constexpr int STAGES = 6;          // ring slices in flight, over all consumers
@@ -143,6 +152,7 @@ constexpr int GEMM_SMEM = RINGS_BYTES + 1024;  // + alignment slack
 constexpr int EW = 256;   // threads of an elementwise block
 constexpr int EW_MAX_BLOCKS = 64;  // elementwise blocks per chain
 static_assert(STAGES % CONSUMERS == 0, "the consumers' rings are equal");
+static_assert(BNB / 4 % BWD_BATCHES == 0, "a backward epilogue's batches are equal");
 static_assert(CONSUMERS * BM == HC && FNC == 2 * FN,
               "a shared forward tile is one M block a consumer and two partial-sum slots of FN "
               "rows");
@@ -729,11 +739,17 @@ __global__ void __launch_bounds__(NT, 1) forward_kernel(
   }
 }
 
+// a[0], a[1] with two (8 bytes: a is 8-byte aligned), else a[0], 0
+__device__ __forceinline__ float2 load_pair(const float* a, bool two) {
+  return two ? *reinterpret_cast<const float2*>(a) : make_float2(a[0], 0.f);
+}
+
 // Backward pass, g^T = da^T x, over the tiles (chain c, hidden units
 // [HB hb, +HB), inputs [BNB it, +BNB)) of this block's walk: g = (da^T x)^T
 // - W1 into gr and partial sums of W1^2 (prior).  With p (HMC): p += kappa
 // g, with drift th += eps p, and partial sums of p^2 (kinetic).  DOTS
-// (MCLMC): partial sums of |g|^2, u.g and |u|^2 against the velocity u.
+// (MCLMC, which kicks nothing: p is not read): partial sums of |g|^2, u.g
+// and |u|^2 against the velocity u.
 // Each tile's sums are reduced inside its warpgroup into the tile's slot.
 // PHASES: the first thread of each consumer warpgroup adds the cycles of
 // its tiles' products (the waits on the ring included) and of their
@@ -786,57 +802,75 @@ __global__ void __launch_bounds__(NT, 1) backward_kernel(
     products<BWD_MB, BNB, BWD_MB>(ring, stages, j * slices, slices, 0, q, acc, acc_s);
     phase_clock.lap(kBwdProducts);
 
-    float* W1 = th + c * s.dp;
-    float* G1 = gr + c * s.dp;
-    float* P1 = p ? p + c * s.dp : nullptr;
-    const float* U1 = DOTS ? u + c * s.dp : nullptr;
-    double prior = 0.0, kin = 0.0, gg = 0.0, ug = 0.0, uu = 0.0;
 #pragma unroll
     for (int m = 0; m < BWD_MB; ++m)
 #pragma unroll
-      for (int jj = 0; jj < BNB / 8; ++jj)
+      for (int k = 0; k < BNB / 2; ++k) acc[m][k] += acc_s[m][k];  // big.big + the small products
+    float* W1 = th + c * s.dp;
+    float* G1 = gr + c * s.dp;
+    float* P1 = !DOTS && p ? p + c * s.dp : nullptr;
+    const float* U1 = DOTS ? u + c * s.dp : nullptr;
+    double prior = 0.0, kin = 0.0, gg = 0.0, ug = 0.0, uu = 0.0;
+    // the tile's steps st = 2 jj + r in BWD_BATCHES batches of SB, every load
+    // of a batch before its first store (a store to th or p keeps any load
+    // after it from starting before it); each sum's terms in the order of
+    // the steps
+    constexpr int SB = BNB / 4 / BWD_BATCHES;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int in = i0 + 8 * jj + 2 * q.t;  // even, and ip is a multiple of 4
+    for (int m = 0; m < BWD_MB; ++m)
+#pragma unroll
+      for (int b = 0; b < BWD_BATCHES; ++b) {
+        float2 wv[SB], uv[SB], pv[SB];
+#pragma unroll
+        for (int i = 0; i < SB; ++i) {
+          const int st = b * SB + i;
+          const int in = i0 + 8 * (st >> 1) + 2 * q.t;  // even, and ip is a multiple of 4
           if (in >= s.in_dim) continue;
-          const int k = 4 * jj + 2 * r;
-          const long long at = (long long)(h0 + m * BM + q.w * 16 + q.g + 8 * r) * s.ip + in;
+          const long long at = (long long)(h0 + m * BM + q.w * 16 + q.g + 8 * (st & 1)) * s.ip + in;
           const bool two = in + 1 < s.in_dim;  // then 8-byte accesses
-          const float2 w =
-              two ? *reinterpret_cast<const float2*>(W1 + at) : make_float2(W1[at], 0.f);
-          const float2 gv = make_float2((acc[m][k] + acc_s[m][k]) - w.x,
-                                        (acc[m][k + 1] + acc_s[m][k + 1]) - w.y);
+          wv[i] = load_pair(W1 + at, two);
+          if constexpr (DOTS) uv[i] = load_pair(U1 + at, two);
+          if (P1) pv[i] = load_pair(P1 + at, two);
+        }
+#pragma unroll
+        for (int i = 0; i < SB; ++i) {
+          const int st = b * SB + i, k = 2 * st;  // k = 4 jj + 2 r
+          const int in = i0 + 8 * (st >> 1) + 2 * q.t;
+          if (in >= s.in_dim) continue;
+          const long long at = (long long)(h0 + m * BM + q.w * 16 + q.g + 8 * (st & 1)) * s.ip + in;
+          const bool two = in + 1 < s.in_dim;
+          const float2 w = wv[i];
+          const float2 gv = make_float2(acc[m][k] - w.x, acc[m][k + 1] - w.y);
           if (two) *reinterpret_cast<float2*>(G1 + at) = gv;
           else G1[at] = gv.x;
           prior += (double)w.x * w.x;
           prior += (double)w.y * w.y;
           if constexpr (DOTS) {
-            const float2 uv =
-                two ? *reinterpret_cast<const float2*>(U1 + at) : make_float2(U1[at], 0.f);
             const float gy = two ? gv.y : 0.f;
             gg += (double)gv.x * gv.x;
             gg += (double)gy * gy;
-            ug += (double)uv.x * gv.x;
-            ug += (double)uv.y * gy;
-            uu += (double)uv.x * uv.x;
-            uu += (double)uv.y * uv.y;
+            ug += (double)uv[i].x * gv.x;
+            ug += (double)uv[i].y * gy;
+            uu += (double)uv[i].x * uv[i].x;
+            uu += (double)uv[i].y * uv[i].y;
           }
           if (P1) {
-            float2 pv = two ? *reinterpret_cast<const float2*>(P1 + at) : make_float2(P1[at], 0.f);
-            pv.x = fmaf(kappa, gv.x, pv.x);
-            pv.y = two ? fmaf(kappa, gv.y, pv.y) : 0.f;
-            kin += (double)pv.x * pv.x;
-            kin += (double)pv.y * pv.y;
-            const float2 wn = make_float2(fmaf(eps, pv.x, w.x), fmaf(eps, pv.y, w.y));
+            float2 pn = pv[i];
+            pn.x = fmaf(kappa, gv.x, pn.x);
+            pn.y = two ? fmaf(kappa, gv.y, pn.y) : 0.f;
+            kin += (double)pn.x * pn.x;
+            kin += (double)pn.y * pn.y;
+            const float2 wn = make_float2(fmaf(eps, pn.x, w.x), fmaf(eps, pn.y, w.y));
             if (two) {
-              *reinterpret_cast<float2*>(P1 + at) = pv;
+              *reinterpret_cast<float2*>(P1 + at) = pn;
               if (drift) *reinterpret_cast<float2*>(W1 + at) = wn;
             } else {
-              P1[at] = pv.x;
+              P1[at] = pn.x;
               if (drift) W1[at] = wn.x;
             }
           }
         }
+      }
 
     // the tile's sums: each warp's by shuffles, then the warpgroup's 4 warps in order
     const int par = j & 1;

@@ -34,9 +34,21 @@ another plan:
   - ``fwd_pingpong``: the forward's consumers on tiles of their own (64
     rows of x, all hidden units, wgmma N = 64) with a ring each, so that
     one's epilogue overlaps the other's products, as in the backward;
+  - ``serial_epilogue``: the backward's former epilogue, each (jj, r)
+    step's loads of W1, p and u after the step before it stored (the
+    package's epilogue reads a batch of 7 jj before its first store);
+  - ``one_batch``, ``batches4``: the read-ahead epilogue in one batch of
+    all 28 steps, or in 4 batches of 7;
+  - ``pipe2``, ``pipe4``, ``pipe7``: 2, 4 or 7 batches, each batch's loads
+    issued before the stores of the batch before it as well;
+  - ``prefetch_p``, ``prefetch_p_w1``: the backward's producer thread asks
+    L2 for the tile's rows of p (and of W1) as it starts the tile's loads
+    (``cp.async.bulk.prefetch.L2``; only ``bnn_hmc`` passes p);
   - timing only, wrong results (``--anatomy``): ``no_loads`` (the producer
     issues no TMA; the consumers multiply whatever the ring holds) and
-    ``no_split`` (A's fragments are not split: big = a, small = 0).
+    ``no_split`` (A's fragments are not split: big = a, small = 0), and in
+    the backward's epilogue ``epi_no_stores`` (g, p and W1 not stored) and
+    ``epi_no_loads`` (W1, p and u not loaded).
 
 For each it prints the registers, spills and shared memory of the GEMM
 kernels (``-Xptxas -v``), the time of one gradient ((21 evaluations - 1) /
@@ -45,10 +57,11 @@ backward kernels' device times (``torch.profiler``; without device events
 it says so and the gradient's time stands alone), and the error against the
 plain gradient in float64.  Then ``bnn_hmc`` (64 x 10 x 50 at step 2e-4)
 and ``bnn_mclmc`` (64 x 500 at eps 2e-3, L 10) end to end in ``former`` and
-``as_is``, in turns (former, as_is, as_is, former; medians of 3).  Run from
+``as_is``, in turns (former, as_is, as_is, former; medians of 3), or, with
+``--against``, in each named design and ``as_is`` the same way.  Run from
 the root of a checkout on a CUDA card (sm_90a):
 
-    python3 scripts/bnn_gemm_variants_torch.py [--anatomy] [--only NAME ...]
+    python3 scripts/bnn_gemm_variants_torch.py [--anatomy] [--only NAME ...] [--against NAME ...]
 """
 
 from __future__ import annotations
@@ -106,10 +119,23 @@ EDITS = {
                         ("constexpr int STAGES = 6;", "constexpr int STAGES = 9;")],
     "no_split": [("tf32_split_alu(a[at[e]], big[e], small[e]);",
                   "big[e] = __float_as_uint(a[at[e]]);\n      small[e] = 0u;")],
+    "serial_epilogue": [("constexpr bool READ_AHEAD = true;", "constexpr bool READ_AHEAD = false;")],
+    "one_batch": [("constexpr int BWD_BATCHES = 2;", "constexpr int BWD_BATCHES = 1;")],
+    "batches4": [("constexpr int BWD_BATCHES = 2;", "constexpr int BWD_BATCHES = 4;")],
+    "pipe2": [("constexpr bool PIPELINE = false;", "constexpr bool PIPELINE = true;")],
+    "pipe4": [("constexpr int BWD_BATCHES = 2;", "constexpr int BWD_BATCHES = 4;"),
+              ("constexpr bool PIPELINE = false;", "constexpr bool PIPELINE = true;")],
+    "pipe7": [("constexpr int BWD_BATCHES = 2;", "constexpr int BWD_BATCHES = 7;"),
+              ("constexpr bool PIPELINE = false;", "constexpr bool PIPELINE = true;")],
+    "epi_no_stores": [("constexpr int EPI_ANATOMY = 0;", "constexpr int EPI_ANATOMY = 1;")],
+    "epi_no_loads": [("constexpr int EPI_ANATOMY = 0;", "constexpr int EPI_ANATOMY = 2;")],
+    "prefetch_p": [("constexpr int PREFETCH_L2 = 0;", "constexpr int PREFETCH_L2 = 1;")],
+    "prefetch_p_w1": [("constexpr int PREFETCH_L2 = 0;", "constexpr int PREFETCH_L2 = 2;")],
 }
-ANATOMY = ("no_loads", "no_split")
+ANATOMY = ("no_loads", "no_split", "epi_no_stores", "epi_no_loads")
 DESIGNS = ("former", "as_is", "one_consumer", "no_rebalance", "smem_split", "not_persistent",
-           "stages4", "small_tiles", "three_consumers", "fwd_pingpong")
+           "stages4", "small_tiles", "three_consumers", "fwd_pingpong", "serial_epilogue",
+           "one_batch", "batches4", "pipe2", "pipe4", "pipe7", "prefetch_p", "prefetch_p_w1")
 # designs whose tiles differ from the package's: the plan's constants for them
 PLANS = {"fwd_pingpong": dict(FWD_ROWS=64), "smem_split": dict(FWD_ROWS=64),
          "one_consumer": dict(FWD_ROWS=64, CONSUMERS=1),
@@ -215,8 +241,8 @@ def gradient_ms(x, y, theta) -> float:
     return (many - one) / 20
 
 
-def end_to_end(designs: Designs, card: str) -> None:
-    """bnn_hmc and bnn_mclmc at the flagship in former and as_is, in turns."""
+def end_to_end(designs: Designs, card: str, base: str = "former") -> None:
+    """bnn_hmc and bnn_mclmc at the flagship in base and as_is, in turns."""
     args = bnn_inputs(torch, **FLAGSHIP, seed=7, device=torch.device("cuda:0"))
     dim = FLAGSHIP["i"] * FLAGSHIP["h"] + 2 * FLAGSHIP["h"] + 1
     u = torch.randn(FLAGSHIP["c"], dim, generator=torch.Generator().manual_seed(8)).to(args[0].device)
@@ -224,18 +250,25 @@ def end_to_end(designs: Designs, card: str) -> None:
                                                 step_size=2e-4, tau=10.0),
            "bnn_mclmc": lambda s: bnn_mclmc.bnn_mclmc(s, *args, u, num_samples=500, step_size=2e-3,
                                                       length=10.0, tau=10.0)}
-    times = {(d, k): [] for d in ("former", "as_is") for k in fns}
-    for design in ("former", "as_is", "as_is", "former"):
+    times = {(d, k): [] for d in (base, "as_is") for k in fns}
+    for design in (base, "as_is", "as_is", base):
         designs.use(design)
         for name, fn in fns.items():
             fn(0)
             torch.cuda.synchronize()
             runs = [cuda_ms(torch, lambda: fn(r + 1)) for r in range(3)]
             times[(design, name)].append(statistics.median(runs))
+    for design in (base, "as_is"):  # bnn_hmc's kernels, p read and written in the backward
+        designs.use(design)
+        us = device_us(lambda: fns["bnn_hmc"](9))
+        if "backward_kernel" in us:
+            print(f"bnn_hmc flagship, {design}: forward {us['forward_kernel']:.1f} us, backward "
+                  f"{us['backward_kernel']:.1f} us, per-chain {us.get('small_kernel', 0.0):.1f} us "
+                  f"a launch [{card}]")
     for name in fns:
-        f, a = times[("former", name)], times[("as_is", name)]
-        print(f"{name} flagship: former {f[0]:.3f} / {f[1]:.3f} ms, as_is {a[0]:.3f} / {a[1]:.3f} ms "
-              f"(former, as_is, as_is, former; medians of 3): as_is / former "
+        f, a = times[(base, name)], times[("as_is", name)]
+        print(f"{name} flagship: {base} {f[0]:.3f} / {f[1]:.3f} ms, as_is {a[0]:.3f} / {a[1]:.3f} "
+              f"ms ({base}, as_is, as_is, {base}; medians of 3): as_is / {base} "
               f"{sum(a) / sum(f):.4f} [{card}]")
 
 
@@ -243,6 +276,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--anatomy", action="store_true", help="also the timing-only ablations")
     parser.add_argument("--only", nargs="*", help="these designs alone (and no end-to-end runs)")
+    parser.add_argument("--against", nargs="*", default=[],
+                        help="end-to-end runs of these designs against as_is")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: this probe runs only on a GPU", file=sys.stderr)
@@ -252,6 +287,7 @@ def main() -> int:
     card = card_line()
     print(card)
     names = list(opts.only or DESIGNS) + (list(ANATOMY) if opts.anatomy else [])
+    names += [name for name in ["as_is", *opts.against] if name not in names]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     designs = Designs(names, _build.BUILD_DIR / "gemm_variants")
     t0 = time.perf_counter()
@@ -289,6 +325,8 @@ def main() -> int:
             print(f"  {line}")
     if not opts.only:
         end_to_end(designs, card)
+    for base in opts.against:
+        end_to_end(designs, card, base)
     designs.restore()
     g32, logp32 = bnn_grad._bnn_gradient_reference(x, y, theta)
     print(f"plain float32 (cuBLAS, TF32 off) vs float64: max_abs_err / max|g| "

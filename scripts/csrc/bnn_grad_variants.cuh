@@ -5,9 +5,11 @@
 // copy of the package's csrc/ and builds the package's sources there; at
 // the switches' values below it is the package's design.  Besides the
 // package's kernels it holds forward_pingpong_kernel (FWD_PINGPONG),
-// split_a_in_smem (SMEM_SPLIT), the REBALANCE switch, and the wgmma widths
-// (N = 32, 56, 64) that the smaller tiles use.  What follows is its note
-// as it stood with those switches.
+// split_a_in_smem (SMEM_SPLIT), the REBALANCE switch, the wgmma widths
+// (N = 32, 56, 64) that the smaller tiles use, the former backward epilogue
+// (READ_AHEAD false: each step's loads after the step before it stored) and
+// the backward producer's L2 prefetch of a tile's p and W1 (PREFETCH_L2).
+// What follows is its note as it stood with those switches.
 //
 // The gradient of the one-hidden-layer tanh regression BNN,
 //     o = tanh(x W1 + b1) w2 + b2,
@@ -105,8 +107,10 @@
 // float64 (at the flagship each is a sum near 5e4, and the samplers use
 // differences of such sums).
 //
-// The constants CONSUMERS, STAGES, REBALANCE, SMEM_SPLIT, FWD_PINGPONG and
-// the tile sizes below are the design's choices;
+// The constants CONSUMERS, STAGES, REBALANCE, SMEM_SPLIT, FWD_PINGPONG,
+// READ_AHEAD, BWD_BATCHES, PIPELINE, PREFETCH_L2 and the tile sizes below are
+// the design's choices (EPI_ANATOMY takes parts of the backward's epilogue
+// out, for timing);
 // scripts/bnn_gemm_variants_torch.py builds copies with them changed and
 // times them beside this one and beside the former design
 // (scripts/csrc/bnn_grad_former.cuh).
@@ -178,6 +182,12 @@ constexpr int STAGES = 6;          // ring slices in flight, over all consumers
 constexpr bool REBALANCE = true;   // setmaxnreg: the producer's registers to the consumers
 constexpr bool SMEM_SPLIT = false;  // split A per slice in shared memory (a tried design)
 constexpr bool FWD_PINGPONG = false;  // forward: consumers on tiles of their own (a tried design)
+constexpr bool READ_AHEAD = true;  // backward epilogue: each batch's loads before its stores
+                                   // (false: the former epilogue, a load and a store a step)
+constexpr int BWD_BATCHES = 2;     // the read-ahead epilogue's load batches
+constexpr bool PIPELINE = false;   // a batch's loads before the stores of the batch before it
+constexpr int EPI_ANATOMY = 0;     // timing only, wrong results: 1 no epilogue stores, 2 no loads
+constexpr int PREFETCH_L2 = 0;     // backward producer: the tile's p (1), and W1 (2), into L2
 constexpr int FNC = 128;           // rows of x of a forward tile shared by the consumers (wgmma N)
 constexpr int COOP_STAGES = 4;     // its ring, read by both consumers
 constexpr int NT = 128 * (CONSUMERS + 1);  // threads of a GEMM block
@@ -192,6 +202,7 @@ constexpr int PRODUCER_REGS = 56;
 constexpr int CONSUMER_REGS_MAX =
     ((CONSUMERS + 1) * LAUNCH_REGS - PRODUCER_REGS) / CONSUMERS / 8 * 8;
 constexpr int CONSUMER_REGS = CONSUMER_REGS_MAX < 240 ? CONSUMER_REGS_MAX : 240;
+static_assert(BNB / 4 % BWD_BATCHES == 0, "a backward epilogue's batches are equal");
 static_assert(!REBALANCE || (CONSUMERS > 1 && CONSUMER_REGS > LAUNCH_REGS),
               "setmaxnreg moves registers from the producer to two consumer warpgroups");
 // A stage: A raw (the M blocks' rows of 32 floats; with SMEM_SPLIT also its
@@ -997,6 +1008,16 @@ __global__ void __launch_bounds__(NT, 1) forward_kernel(
   }
 }
 
+// a[0], a[1] with two (8 bytes: a is 8-byte aligned), else a[0], 0
+__device__ __forceinline__ float2 load_pair(const float* a, bool two) {
+  return two ? *reinterpret_cast<const float2*>(a) : make_float2(a[0], 0.f);
+}
+
+// bytes (a multiple of 16) from a (16-byte aligned) into L2, asynchronously
+__device__ __forceinline__ void prefetch_l2(const void* a, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(a), "r"(bytes) : "memory");
+}
+
 // Backward pass, g^T = da^T x, over the tiles (chain c, hidden units
 // [HB hb, +HB), inputs [BNB it, +BNB)) of this block's walk: g = (da^T x)^T
 // - W1 into gr and partial sums of W1^2 (prior).  With p (HMC): p += kappa
@@ -1022,6 +1043,14 @@ __global__ void __launch_bounds__(NT, 1) backward_kernel(
     for (int j = 0, tile; (tile = walk(pw, j, total)) >= 0; ++j) {
       const int c = tile / s.bwd_tiles, lt = tile % s.bwd_tiles;
       const int h0 = (lt / s.i_tiles) * HB, i0 = (lt % s.i_tiles) * BNB;
+      if (PREFETCH_L2 > 0 && p) {  // the tile's rows of p (and W1), 16-byte aligned: ip % 4 == 0
+        const uint32_t bytes = 4u * (uint32_t)(s.ip - i0 < BNB ? s.ip - i0 : BNB);
+        for (int r = 0; r < HB; ++r) {
+          const long long at = c * s.dp + (long long)(h0 + r) * s.ip + i0;
+          prefetch_l2(p + at, bytes);
+          if (PREFETCH_L2 > 1) prefetch_l2(th + at, bytes);
+        }
+      }
       for (int k0 = 0; k0 < s.n; k0 += BK, ++pos) {
         ring.wait_empty(pos);
         unsigned char* st = stages + (pos % RING) * STAGE;
@@ -1047,55 +1076,142 @@ __global__ void __launch_bounds__(NT, 1) backward_kernel(
 
     float* W1 = th + c * s.dp;
     float* G1 = gr + c * s.dp;
-    float* P1 = p ? p + c * s.dp : nullptr;
     const float* U1 = DOTS ? u + c * s.dp : nullptr;
     double prior = 0.0, kin = 0.0, gg = 0.0, ug = 0.0, uu = 0.0;
+    if constexpr (READ_AHEAD) {
 #pragma unroll
-    for (int m = 0; m < BWD_MB; ++m)
+      for (int m = 0; m < BWD_MB; ++m)
 #pragma unroll
-      for (int jj = 0; jj < BNB / 8; ++jj)
+        for (int k = 0; k < BNB / 2; ++k) acc[m][k] += acc_s[m][k];  // big.big + the small products
+      float* P1 = !DOTS && p ? p + c * s.dp : nullptr;
+      // step st of the tile is (jj, r) = (st / 2, st % 2); batches of SB steps,
+      // every load of a batch before its first store (a store to th or p
+      // keeps any load after it from starting before it) and, with PIPELINE,
+      // before the stores of the batch before it; each sum's terms in the
+      // order of the steps.  Iteration b issues batch lb's loads into buffer
+      // lb % 2, then does batch b's arithmetic and stores.
+      constexpr int SB = BNB / 4 / BWD_BATCHES;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int in = i0 + 8 * jj + 2 * q.t;  // even, and ip is a multiple of 4
-          if (in >= s.in_dim) continue;
-          const int k = 4 * jj + 2 * r;
-          const long long at = (long long)(h0 + m * BM + q.w * 16 + q.g + 8 * r) * s.ip + in;
-          const bool two = in + 1 < s.in_dim;  // then 8-byte accesses
-          const float2 w =
-              two ? *reinterpret_cast<const float2*>(W1 + at) : make_float2(W1[at], 0.f);
-          const float2 gv = make_float2((acc[m][k] + acc_s[m][k]) - w.x,
-                                        (acc[m][k + 1] + acc_s[m][k + 1]) - w.y);
-          if (two) *reinterpret_cast<float2*>(G1 + at) = gv;
-          else G1[at] = gv.x;
-          prior += (double)w.x * w.x;
-          prior += (double)w.y * w.y;
-          if constexpr (DOTS) {
-            const float2 uv =
-                two ? *reinterpret_cast<const float2*>(U1 + at) : make_float2(U1[at], 0.f);
-            const float gy = two ? gv.y : 0.f;
-            gg += (double)gv.x * gv.x;
-            gg += (double)gy * gy;
-            ug += (double)uv.x * gv.x;
-            ug += (double)uv.y * gy;
-            uu += (double)uv.x * uv.x;
-            uu += (double)uv.y * uv.y;
+      for (int m = 0; m < BWD_MB; ++m) {
+        float2 wv[2][SB], uv[2][SB], pv[2][SB];
+#pragma unroll
+        for (int b = PIPELINE ? -1 : 0; b < BWD_BATCHES; ++b) {
+          const int lb = PIPELINE ? b + 1 : b;
+          if (lb < BWD_BATCHES) {
+#pragma unroll
+            for (int i = 0; i < SB; ++i) {
+              const int st = lb * SB + i;
+              const int in = i0 + 8 * (st >> 1) + 2 * q.t;  // even, and ip is a multiple of 4
+              if (in >= s.in_dim) continue;
+              const long long at =
+                  (long long)(h0 + m * BM + q.w * 16 + q.g + 8 * (st & 1)) * s.ip + in;
+              const bool two = in + 1 < s.in_dim;  // then 8-byte accesses
+              if constexpr (EPI_ANATOMY == 2) {  // no loads: values from the accumulators
+                wv[lb & 1][i] = make_float2(0.5f * acc[m][2 * st], 0.25f);
+                uv[lb & 1][i] = pv[lb & 1][i] = make_float2(0.125f * acc[m][2 * st + 1], 0.5f);
+              } else {
+                wv[lb & 1][i] = load_pair(W1 + at, two);
+                if constexpr (DOTS) uv[lb & 1][i] = load_pair(U1 + at, two);
+                if (P1) pv[lb & 1][i] = load_pair(P1 + at, two);
+              }
+            }
           }
-          if (P1) {
-            float2 pv = two ? *reinterpret_cast<const float2*>(P1 + at) : make_float2(P1[at], 0.f);
-            pv.x = fmaf(kappa, gv.x, pv.x);
-            pv.y = two ? fmaf(kappa, gv.y, pv.y) : 0.f;
-            kin += (double)pv.x * pv.x;
-            kin += (double)pv.y * pv.y;
-            const float2 wn = make_float2(fmaf(eps, pv.x, w.x), fmaf(eps, pv.y, w.y));
-            if (two) {
-              *reinterpret_cast<float2*>(P1 + at) = pv;
-              if (drift) *reinterpret_cast<float2*>(W1 + at) = wn;
-            } else {
-              P1[at] = pv.x;
-              if (drift) W1[at] = wn.x;
+          if (b < 0) continue;
+#pragma unroll
+          for (int i = 0; i < SB; ++i) {
+            const int st = b * SB + i, k = 2 * st;  // k = 4 jj + 2 r
+            const int in = i0 + 8 * (st >> 1) + 2 * q.t;
+            if (in >= s.in_dim) continue;
+            const long long at =
+                (long long)(h0 + m * BM + q.w * 16 + q.g + 8 * (st & 1)) * s.ip + in;
+            const bool two = in + 1 < s.in_dim;
+            const float2 w = wv[b & 1][i], uvv = uv[b & 1][i];
+            const float2 gv = make_float2(acc[m][k] - w.x, acc[m][k + 1] - w.y);
+            if constexpr (EPI_ANATOMY != 1) {
+              if (two) *reinterpret_cast<float2*>(G1 + at) = gv;
+              else G1[at] = gv.x;
+            }
+            prior += (double)w.x * w.x;
+            prior += (double)w.y * w.y;
+            if constexpr (DOTS) {
+              const float gy = two ? gv.y : 0.f;
+              gg += (double)gv.x * gv.x;
+              gg += (double)gy * gy;
+              ug += (double)uvv.x * gv.x;
+              ug += (double)uvv.y * gy;
+              uu += (double)uvv.x * uvv.x;
+              uu += (double)uvv.y * uvv.y;
+            }
+            if (P1) {
+              float2 pn = pv[b & 1][i];
+              pn.x = fmaf(kappa, gv.x, pn.x);
+              pn.y = two ? fmaf(kappa, gv.y, pn.y) : 0.f;
+              kin += (double)pn.x * pn.x;
+              kin += (double)pn.y * pn.y;
+              const float2 wn = make_float2(fmaf(eps, pn.x, w.x), fmaf(eps, pn.y, w.y));
+              if constexpr (EPI_ANATOMY == 1) {
+                prior += (double)wn.x;  // kept live without a store
+              } else if (two) {
+                *reinterpret_cast<float2*>(P1 + at) = pn;
+                if (drift) *reinterpret_cast<float2*>(W1 + at) = wn;
+              } else {
+                P1[at] = pn.x;
+                if (drift) W1[at] = wn.x;
+              }
             }
           }
         }
+      }
+    } else {  // the former epilogue
+      float* P1 = p ? p + c * s.dp : nullptr;
+#pragma unroll
+      for (int m = 0; m < BWD_MB; ++m)
+#pragma unroll
+        for (int jj = 0; jj < BNB / 8; ++jj)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int in = i0 + 8 * jj + 2 * q.t;  // even, and ip is a multiple of 4
+            if (in >= s.in_dim) continue;
+            const int k = 4 * jj + 2 * r;
+            const long long at = (long long)(h0 + m * BM + q.w * 16 + q.g + 8 * r) * s.ip + in;
+            const bool two = in + 1 < s.in_dim;  // then 8-byte accesses
+            const float2 w =
+                two ? *reinterpret_cast<const float2*>(W1 + at) : make_float2(W1[at], 0.f);
+            const float2 gv = make_float2((acc[m][k] + acc_s[m][k]) - w.x,
+                                          (acc[m][k + 1] + acc_s[m][k + 1]) - w.y);
+            if (two) *reinterpret_cast<float2*>(G1 + at) = gv;
+            else G1[at] = gv.x;
+            prior += (double)w.x * w.x;
+            prior += (double)w.y * w.y;
+            if constexpr (DOTS) {
+              const float2 uv =
+                  two ? *reinterpret_cast<const float2*>(U1 + at) : make_float2(U1[at], 0.f);
+              const float gy = two ? gv.y : 0.f;
+              gg += (double)gv.x * gv.x;
+              gg += (double)gy * gy;
+              ug += (double)uv.x * gv.x;
+              ug += (double)uv.y * gy;
+              uu += (double)uv.x * uv.x;
+              uu += (double)uv.y * uv.y;
+            }
+            if (P1) {
+              float2 pv = two ? *reinterpret_cast<const float2*>(P1 + at) : make_float2(P1[at], 0.f);
+              pv.x = fmaf(kappa, gv.x, pv.x);
+              pv.y = two ? fmaf(kappa, gv.y, pv.y) : 0.f;
+              kin += (double)pv.x * pv.x;
+              kin += (double)pv.y * pv.y;
+              const float2 wn = make_float2(fmaf(eps, pv.x, w.x), fmaf(eps, pv.y, w.y));
+              if (two) {
+                *reinterpret_cast<float2*>(P1 + at) = pv;
+                if (drift) *reinterpret_cast<float2*>(W1 + at) = wn;
+              } else {
+                P1[at] = pv.x;
+                if (drift) W1[at] = wn.x;
+              }
+            }
+          }
+
+    }
 
     // the tile's sums: each warp's by shuffles, then the warpgroup's 4 warps in order
     const int par = j & 1;

@@ -30,7 +30,13 @@ from hamiltorch_tpu_torch.kernels import (
     gaussian_hmc,
     gaussian_hmc_reference,
 )
-from hamiltorch_tpu_torch.kernels.bnn_grad import _bnn_gradient, _bnn_gradient_reference, _grids
+from hamiltorch_tpu_torch.kernels.bnn_grad import (
+    CONSUMERS,
+    _bnn_gradient,
+    _bnn_gradient_reference,
+    _grids,
+)
+from hamiltorch_tpu_torch.kernels.bnn_grad import _plan as bnn_plan
 from hamiltorch_tpu_torch.kernels.gaussian_hmc import _energy, _grad, _plan
 from hamiltorch_tpu_torch.models.flagship import make_flagship_potential_tree
 from hamiltorch_tpu_torch.samplers.driver import MCMCConfig
@@ -106,6 +112,41 @@ def test_bnn_hmc_kernel_raises_on_shapes_it_does_not_take(cuda_device):
     with pytest.raises(RuntimeError, match="cudaError_t"):
         bnn_hmc(0, *bnn_args(50, 64, 100, 2, 4, cuda_device), num_samples=1, num_steps=1)
     assert bnn_hmc.launches == before
+
+
+# The backward's epilogue at its edges (it reads a batch of steps before its
+# stores): I odd, so a thread's last step in the last I tile is one float
+# (337 = 3 x 112 + 1, 113 = 112 + 1), and no multiple of 112; tiles that the
+# blocks' consumers do not share evenly (337 at 35 chains: 280 tiles on 94
+# blocks; 113 at 3 chains: a tile a block, so every second consumer has
+# none); 3 steps a draw, so drifting steps and the last one both run.
+EPILOGUE_SHAPES = [(337, 128, 150, 35), (113, 256, 97, 3)]
+
+
+def backward_walks_are_ragged(shape, device) -> bool:
+    i_dim, h, n, c = shape
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = bnn_plan(n, i_dim, h, c, sm_count)
+    return plan.bwd_tiles % (CONSUMERS * plan.bwd_grid) != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+def test_bnn_hmc_epilogue_edges_match_plain_version(cuda_device, shape):
+    i_dim, h, n, c = shape
+    assert i_dim % 2 == 1 and i_dim % 112 != 0 and backward_walks_are_ragged(shape, cuda_device)
+    rng = np.random.RandomState(8)
+    noise = (torch.as_tensor(rng.randn(2, c, i_dim * h + 2 * h + 1).astype(np.float32)).to(cuda_device),
+             torch.as_tensor(rng.rand(2, c).astype(np.float32)).to(cuda_device))
+    kw = dict(num_samples=2, num_steps=3, step_size=0.01, tau=10.0, _noise=noise)
+    before = bnn_hmc.launches
+    got = bnn_hmc(0, *bnn_args(i_dim, h, n, c, 9, cuda_device), **kw)
+    want = bnn_hmc_reference(0, *bnn_args(i_dim, h, n, c, 9, cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert bnn_hmc.launches == before + 1
+    assert torch.equal(got[4], want[4])
+    for a, b in zip(got[:4], want[:4]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
 def hold_mclmc_against_plain_version(args, u, draws, eps, length=10.0):
@@ -211,6 +252,23 @@ def test_bnn_gradient_kernel_matches_plain_version(cuda_device, shape):
     fwd_grid, bwd_grid = _grids(n, i_dim, h, c, cuda_device)
     sm_count = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert 1 <= fwd_grid <= sm_count and 1 <= bwd_grid <= sm_count
+
+
+# the backward's other callers at a ragged shape of EPILOGUE_SHAPES: the one
+# gradient (no p) and MCLMC's dots against the velocity (step 5: var_e
+# 6e-5 - 2.3e-4, float32's rounding 1.2e-5 of it)
+@pytest.mark.gpu
+def test_bnn_gradient_and_mclmc_epilogues_at_a_ragged_shape(cuda_device):
+    i_dim, h, n, c = EPILOGUE_SHAPES[0]
+    x, y, *parts = bnn_args(i_dim, h, n, c, 4, cuda_device)
+    theta = torch.cat([t.reshape(c, -1) for t in parts], dim=1).contiguous()
+    g, logp = _bnn_gradient(x, y, theta, tau=10.0)
+    want_g, want_logp = _bnn_gradient_reference(x, y, theta, tau=10.0)
+    torch.cuda.synchronize()
+    assert float((g - want_g).abs().max()) <= 1e-5 * float(want_g.abs().max())
+    assert float(((logp - want_logp) / want_logp).abs().max()) <= 1e-6
+    u = torch.as_tensor(np.random.RandomState(5).randn(c, theta.shape[1]).astype(np.float32))
+    hold_mclmc_against_plain_version((x, y, *parts), u.to(cuda_device), 5, 5.0)
 
 
 # every partial sum lies in a slot fixed by its tile: two calls agree bit for bit

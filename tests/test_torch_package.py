@@ -38,7 +38,8 @@ def test_imports_with_jax_blocked():
                             "scripts/gaussian_hmc_variants_torch.py",
                             "scripts/bnn_mclmc_variants_torch.py",
                             "scripts/gaussian_sum_order_torch.py",
-                            "scripts/rmhmc_designs_torch.py", "scripts/psum_overhead_torch.py"])
+                            "scripts/rmhmc_designs_torch.py", "scripts/psum_overhead_torch.py",
+                            "scripts/bnn_backward_sass.py"])
 def test_no_jax_import(path):
     src = (REPO / path).read_text()
     assert not re.search(r"^\s*(import jax|from jax\b|import hamiltorch_tpu\b|from hamiltorch_tpu\b)",
