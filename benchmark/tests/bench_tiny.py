@@ -26,7 +26,7 @@ TINY = {
                           dict(entry="bnn_hmc", chains=3, draws=3, steps=4, step_size=0.02),
                           "bnn_flagship.hmc_fused"),
     "gauss_tiny.gauss_tiny": ("gauss_tiny", {}, "gauss_tiny",
-                              dict(entry="gaussian_hmc", chains=4, draws=50, steps=10,
+                              dict(entry="gaussian_hmc", chains=4, draws=200, steps=10,
                                    step_size=0.022), "gauss_wishart250.hmc_c4"),
 }
 BASE_CONFIG = {"bnn_tiny": "bnn_flagship", "gauss_tiny": "gauss_wishart250"}

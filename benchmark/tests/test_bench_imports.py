@@ -24,30 +24,37 @@ def test_dry_run_of_the_harness_with_the_port_loads_no_jax(tmp_path):
         import sys
         sys.path.insert(0, {str(ROOT)!r}); sys.path.insert(0, {str(ROOT / 'benchmark/tests')!r})
         from pathlib import Path
-        from bench_tiny import run_tiny, tiny_copy
-        bench = tiny_copy(Path({str(tmp_path)!r}))
-        for cell in ("bnn_tiny.hmc_tiny", "gauss_tiny.gauss_tiny"):
+        from bench_chains import CELL, chains_copy
+        from bench_tiny import run_tiny
+        bench = chains_copy(Path({str(tmp_path)!r}))
+        for cell in ("bnn_tiny.hmc_tiny", "gauss_tiny.gauss_tiny", CELL):
             for trace in (False, True):
                 run_tiny(bench, cell, None, trace=trace)
         print(*sys.modules)
     """)
-    assert "hamiltorch_tpu_torch.kernels.bnn_hmc" in loaded
+    assert {"hamiltorch_tpu_torch.kernels.bnn_hmc", "hamiltorch_tpu_torch.samplers.hmc",
+            "hamiltorch_tpu_torch.models.bnn"} <= loaded
     assert not {m for m in loaded if m.split(".")[0] in BANNED}
 
 
+REFERENCE = sorted((ROOT / "benchmark/reference").glob("*.py"))
+
+
 def test_reference_loads_nothing_of_either_package():
+    names = [f"benchmark.reference.{p.stem}" for p in REFERENCE if p.stem != "__init__"]
+    assert {"benchmark.reference.streams", "benchmark.reference.hmc_chains"} <= set(names)
     loaded = _modules_after(f"""
-        import sys
+        import importlib, sys
         sys.path.insert(0, {str(ROOT)!r})
-        import benchmark.reference.bnn, benchmark.reference.gaussian, benchmark.reference.philox
+        for name in {names!r}:
+            importlib.import_module(name)
         print(*sys.modules)
     """)
     tops = {m.split(".")[0] for m in loaded}
     assert not tops & {"jax", "jaxlib", "flax", "hamiltorch_tpu", "hamiltorch_tpu_torch"}
 
 
-@pytest.mark.parametrize("path", sorted((ROOT / "benchmark/reference").glob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", REFERENCE, ids=lambda p: p.name)
 def test_reference_sources_name_neither_package(path):
     text = path.read_text()
     assert "hamiltorch_tpu" not in text and "import jax" not in text
