@@ -10,8 +10,9 @@ from .bnn import (
     sample_model,
     sample_split_model,
 )
+from .resnet_frn import FilterResponseNorm, resnet20_frn_swish
 
-# the JAX package's list, in its order
+# the JAX package's list, in its order, then the port's own models
 __all__ = [
     "build_model",
     "define_model_log_prob",
@@ -23,4 +24,6 @@ __all__ = [
     "predict_model",
     "sample_model",
     "sample_split_model",
+    "FilterResponseNorm",
+    "resnet20_frn_swish",
 ]

@@ -45,7 +45,9 @@ from ..api import sample as _sample
 from ..enums import Integrator, Metric, Sampler
 from ..samplers.driver import MCMCConfig
 from ..samplers.splitting import run_split_hmc_stacked
+from ..utils import profiling
 from ..utils.convert import resolve_device
+from ..utils.precision import full_float32
 from ..utils.pytree import (
     is_param_tree,
     ravel_pytree_fn,
@@ -130,6 +132,81 @@ def _remat(apply_fn):
     return remat_fn
 
 
+class _HoldEdge(torch.autograd.Function):
+    """Identity on tensors whose backward starts the float32 hold ``held``
+    (on the module's output) or ends it (on the parameters).  The module's
+    backward runs after the potential has returned, between the two."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(held, start, *ts):
+        return tuple(t.clone() for t in ts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.held, ctx.start = inputs[:2]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.start:
+            ctx.held.append(full_float32())
+            ctx.held[-1].__enter__()
+        elif ctx.held:
+            ctx.held.pop().__exit__(None, None, None)
+        return (None, None) + grads
+
+    @staticmethod
+    def jvp(ctx, held_t, start_t, *tangents):
+        return tuple(t.clone() for t in tangents)
+
+
+class _BlockedLikelihood(torch.autograd.Function):
+    """The likelihood summed over blocks of ``rows`` rows of the data.
+
+    The forward runs each block's forward and backward with plain
+    autograd, so that one block's activations are live at a time and the
+    backward keeps none of its own (``torch.func.grad`` would keep them, to
+    differentiate again), and keeps the summed gradient; the backward
+    scales it.  Under ``vmap`` the chains are evaluated one after another.
+    Outputs: the value, then the gradient of every leaf (not
+    differentiable).  First derivatives only: forward-mode AD (a Hessian)
+    is refused."""
+
+    @staticmethod
+    def forward(block_fn, x, y, rows, *leaves):
+        value, grads = 0.0, None
+        with profiling.annotate("potential"), full_float32(), torch.enable_grad():
+            leaves = tuple(leaf.detach().requires_grad_(True) for leaf in leaves)
+            for start in range(0, x.shape[0], rows):
+                with profiling.annotate("potential.block"):
+                    v = block_fn(leaves, x[start:start + rows], y[start:start + rows])
+                    g = torch.autograd.grad(v, leaves)
+                    value = value + v.detach()
+                    grads = g if grads is None else tuple(a + b for a, b in zip(grads, g))
+                profiling.count("potential.blocks")
+                profiling.count("potential.rows", min(rows, x.shape[0] - start))
+        return (value,) + grads
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(*output[1:])
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        return (None, None, None, None) + tuple(g * t for t in ctx.saved_tensors)
+
+    @staticmethod
+    def vmap(info, in_dims, block_fn, x, y, rows, *leaves):
+        if in_dims[1] is not None or in_dims[2] is not None:
+            raise NotImplementedError("the blocked likelihood takes one data set for all chains")
+        outs = [_BlockedLikelihood.apply(block_fn, x, y, rows, *(
+            leaf if dim is None else leaf.select(dim, i) for leaf, dim in zip(leaves, in_dims[4:])))
+            for i in range(info.batch_size)]
+        return tuple(torch.stack(o) for o in zip(*outs)), (0,) * len(outs[0])
+
+
 # ---------------------------------------------------------------------------
 # priors and likelihoods
 
@@ -207,23 +284,44 @@ def _as_data(a, device, dtype):
 
 
 def _potential(model, model_loss, tau_list, tau_out, predict, prior_scale, params_template,
-               remat, device, flat):
+               remat, device, flat, block_rows=None):
     """(raw_fn(theta, data), template, device): the potential at ``theta``
-    (flat or a tree) on ``data = (x, y)``, or the prior alone for None."""
+    (flat or a tree) on ``data = (x, y)``, or the prior alone for None.
+
+    It computes under ``full_float32()``, its backward too.  With
+    ``block_rows`` the likelihood is a sum over blocks of that many rows
+    (``_BlockedLikelihood``)."""
     device = resolve_device(device)
     apply_fn, template = build_model(model, params_template=params_template, device=device)
     if remat:
         apply_fn = _remat(apply_fn)
+    if block_rows is not None and (predict or int(block_rows) < 1):
+        raise ValueError("block_rows takes a positive number of rows and no predict=True: "
+                         "the blocked potential returns the log-probability only")
     unravel = ravel_pytree_fn(template)[1] if flat else None
 
+    def params_of(theta, leaves):
+        return unravel(leaves[0]) if flat else tree_unflatten_like(theta, leaves)
+
     def raw_fn(theta, data):
-        params = unravel(theta) if flat else theta
-        l_prior = gaussian_prior_log_prob(params, tau_list) / prior_scale
+        leaves = (theta,) if flat else tuple(tree_leaves(theta))
         if data is None:
-            return l_prior
+            return gaussian_prior_log_prob(params_of(theta, leaves), tau_list) / prior_scale
         x_, y_ = data
-        output = apply_fn(params, x_)
-        ll = log_likelihood(output, y_, model_loss, tau_out)
+        if block_rows is not None:
+            def block_ll(ls, xb, yb):
+                return log_likelihood(apply_fn(params_of(theta, ls), xb), yb, model_loss,
+                                      tau_out)
+
+            ll = _BlockedLikelihood.apply(block_ll, x_, y_, int(block_rows), *leaves)[0]
+            return ll + gaussian_prior_log_prob(params_of(theta, leaves), tau_list) / prior_scale
+        held = []
+        with full_float32():
+            leaves = _HoldEdge.apply(held, False, *leaves)
+            params = params_of(theta, leaves)
+            l_prior = gaussian_prior_log_prob(params, tau_list) / prior_scale
+            (output,) = _HoldEdge.apply(held, True, apply_fn(params, x_))
+            ll = log_likelihood(output, y_, model_loss, tau_out)
         if predict:
             return ll + l_prior, output
         return ll + l_prior
@@ -254,6 +352,7 @@ def define_model_log_prob(
     remat: bool = False,
     bridge_method: str = "auto",
     device=None,
+    block_rows: Optional[int] = None,
 ):
     """Build ``log_prob_func(flat_theta)`` for a model and a dataset
     (reference: samplers.py:1093-1201).  Returns
@@ -263,13 +362,27 @@ def define_model_log_prob(
     ``predict=True`` makes the function return ``(logp, output)``.
     ``remat=True`` recomputes the forward's activations in the backward pass
     instead of keeping them, trading operations for memory.
+    ``block_rows=n`` makes the likelihood a sum over blocks of n rows (the
+    last one shorter where n does not divide N): each evaluation runs every
+    block's forward and backward in turn, so only one block's activations
+    are live, whatever N is.  It gives values and first derivatives (under
+    ``torch.func.grad`` and ``vmap``, as the samplers take them), not
+    Hessians, and no ``predict=True``; under ``vmap`` the chains are
+    evaluated in turn.  The recorder holds a span ``potential`` a chain's
+    evaluation, a child ``potential.block`` a block and the counters
+    ``potential.blocks`` and ``potential.rows``.
+
+    The potential computes with cuDNN's and cuBLAS's TF32 switches off
+    (``utils.precision.full_float32``), its backward pass too: float32 data
+    are computed in float32.
 
     The JAX package's function carries ``_raw_fn`` / ``_data`` attributes
     so that its jitted samplers take the data as an operand; eager PyTorch
     needs no such protocol and the port's samplers read none.
     """
     raw_fn, template, device = _potential(model, model_loss, tau_list, tau_out, predict,
-                                          prior_scale, params_template, remat, device, True)
+                                          prior_scale, params_template, remat, device, True,
+                                          block_rows)
     flat_init, unravel = ravel_pytree_fn(template)
     return _bind(raw_fn, x, y, device, flat_init.dtype), flat_init, unravel
 
@@ -498,15 +611,18 @@ def sample_model(
     bridge_method: str = "auto",
     progress_every: int = 0,
     device=None,
+    block_rows: Optional[int] = None,
 ):
     """Sample BNN weights (reference: samplers.py:1261-1362): the module's
     potential from :func:`define_model_log_prob` through ``sample``, with
     the same return convention.  The chain runs on ``device`` (the card
     when None); ``params_init`` defaults to the module's own parameters.
-    ``store_on_GPU=False`` returns the samples as a CPU tensor."""
+    ``store_on_GPU=False`` returns the samples as a CPU tensor.
+    ``block_rows`` evaluates the likelihood in blocks of that many rows
+    (:func:`define_model_log_prob`)."""
     log_prob_func, flat_init, _ = define_model_log_prob(
         model, model_loss, x, y, tau_list=tau_list, tau_out=tau_out,
-        params_template=params_template, device=device,
+        params_template=params_template, device=device, block_rows=block_rows,
     )
     if params_init is None:
         params_init = flat_init

@@ -31,7 +31,7 @@ transpose of the JAX package's custom JVP (the Daleckii-Krein formula):
 is NaN where eigenvalues repeat, e.g. on the funnel's scaled-identity block.
 ``torch.linalg.eigh`` also raises (after a host sync) on a matrix with NaN
 or inf entries, where JAX's returns NaN; the Function gives NaN there.
-The metric is computed with float32 matmuls at full precision (no TF32), as
+The metric is computed with float32 products at full precision (no TF32), as
 the JAX package forces float32 precision there: a rounded G enters the
 stationary density through its log-determinant, which the Metropolis test
 cannot correct.
@@ -39,7 +39,6 @@ cannot correct.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Callable, NamedTuple, Optional
@@ -47,6 +46,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..enums import Metric
+from ..utils.precision import full_float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,17 +140,6 @@ def softabs_transform(a: torch.Tensor, alpha: float):
     return g, lam
 
 
-@contextlib.contextmanager
-def _full_float32_matmuls():
-    """float32 matmuls without TF32 inside the block (restored after)."""
-    before = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(before)
-
-
 def cholesky_or_nan(g: torch.Tensor) -> torch.Tensor:
     """The lower Cholesky factor of ``g``, NaN everywhere where ``g`` is not
     positive definite (no exception, no host sync)."""
@@ -175,7 +164,7 @@ def make_metric_fn(
     U(0,1) vector (or None)."""
 
     def metric_fn(theta: torch.Tensor, jitter_u: Optional[torch.Tensor]) -> MetricResult:
-        with _full_float32_matmuls():
+        with full_float32():
             if opts.metric == Metric.JACOBIAN_DIAG:
                 g_vec = torch.func.grad(log_prob_fn)(theta)
                 fish = torch.diag(g_vec * g_vec)

@@ -35,6 +35,7 @@ import torch
 
 from .ops.potential import value_and_grad
 from .utils.convert import place_start
+from .utils.precision import full_float32
 from .utils.pytree import is_param_tree, ravel_pytree_fn, tree_leaves, tree_unflatten_like
 from .utils.rng import OPTIM_STREAM, stream_generator
 
@@ -164,19 +165,6 @@ class LaplaceResult(NamedTuple):
     unravel: object  # flat -> the original theta structure (None for flat modes)
 
 
-class _NoTF32:
-    """Float32 matmuls in full float32 for the duration (curvature is a
-    second derivative: TF32's 10-bit mantissa would corrupt it)."""
-
-    def __enter__(self):
-        self.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
-    def __exit__(self, *exc):
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
-
-
 def _flat_potential(lp, theta):
     """(flat theta, flat potential, unravel or None)."""
     if not is_param_tree(theta):
@@ -208,7 +196,7 @@ def laplace_approx(
     flat0, lp_flat, unravel = _flat_potential(lp, theta_map)
     flat0 = torch.as_tensor(flat0).detach()
     d = int(flat0.shape[0])
-    with _NoTF32():
+    with full_float32():
         h = torch.func.hessian(lp_flat)(flat0)
         neg_h = -0.5 * (h + h.T)
         eigs, vecs = torch.linalg.eigh(neg_h)
@@ -238,7 +226,7 @@ def laplace_sample(key, result: LaplaceResult, num_samples: int, _noise=None):
     """Draws from the Laplace Gaussian; tree modes come back as trees with
     a leading ``num_samples`` axis, flat modes as (N, D).  ``key`` is an
     integer seed."""
-    with _NoTF32():
+    with full_float32():
         chol = torch.linalg.cholesky(result.cov)
         z = _sample_normals(key, num_samples, result.mean, _noise)
         flat = result.mean[None, :] + z @ chol.T
@@ -267,7 +255,7 @@ def advi_cov(result: ADVIResult) -> torch.Tensor:
     ``inv_mass``."""
     if result.scale_tril is None:
         return torch.diag(torch.exp(2.0 * result.log_std))
-    with _NoTF32():
+    with full_float32():
         return result.scale_tril @ result.scale_tril.T
 
 
@@ -367,6 +355,6 @@ def advi_sample(key, result: ADVIResult, num_samples: int, _noise=None):
     if result.scale_tril is None:
         flat = result.mean[None, :] + torch.exp(result.log_std)[None, :] * z
     else:
-        with _NoTF32():
+        with full_float32():
             flat = result.mean[None, :] + z @ result.scale_tril.T
     return _unravel_draws(flat, result.unravel)

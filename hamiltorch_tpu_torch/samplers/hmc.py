@@ -29,6 +29,7 @@ from ..ops.mass import (
     make_mass_tree,
 )
 from ..ops.potential import resolve_potential, value_and_grad
+from ..utils import profiling
 from ..utils.convert import place_start
 from ..utils.pytree import is_param_tree, stack_param_tree, tree_leaves, tree_map
 from .driver import ChainState, MCMCConfig, MCMCResult, TransitionFn, run_mcmc
@@ -255,15 +256,17 @@ def run_hmc_chains(
     an integer seed; chain ``c`` draws from its own stream.  With
     ``config.adapt_mass`` each chain runs its own windowed warmup (per-chain
     Welford moments and metric).  ``_noise = (z (S, C, D), log_u (S, C))``
-    replaces the drawn noise (a test hook).
+    replaces the drawn noise (a test hook).  The recorder
+    (``utils/profiling.py``) holds a span ``run_hmc_chains`` a call.
     """
-    lp = resolve_potential(log_prob_fn, pass_grad)
-    theta0 = place_start(theta0)
-    if is_param_tree(theta0):
-        template, theta0 = stack_param_tree(theta0, num_chains, stacked=theta0_is_stacked)
-    else:
-        template = None
-        if theta0.ndim == 1:
-            theta0 = theta0.expand((num_chains,) + tuple(theta0.shape)).clone()
-    mass = _mass_for(theta0, template, inv_mass, config)
-    return _run_hmc_batched(key, theta0, lp, config, mass, _noise=_noise)
+    with profiling.annotate("run_hmc_chains"):
+        lp = resolve_potential(log_prob_fn, pass_grad)
+        theta0 = place_start(theta0)
+        if is_param_tree(theta0):
+            template, theta0 = stack_param_tree(theta0, num_chains, stacked=theta0_is_stacked)
+        else:
+            template = None
+            if theta0.ndim == 1:
+                theta0 = theta0.expand((num_chains,) + tuple(theta0.shape)).clone()
+        mass = _mass_for(theta0, template, inv_mass, config)
+        return _run_hmc_batched(key, theta0, lp, config, mass, _noise=_noise)

@@ -10,7 +10,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "hamiltorch_tpu_torch"
 # modules of the port with no JAX counterpart
-PORT_ONLY = {"utils/convert.py", "kernels/_build.py", "kernels/bnn_grad.py"}
+PORT_ONLY = {"utils/convert.py", "kernels/_build.py", "kernels/bnn_grad.py", "utils/precision.py",
+             "models/resnet_frn.py"}
 # CUDA sources with no Pallas counterpart: the gradient alone, for tests and timing
 CSRC_ONLY = {"bnn_grad.cu"}
 
