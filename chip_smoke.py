@@ -399,6 +399,15 @@ SVGD_CARD_TOL = ATOL
 # draws (SVGD steps) each but the main path's HMC (10 x 50)
 PARALLEL_DRAWS = 4
 PARALLEL_HMC = (10, 50, 2e-4)  # the main path's draws, steps a draw and step size
+# FRN with TLU (kernels/frn_tlu.py; no TPU kernel: the JAX package has no
+# FRN) at the planes of the resnet20_frn cell's blocks of 10,000 rows:
+# (rows, channels, side) of its three stages.  Kernel against the formula
+# in float64 on the same float32 inputs: float32 sums of up to 1,024
+# squares and products a plane, and of 10,000 planes a channel (in float64),
+# relative to the largest entry of each output.
+FRN_SHAPES = ((10_000, 16, 32), (10_000, 32, 16), (10_000, 64, 8))
+FRN_RTOL = 1e-5
+FRN_REPS = 10  # calls a timed run
 
 
 class SmokeError(RuntimeError):
@@ -749,6 +758,125 @@ def compare_bnn_gradient(torch, shape, seed, device):
           f"logp max_rel_err = {lerr:.3e}")
     if not (err <= GRAD_RTOL and lerr <= LOGP_RTOL):
         raise SmokeError(f"_bnn_gradient disagrees with its plain version: {err:.3e}, {lerr:.3e}")
+
+
+def frn_tlu_inputs(torch, n, c, side, seed, device):
+    """x, gamma, beta, tau and an upstream gradient dz, float32: scales near 1,
+    thresholds near -0.5, so the TLU clamps about a third of the responses."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    return (randn(n, c, side, side), 1 + 0.1 * randn(1, c, 1, 1), 0.1 * randn(1, c, 1, 1),
+            -0.5 + 0.1 * randn(1, c, 1, 1), randn(n, c, side, side))
+
+
+def frn_tlu_phase(torch, device, card) -> dict:
+    """FRN with TLU's kernel pair at the main path's planes (``FRN_SHAPES``):
+    held against the formula in float64, then timed in turns (median of 3
+    runs of ``FRN_REPS`` calls) beside the plain version (the formula
+    forward, ``_backward_reference`` backward) and the eager module's path
+    (the formula under autograd, as ``FilterResponseNorm`` ran before the
+    kernels), and beside its bound: 5 elements moved an element (x read and
+    z written forward; dz and x read and dx written backward) at the memory
+    rate.  Returns the summary of the largest shape."""
+    from hamiltorch_tpu_torch.kernels import frn_tlu as ft
+
+    eps, out, worst = 1e-6, {}, 0.0
+    for n, c, side in FRN_SHAPES:
+        x, gamma, beta, tau, dz = frn_tlu_inputs(torch, n, c, side, 7, device)
+        before = ft.frn_tlu.launches
+        z = ft._forward_cuda(x, gamma, beta, tau, eps)
+        got = (z, *ft._backward_cuda(dz, x, gamma, beta, tau, eps))
+        torch.cuda.synchronize()
+        if ft.frn_tlu.launches != before + 3:
+            raise SmokeError(f"frn_tlu queued {ft.frn_tlu.launches - before} kernels, not 3")
+        args64 = [t.double().requires_grad_(True) for t in (x, gamma, beta, tau)]
+        want_z = ft.frn_tlu_reference(*args64, eps)
+        # a response within float32's rounding of its threshold may fall on
+        # either side of it in float32: no upstream gradient there
+        with torch.no_grad():
+            x64, g64, b64, t64 = args64
+            r64 = torch.rsqrt(torch.mean(x64 * x64, dim=(2, 3), keepdim=True) + eps)
+            gap = (g64 * x64 * r64 + b64 - t64).abs()
+            del r64
+        near = (gap < 1e-5) & (gap > 0)
+        n_near = int(near.sum())
+        if n_near:
+            dz = dz.masked_fill(near, 0.0)
+            got = (z, *ft._backward_cuda(dz, x, gamma, beta, tau, eps))
+        want = (want_z.detach(), *torch.autograd.grad(want_z, args64, dz.double()))
+        errs = [float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
+        del args64, x64, g64, b64, t64, want_z, want, got, z, gap, near
+        worst = max(worst, max(errs))
+        print(f"frn_tlu {n}x{c}x{side}x{side} float32 against the formula in float64: z, dx, "
+              f"dgamma, dbeta, dtau within {', '.join(f'{e:.2e}' for e in errs)} of their "
+              f"largest entries ({n_near} responses within 1e-5 of tau left out of "
+              f"the gradients)")
+        if not max(errs) <= FRN_RTOL:
+            raise SmokeError(f"frn_tlu disagrees with the formula at {n}x{c}x{side}: {errs}")
+
+        def kernel(_seed, fwd=True, bwd=True):
+            for _ in range(FRN_REPS):
+                if fwd:
+                    ft._forward_cuda(x, gamma, beta, tau, eps)
+                if bwd:
+                    ft._backward_cuda(dz, x, gamma, beta, tau, eps)
+
+        def plain(_seed):
+            for _ in range(FRN_REPS):
+                ft.frn_tlu_reference(x, gamma, beta, tau, eps)
+                ft._backward_reference(dz, x, gamma, beta, tau, eps)
+
+        leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta, tau)]
+
+        def eager(_seed):
+            for _ in range(FRN_REPS):
+                torch.autograd.grad(ft.frn_tlu_reference(*leaves, eps), leaves, dz)
+
+        t = time_in_turns(torch, {"kernel": kernel, "forward": lambda s: kernel(s, bwd=False),
+                                  "backward": lambda s: kernel(s, fwd=False), "plain": plain,
+                                  "eager": eager})
+        ms = {name: v[0] / FRN_REPS for name, v in t.items()}
+        nbytes = 5 * x.numel() * x.element_size()
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        print(f"frn_tlu {n}x{c}x{side}x{side}: kernel pair {ms['kernel']:.4f} ms (forward "
+              f"{ms['forward']:.4f}, backward with the sum over images {ms['backward']:.4f}), "
+              f"plain {ms['plain']:.4f} ms, eager module {ms['eager']:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12:.2f} TB/s), "
+              f"{100 * bound_ms / ms['kernel']:.1f}% of it [{card}]")
+        out = {"shape": [n, c, side, side], "ms": ms["kernel"], "forward_ms": ms["forward"],
+               "backward_ms": ms["backward"], "plain_ms": ms["plain"], "library_ms": ms["eager"],
+               "bound_ms": bound_ms, "bound_by": "bytes"}
+        del x, gamma, beta, tau, dz, leaves
+    out["max_rel_err"] = worst
+    return out
+
+
+def frn_tlu_only() -> int:
+    """``python3 chip_smoke.py --frn-tlu``: the card, the build of
+    ``csrc/frn_tlu.cu`` and ``frn_tlu_phase`` alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py runs only on a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from hamiltorch_tpu_torch.kernels import _build
+
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    for line in _build.build_all(["frn_tlu"]).get("frn_tlu", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"  [frn_tlu] {line.strip()}")
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    summary = frn_tlu_phase(torch, torch.device("cuda:0"), card)
+    print(json.dumps({"frn_tlu": summary}))
+    return 0
 
 
 def tensor_core_check():
@@ -3583,7 +3711,7 @@ def main() -> int:
     from hamiltorch_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all([name for name, *_ in KERNELS] + ["bnn_grad", PROBES])
+    logs = _build.build_all([name for name, *_ in KERNELS] + ["bnn_grad", "frn_tlu", PROBES])
     logs = {Path(name).stem: log for name, log in logs.items()}
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
@@ -3675,6 +3803,8 @@ def main() -> int:
     wide_times = {dense: time_gaussian_hmc(torch, device, 1024, dense, 1024, 100, 10, 0.2, card,
                                            fma_ns, mma_ns) for dense in (False, True)}
 
+    frn = frn_tlu_phase(torch, device, card)
+
     # 5. the main paths, each counted from 0
     t_paths = time.perf_counter()
     launches = {
@@ -3727,6 +3857,9 @@ def main() -> int:
                 "launches": launches[name], "max_abs_err": errs[name], **times[name]}
                for name, route, source, replaces in KERNELS]
     gauss = summary[-1]
+    summary.append({"name": "frn_tlu", "route": "cuda",
+                    "source": "hamiltorch_tpu_torch/kernels/csrc/frn_tlu.cu", "replaces": None,
+                    **frn})
     gauss["max_abs_err_variant5"] = wide_err
     for dense, t in wide_times.items():
         gauss[f"variant5_d1024_{'dense' if dense else 'diagonal'}"] = {
@@ -3741,4 +3874,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--evidence-spread"]:
         sys.exit(evidence_spread(sys.argv[2:]))
+    if sys.argv[1:2] == ["--frn-tlu"]:
+        sys.exit(frn_tlu_only())
     sys.exit(main())

@@ -11,9 +11,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "hamiltorch_tpu_torch"
 # modules of the port with no JAX counterpart
 PORT_ONLY = {"utils/convert.py", "kernels/_build.py", "kernels/bnn_grad.py", "utils/precision.py",
-             "models/resnet_frn.py"}
-# CUDA sources with no Pallas counterpart: the gradient alone, for tests and timing
-CSRC_ONLY = {"bnn_grad.cu"}
+             "models/resnet_frn.py", "kernels/frn_tlu.py"}
+# CUDA sources with no Pallas counterpart: the gradient alone, for tests and
+# timing; FRN with TLU, for the port's ResNet-20-FRN (the JAX package has no FRN)
+CSRC_ONLY = {"bnn_grad.cu", "frn_tlu.cu"}
 
 
 def test_imports_with_jax_blocked():

@@ -8,7 +8,11 @@ network with narrow widths and 8x8 images.  The potential with
 gradients to float64 rounding, under ``torch.func.grad_and_value`` and
 ``vmap`` over chains, and through ``run_hmc_chains`` draw for draw.  The
 TF32 switches are read inside the potential's forward and backward, and
-after it; the recorder's spans and counters are counted.
+after it; the recorder's spans and counters are counted.  FRN with TLU's
+``torch.autograd.Function`` (``kernels/frn_tlu.py``), which the card's
+kernels sit behind, is held on its plain path against the formula that the
+CPU runs: forward and gradients with ties, under ``torch.func.grad`` over
+the potential and ``vmap`` over the model.
 """
 
 import math
@@ -18,8 +22,9 @@ import torch
 from torch import nn
 
 from benchmark.reference.resnet20_frn import ResNet20FRN
-from hamiltorch_tpu_torch.models import FilterResponseNorm, resnet20_frn_swish
-from hamiltorch_tpu_torch.models.bnn import define_model_log_prob, sample_model
+from hamiltorch_tpu_torch.kernels import frn_tlu as ft
+from hamiltorch_tpu_torch.models import FilterResponseNorm, resnet20_frn_swish, resnet_frn
+from hamiltorch_tpu_torch.models.bnn import define_model_log_prob, predict_model, sample_model
 from hamiltorch_tpu_torch.samplers.driver import MCMCConfig
 from hamiltorch_tpu_torch.samplers.hmc import run_hmc_chains
 from hamiltorch_tpu_torch.utils import profiling
@@ -248,3 +253,115 @@ def test_recorder_counts_calls_gradients_and_blocks(block_rows):
     assert {p.call for p in potentials} == {s.id for s in calls}
     assert counters == {"potential.blocks": grads * math.ceil(N / block_rows),
                         "potential.rows": grads * N}
+
+
+# ---------------------------------------------------------------------------
+# FRN with TLU's Function on its plain path
+
+
+def _frn_args(dtype, side=6, seed=0):
+    """x, gamma, beta, tau and an upstream gradient; channel 1 has tau = beta
+    and zeros in its first row, so those responses tie (y = beta = tau)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(3, 4, side, side, generator=gen, dtype=torch.float64)
+    gamma = 1 + 0.3 * torch.randn(1, 4, 1, 1, generator=gen, dtype=torch.float64)
+    beta = 0.2 * torch.randn(1, 4, 1, 1, generator=gen, dtype=torch.float64)
+    tau = beta - 0.3
+    tau[0, 1] = beta[0, 1]
+    x[:, 1, 0] = 0.0
+    dz = torch.randn(x.shape, generator=gen, dtype=torch.float64)
+    return [t.to(dtype) for t in (x, gamma, beta, tau, dz)]
+
+
+def _through(fn, x, gamma, beta, tau, dz):
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta, tau)]
+    z = fn(*leaves, 1e-6)
+    return (z.detach(), *torch.autograd.grad(z, leaves, dz))
+
+
+@pytest.mark.parametrize("side", [6, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_frn_function_equals_the_formula(dtype, side):
+    """Forward, and the gradients of x, gamma, beta and tau, ties included:
+    the kernels' backward algebra (``_backward_reference``) against
+    autograd's of the formula; float32 within its rounding."""
+    args = _frn_args(dtype, side)
+    got = _through(ft._FrnTlu.apply, *args)
+    want = _through(ft.frn_tlu_reference, *args)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}[dtype]
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def test_frn_ties_split_the_gradient_in_halves():
+    x, gamma, beta, tau, dz = _frn_args(torch.float64)
+    x[:, 1] = 0.0  # every response of channel 1 ties
+    z, dx, dgamma, dbeta, dtau = _through(ft._FrnTlu.apply, x, gamma, beta, tau, dz)
+    assert torch.equal(z[:, 1], tau[0, 1].expand_as(z[:, 1]))
+    half = 0.5 * dz[:, 1].sum()
+    torch.testing.assert_close(dbeta[0, 1, 0, 0], half, rtol=1e-14, atol=1e-14)
+    torch.testing.assert_close(dtau[0, 1, 0, 0], half, rtol=1e-14, atol=1e-14)
+    want = _through(ft.frn_tlu_reference, x, gamma, beta, tau, dz)
+    for a, b in zip((dx, dgamma, dbeta, dtau), want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-13, atol=1e-13)
+
+
+def test_the_cpu_module_runs_the_formula():
+    """On CPU tensors the module is the formula under autograd, as before
+    the kernels: no Function, no launch."""
+    frn = FilterResponseNorm(3).double()
+    before = ft.frn_tlu.launches
+    out = frn(torch.randn(2, 3, 4, 4, dtype=torch.float64, requires_grad=True))
+    assert "Maximum" in out.grad_fn.name()
+    assert ft.frn_tlu.launches == before
+
+
+@pytest.fixture
+def frn_function(monkeypatch):
+    """The model's FRN layers through the Function's plain path, as the
+    card runs them through its kernels."""
+    monkeypatch.setattr(resnet_frn, "frn_tlu", ft._FrnTlu.apply)
+
+
+@pytest.mark.parametrize("block_rows", [None, 7])
+def test_frn_function_under_grad_and_vmap_of_the_potential(frn_function, block_rows):
+    lp, init, _ = _potential()
+    theta = _flat_start(resnet20_frn_swish(**SMALL), 4) + 0.01 * torch.randn(
+        2, init.numel(), generator=torch.Generator().manual_seed(6), dtype=torch.float64)
+    got = torch.func.vmap(torch.func.grad_and_value(_potential(block_rows)[0]))(theta)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(resnet_frn, "frn_tlu", ft.frn_tlu_reference)
+        want = torch.func.vmap(torch.func.grad_and_value(lp))(theta)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-13, atol=1e-10)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-12, atol=1e-10)
+    torch.testing.assert_close(torch.func.grad(lp)(theta[0]), want[0][0], rtol=1e-12, atol=1e-10)
+
+
+def test_frn_function_under_vmap_over_the_model(frn_function):
+    """``predict_model`` vmaps the model over samples."""
+    x, y = _data(n=5)
+    model = resnet20_frn_swish(**SMALL).double()
+    samples = torch.stack([_flat_start(model, s) for s in (1, 2, 3)])
+    got = predict_model(model, samples, x, y, tau_list=5.0, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(resnet_frn, "frn_tlu", ft.frn_tlu_reference)
+        want = predict_model(model, samples, x, y, tau_list=5.0, device="cpu")
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-13, atol=1e-12)
+
+
+def test_frn_function_refuses_second_derivatives(frn_function):
+    x, gamma, beta, tau, _ = _frn_args(torch.float64)
+    x.requires_grad_(True)
+    (g,) = torch.autograd.grad(ft._FrnTlu.apply(x, gamma, beta, tau, 1e-6).square().sum(), x,
+                               create_graph=True)
+    with pytest.raises(RuntimeError, match="first derivatives only"):
+        g.sum().backward()
+    with pytest.raises(NotImplementedError, match="forward-mode"):
+        torch.func.jvp(lambda v: ft._FrnTlu.apply(v, gamma, beta, tau, 1e-6), (x.detach(),),
+                       (torch.ones_like(x),))
+    lp, init, _ = _potential()
+    with pytest.raises(NotImplementedError, match="forward-mode"):
+        torch.func.hessian(lp)(_flat_start(resnet20_frn_swish(**SMALL), 1))
