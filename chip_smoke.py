@@ -61,14 +61,14 @@ the kernels are built for sm_90a).  It
    100 draws x L=10) beside cuBLAS's (C, D) x (D, D) matvec of every step,
    the dense one beside its 3xTF32 bound, the time of its ``mma.sync`` at
    the probed rate and a model (from the shapes, not a measurement) of the
-   bytes a step moves through L2 in this design and the former.  A kernel
+   bytes a step moves through L2.  A kernel
    whose products run on the tensor cores in 3xTF32 (the BNN kernels,
    ``gaussian_hmc`` at dense P) takes the 3xTF32 time of its operations as
    its ``bound_ms`` where that is below the float32 FMA time
    (``bound_ops_peak`` names the peak taken); for ``bnn_mclmc`` also its
    CUDA launches a draw (counted by the recorder, ``utils/profiling.py``)
    and a model, from the shapes and not measured, of the bytes its velocity
-   algebra moves a draw in this design and the former;
+   algebra moves a draw;
 5. drives the main paths, each with the launch counts set to 0 just before
    it and read just after, and fails if its kernel was not launched:
    - HMC: the fused flagship sampler ``kernels.bnn_hmc`` and
@@ -947,15 +947,14 @@ def packed_floats(shape):
 
 
 # reads and writes of one all-chain state array (g, u or theta) that a draw
-# of bnn_mclmc makes: this design (csrc/bnn_mclmc.cu's head note) and the
-# former (scripts/csrc/bnn_mclmc_variants.cu)
-MCLMC_PASSES = (15, 27)
+# of bnn_mclmc makes (csrc/bnn_mclmc.cu's head note)
+MCLMC_PASSES = 15
 
 
-def velocity_bytes(shape, passes):
+def velocity_bytes(shape):
     """A model, from the shapes alone, of the bytes a draw's velocity algebra
-    moves: passes x the chains' packed state in float32."""
-    return passes * 4 * shape["c"] * packed_floats(shape)
+    moves: MCLMC_PASSES x the chains' packed state in float32."""
+    return MCLMC_PASSES * 4 * shape["c"] * packed_floats(shape)
 
 
 def launches_per_draw(fn, entry):
@@ -985,11 +984,9 @@ def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
                               "plain": lambda s: bnn_mclmc_reference(s, *args, u, **kw)})
     per_draw = launches_per_draw(lambda k: bnn_mclmc(0, *args, u, **{**kw, "num_samples": k}),
                                  "bnn_mclmc")
-    this_b, former_b = (velocity_bytes(FLAGSHIP, p) for p in MCLMC_PASSES)
     print(f"bnn_mclmc: {per_draw:g} CUDA launches a draw (the recorder); velocity algebra "
-          f"{this_b / 1e6:.1f} MB a draw modelled from the shapes ({MCLMC_PASSES[0]} passes over "
-          f"the state; the former design's {MCLMC_PASSES[1]}: {former_b / 1e6:.1f} MB), not "
-          f"measured [{card}]")
+          f"{velocity_bytes(FLAGSHIP) / 1e6:.1f} MB a draw modelled from the shapes "
+          f"({MCLMC_PASSES} passes over the state), not measured [{card}]")
     (k_ms, k_all), (p_ms, p_all) = t["kernel"], t["plain"]
     grad_steps = FLAGSHIP["c"] * draws * 2
     gradients = 2 * draws + 1  # two per draw, one at the start
@@ -1010,27 +1007,18 @@ def time_bnn_mclmc(torch, device, gemm_ms, draws, eps, length, card):
 
 def dense_l2_bytes(d, chains):
     """A model, from the shapes alone, of the bytes that one leapfrog step
-    of gaussian_hmc's any-D variant moves through L2 at dense P: (this
-    design, the former).  This design: each tile reads its 128 rows of P^T
-    and its chains' theta - mean over Dp (D rounded up to 128), 4 bytes an
-    element, and its epilogue reads p and the trajectory's theta and writes
-    them and the next theta - mean (5 x 4 bytes an entry of the padded
-    tiles).  The former design: every block of 1-8 chains (as many as its
-    shared memory held: 6 float32 arrays of D rounded up to 4 a chain and
-    144 bytes of partial sums) read all of P."""
-    from hamiltorch_tpu_torch.kernels.gaussian_hmc import DENSE_ROWS, MAX_SHARED, _plan
+    of gaussian_hmc's any-D variant moves through L2 at dense P: each tile
+    reads its 128 rows of P^T and its chains' theta - mean over Dp (D
+    rounded up to 128), 4 bytes an element, and its epilogue reads p and the
+    trajectory's theta and writes them and the next theta - mean (5 x 4
+    bytes an entry of the padded tiles)."""
+    from hamiltorch_tpu_torch.kernels.gaussian_hmc import DENSE_ROWS, _plan
 
     chain_tile = _plan(d, True, 8, chains).group
     dp = -(-d // DENSE_ROWS) * DENSE_ROWS
     cp = -(-chains // chain_tile) * chain_tile
     tiles = dp // DENSE_ROWS * (cp // chain_tile)
-    this = tiles * (DENSE_ROWS + chain_tile) * dp * 4 + 5 * 4 * dp * cp
-    per_block = 1  # the former plan: the fewest chains a block that fill the card, at most 8
-    while per_block < 8 and per_block * 132 < chains:
-        per_block *= 2
-    while per_block > 1 and per_block * (144 + 24 * -(-d // 4) * 4) > MAX_SHARED:
-        per_block //= 2
-    return this, -(-chains // per_block) * 4 * d * d
+    return tiles * (DENSE_ROWS + chain_tile) * dp * 4 + 5 * 4 * dp * cp
 
 
 def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card, fma_ns, mma_ns):
@@ -1089,7 +1077,6 @@ def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card, 
     if dense and plan.variant == 5:  # one (C, D) x (D, D) product a step across the grid
         from hamiltorch_tpu_torch.kernels.gaussian_hmc import DENSE_ROWS
 
-        this_b, former_b = dense_l2_bytes(d, chains)
         dp = -(-d // DENSE_ROWS) * DENSE_ROWS
         cp = -(-chains // plan.group) * plan.group
         tiles = dp // DENSE_ROWS * (cp // plan.group)
@@ -1098,8 +1085,7 @@ def time_gaussian_hmc(torch, device, d, dense, chains, draws, steps, eps, card, 
                    / (4 * min(tiles, 132)) * mma_ns * 1e-6)
         tc = (f", {tc_ms:.4g} ms (3xTF32 tensor cores), {sync_ms:.4g} ms (its mma.sync at the "
               f"probed rate over the SMs its {tiles} tiles fill); L2 bytes a step, modelled "
-              f"from the shapes (not measured): {this_b / 2**20:.1f} MiB (the former design: "
-              f"{former_b / 2**20:.1f} MiB)")
+              f"from the shapes (not measured): {dense_l2_bytes(d, chains) / 2**20:.1f} MiB")
     mma_ops = f", {ops_ms(flops, tf32_flops)[0]:.4g} with the product in 3xTF32" if mma else ""
     print(f"gaussian_hmc D={d} {kind} {chains} chains {draws}x{steps} (variant {plan.variant}): "
           f"kernel {k_ms:.3f} ms "

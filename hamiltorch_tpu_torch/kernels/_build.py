@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  (A ``Path`` in place of a
-name is a source elsewhere in the checkout: the probes and former designs
-that the timing scripts build for themselves.)  It is compiled with
+name is a source elsewhere in the checkout, such as the probe kernels that
+``chip_smoke.py`` builds.)  It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``build/``
 beside this file (the directory is git-ignored) at first use, and loaded
 with ``ctypes``.  The library's file name carries a hash of its source, of every

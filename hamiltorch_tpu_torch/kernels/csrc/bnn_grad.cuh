@@ -102,9 +102,7 @@
 // float64 (at the flagship each is a sum near 5e4, and the samplers use
 // differences of such sums).
 //
-// scripts/bnn_gemm_variants_torch.py times this design beside the designs
-// tried against it (scripts/csrc/bnn_grad_variants.cuh) and beside the
-// former one (scripts/csrc/bnn_grad_former.cuh).
+// This design replaced the former one in commit b7e77cb (commit 1efd31b holds it).
 #ifndef HAMILTORCH_BNN_GRAD_CUH
 #define HAMILTORCH_BNN_GRAD_CUH
 
@@ -1076,25 +1074,24 @@ int launch_gradient(const BnnDims& s, const GradMaps& m, const float* y, float* 
 
 // MCLMC's evaluation (no kick): launch_gradient's gradient into gr and logp
 // into logp_prop, and each chain's |g|^2, u.g and |u|^2 against the velocity
-// u into dots (C, 3), in float64.  With dependent, the backward and small
-// kernels are programmatic dependent launches (launch_ex).  phases as
+// u into dots (C, 3), in float64.  The backward and small kernels are
+// programmatic dependent launches (launch_ex).  phases as
 // launch_gradient's.  Returns the first launch error as a cudaError_t (0 on
 // success).
 int launch_gradient_dots(const BnnDims& s, const GradMaps& m, const float* y, float* th, float* gr,
                          const float* u, const GradScratch& w, double* logp_prop, double* dots,
-                         float tau, bool dependent, cudaStream_t stream,
-                         long long* phases = nullptr) {
+                         float tau, cudaStream_t stream, long long* phases = nullptr) {
   LAUNCH(forward_kernel<<<s.fwd_grid, NT, GEMM_SMEM, stream>>>(
       m.x, m.w1t, y, th, w.dat, w.pgw2, w.pgb1, w.pgb2, w.pll, s, tau));
   int err;
   if ((err = launch_ex(phases ? backward_kernel<true, true> : backward_kernel<true>,
-                       dim3(s.bwd_grid), NT, GEMM_SMEM, stream, dependent, m.dat, m.xt, th, gr,
+                       dim3(s.bwd_grid), NT, GEMM_SMEM, stream, m.dat, m.xt, th, gr,
                        (float*)nullptr, w.pprior, w.pkin, u, w.pdots, s, 0.f, 0.f, 0,
                        phases)) != 0)
     return err;
-  return launch_ex(small_kernel<true>, s.chains, 128, 0, stream, dependent, th, gr,
-                   (float*)nullptr, w.pgw2, w.pgb1, w.pgb2, w.pll, w.pprior, w.pkin, logp_prop,
-                   (double*)nullptr, u, w.pdots, dots, s, tau, 0.f, 0.f, 0);
+  return launch_ex(small_kernel<true>, s.chains, 128, 0, stream, th, gr, (float*)nullptr, w.pgw2,
+                   w.pgb1, w.pgb2, w.pll, w.pprior, w.pkin, logp_prop, (double*)nullptr, u, w.pdots,
+                   dots, s, tau, 0.f, 0.f, 0);
 }
 
 }  // namespace

@@ -30,7 +30,7 @@
 // TB/s) in 9 launches: two rotations with their drift at 5 passes each
 // (read g, u, theta; write u, theta), the third rotation with the refresh
 // at 3 (read g, u; write u), and 2 reads of u in the gradients' epilogues.
-// The former design (scripts/csrc/bnn_mclmc_variants.cu) moved 27 passes
+// The former design, replaced in commit 1efd31b, moved 27 passes
 // (695 MB, 0.208 ms) in 16 launches: each rotation read g and u for its
 // dots, again to rotate, and u once more to normalise and drift, and the
 // refresh took two passes of its own.
@@ -62,24 +62,18 @@
 // order, so a run is deterministic; parameters, velocities and gradients
 // stay float32.
 //
-// Launch options (mclmc_run's `options`): kReverse walks the passes' chains
-// from the last, whose g and u the backward kernel wrote last (still in L2);
-// kDependent launches the passes and the gradients' backward and per-chain
-// kernels as programmatic dependents of the kernel before them; kGraph
-// replays every draw after the first as one CUDA graph, the draw index read
-// from device memory.  bnn_mclmc_run takes all three (kOptions): each gained
-// alone, and together they take ~2% off a flagship run
-// (scripts/bnn_mclmc_variants_torch.py times each set, from its own build of
-// this file).
+// Launches: the passes walk the chains from the last, whose g and u the
+// backward kernel wrote last (still in L2); the passes and the gradients'
+// backward and per-chain kernels are programmatic dependents of the kernel
+// before them (launch_ex); every draw after the first replays one CUDA graph,
+// the draw index read from device memory.  Each of the three gained alone,
+// and together they took ~2% off a flagship run (commit 1efd31b).
 
 #include "bnn_grad.cuh"
 
 namespace {
 
 constexpr double B1 = 0.1931833275037836;  // minimal-norm velocity coefficient
-
-enum Option { kReverse = 1, kDependent = 2, kGraph = 4 };
-constexpr int kOptions = kReverse | kDependent | kGraph;  // the package's choice
 
 // Where a pass finds the velocity it rotates and its dots against g:
 // kUnit: u is the unit vector a pass wrote, the dots those of the gradient;
@@ -175,16 +169,15 @@ __device__ void rotation(Rotation* r, int c, int src, const double* __restrict__
 
 // Rotation 1 or 2 with the drift that follows it, over every packed slot of
 // the chain (padding slots hold zeros in g, u and th and keep them):
-// u <- inv (ce g + s scale u), th += h u.  With draw_ctr (kGraph) block 0
-// also counts the draw.
+// u <- inv (ce g + s scale u), th += h u.  With draw_ctr (the graph) block 0
+// also counts the draw.  Block row y takes chain C - 1 - y.
 __global__ void __launch_bounds__(EW) rotate_drift_kernel(
     const float* __restrict__ g, float* __restrict__ u, float* __restrict__ th,
     const double* __restrict__ dots, const double* __restrict__ pv, double* __restrict__ dk,
-    int src, double dims, long long dp, double coef, float h, int* __restrict__ draw_ctr,
-    int reverse) {
+    int src, double dims, long long dp, double coef, float h, int* __restrict__ draw_ctr) {
   grid_dependency_wait();
   __shared__ Rotation rot;
-  const int c = reverse ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int c = gridDim.y - 1 - blockIdx.y;
   rotation(&rot, c, src, dots, pv, dk, nullptr, nullptr, nullptr, dims, coef, 0);
   if (draw_ctr && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) ++*draw_ctr;
   __syncthreads();
@@ -212,26 +205,27 @@ __global__ void __launch_bounds__(EW) rotate_drift_kernel(
 
 // Rotation 3 and the refresh, closing the draw: v = inv (ce g + s u) + nu z
 // (z from Philox, or the given normals, both keyed on the logical element;
-// the draw index from *draw_ctr where that is given) into u, and per-block
+// the draw index from *draw_ctr where that is given, else 0) into u, and per-block
 // partial sums of |v|^2 and v.g into pv.  Padding slots are not touched.
+// Block row y takes chain C - 1 - y.
 __global__ void __launch_bounds__(EW) rotate_refresh_kernel(
     const float* __restrict__ g, float* __restrict__ u, const double* __restrict__ dots,
     double* __restrict__ pv, double* __restrict__ dk, double* __restrict__ logp_cur,
     const double* __restrict__ logp_prop, double* __restrict__ sum_de2, const BnnDims s,
-    double coef, float nu, int draw, const int* __restrict__ draw_ctr, uint2 key,
-    const float* __restrict__ normals, int reverse) {
+    double coef, float nu, const int* __restrict__ draw_ctr, uint2 key,
+    const float* __restrict__ normals) {
   grid_dependency_wait();
   __shared__ Rotation rot;
-  const int c = reverse ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int c = gridDim.y - 1 - blockIdx.y;
   rotation(&rot, c, kUnit, dots, nullptr, dk, logp_cur, logp_prop, sum_de2, (double)s.d, coef, 1);
-  if (draw_ctr) draw = *draw_ctr;
+  const int draw = draw_ctr ? *draw_ctr : 0;
   __syncthreads();
   const Rotation r = rot;
   const float* gc = g + c * s.dp;
   float* uc = u + c * s.dp;
   const float* z_in = normals ? normals + ((long long)draw * s.chains + c) * s.d : nullptr;
   double vv = 0.0, vg = 0.0;
-  const unsigned pairs = (unsigned)((s.d + 1) / 2);  // d < 2^31 (mclmc_run checks)
+  const unsigned pairs = (unsigned)((s.d + 1) / 2);  // d < 2^31 (bnn_mclmc_run checks)
   for (unsigned q = blockIdx.x * blockDim.x + threadIdx.x; q < pairs; q += gridDim.x * blockDim.x) {
     const Pair pr = pair_at(q, s);
     const bool two = pr.m1 >= 0;
@@ -266,107 +260,6 @@ __global__ void __launch_bounds__(EW) rotate_refresh_kernel(
   }
 }
 
-// bnn_mclmc_run with the given options (a sum of Option values).
-int mclmc_run(const float* x, const float* y, const float* w1, const float* b1, const float* w2,
-              const float* b2, const float* u_in, float* w1_out, float* b1_out, float* w2_out,
-              float* b2_out, float* var_e_out, void* workspace, int n, int in_dim, int hidden,
-              int chains, int num_samples, float step_size, float nu, float tau,
-              unsigned long long seed, const float* normals, int fwd_grid, int bwd_grid,
-              void* stream_ptr, int options, long long* phases = nullptr) {
-  if (hidden % HC != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535 ||
-      (long long)in_dim * hidden + 2LL * hidden + 1 >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const Layout L = make_layout(n, in_dim, hidden, chains);
-  BnnDims S = L.s;
-  if (!set_grids(S, fwd_grid, bwd_grid)) return (int)cudaErrorInvalidValue;
-  char* ws = (char*)workspace;
-  float* th = (float*)(ws + L.th);
-  float* u = (float*)(ws + L.u);
-  float* g = (float*)(ws + L.g);
-  const GradScratch scratch = grad_scratch(ws, L.grad_ws);
-  GradMaps maps;
-  double* dots = (double*)(ws + L.dots);
-  double* pv = (double*)(ws + L.pv);
-  double* logp_cur = (double*)(ws + L.logp_cur);
-  double* logp_prop = (double*)(ws + L.logp_prop);
-  double* dk = (double*)(ws + L.dk);
-  double* sum_de2 = (double*)(ws + L.sum_de2);
-  int* draw_ctr = (int*)(ws + L.draw_ctr);
-  const uint2 key = seed_key(seed);
-  const dim3 ew_grid(S.ew_blocks, chains);
-  const float half = 0.5f * step_size;
-  const bool dep = options & kDependent;
-  const int rev = (options & kReverse) ? 1 : 0;
-  const double dims = (double)S.d;
-  int err;
-
-  auto gradient = [&](cudaStream_t st) -> int {
-    return launch_gradient_dots(S, maps, y, th, g, u, scratch, logp_prop, dots, tau, dep, st,
-                                phases);
-  };
-  // V(coef) then X(eps/2)
-  auto rotate_drift = [&](cudaStream_t st, int src, double coef, int* ctr) -> int {
-    return launch_ex(rotate_drift_kernel, ew_grid, EW, 0, st, dep, g, u, th, dots, pv, dk, src,
-                     dims, S.dp, coef, half, ctr, rev);
-  };
-  // one draw; with ctr (a graph) the draw index is read from *ctr
-  auto one_draw = [&](cudaStream_t st, int draw, int src, int* ctr) -> int {
-    if ((err = rotate_drift(st, src, B1 * step_size, ctr)) != 0) return err;
-    if ((err = gradient(st)) != 0) return err;
-    if ((err = rotate_drift(st, kUnit, (1.0 - 2.0 * B1) * step_size, nullptr)) != 0) return err;
-    if ((err = gradient(st)) != 0) return err;
-    return launch_ex(rotate_refresh_kernel, ew_grid, EW, 0, st, dep, g, u, dots, pv, dk, logp_cur,
-                     logp_prop, sum_de2, S, B1 * step_size, nu, draw, (const int*)ctr, key,
-                     normals, rev);
-  };
-
-  if ((err = prepare_gradient_maps(S, th, scratch, &maps, phases != nullptr)) != 0) return err;
-  // zeros everywhere first: the padding slots of the packed state stay zero
-  if ((err = queued([&] { return cudaMemsetAsync(ws, 0, L.bytes, stream); })) != 0) return err;
-  LAUNCH(pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, th, nullptr, S));
-  LAUNCH(pack_flat_kernel<<<ew_grid, EW, 0, stream>>>(u_in, u, S));
-  if ((err = stage_x(S, x, scratch, stream)) != 0) return err;
-  // gradient, logp and the dots of the given u at the initial point
-  if ((err = gradient(stream)) != 0) return err;
-  if ((err = queued([&] {
-         return cudaMemcpyAsync(logp_cur, logp_prop, sizeof(double) * chains,
-                                cudaMemcpyDeviceToDevice, stream);
-       })) != 0)
-    return err;
-
-  if ((err = one_draw(stream, 0, kGiven, nullptr)) != 0) return err;
-  if ((options & kGraph) && num_samples > 1) {
-    cudaStream_t cs;
-    cudaGraph_t graph = nullptr;
-    cudaGraphExec_t exec = nullptr;
-    long long captured[kHostStats] = {};  // the graph's kernels, each queued per replay
-    if ((err = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking)) != 0) return err;
-    err = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
-    if (err == 0) {
-      const CaptureStats capture(captured);
-      err = one_draw(cs, 0, kRefreshed, draw_ctr);
-      const int end = (int)cudaStreamEndCapture(cs, &graph);
-      if (err == 0) err = end;
-    }
-    if (err == 0) err = (int)cudaGraphInstantiate(&exec, graph, 0);
-    for (int draw = 1; err == 0 && draw < num_samples; ++draw)
-      err = queued([&] { return cudaGraphLaunch(exec, stream); }, captured[kLaunches]);
-    if (exec) cudaGraphExecDestroy(exec);  // freed once its launches are done
-    if (graph) cudaGraphDestroy(graph);
-    cudaStreamDestroy(cs);
-    if (err != 0) return err;
-  } else {
-    for (int draw = 1; draw < num_samples; ++draw)
-      if ((err = one_draw(stream, draw, kRefreshed, nullptr)) != 0) return err;
-  }
-
-  LAUNCH(unpack_kernel<<<ew_grid, EW, 0, stream>>>(
-      th, sum_de2, (double)num_samples * (double)S.d, w1_out, b1_out, w2_out, b2_out, var_e_out,
-      S));
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -396,9 +289,92 @@ int bnn_mclmc_run(const float* x, const float* y, const float* w1, const float* 
                   const float* normals, int fwd_grid, int bwd_grid, void* stream_ptr,
                   long long* stats, long long* phases) {
   const HostStatsScope accounted(stats);
-  return mclmc_run(x, y, w1, b1, w2, b2, u_in, w1_out, b1_out, w2_out, b2_out, var_e_out,
-                   workspace, n, in_dim, hidden, chains, num_samples, step_size, nu, tau, seed,
-                   normals, fwd_grid, bwd_grid, stream_ptr, kOptions, phases);
+  if (hidden % HC != 0 || n < 1 || in_dim < 1 || chains < 1 || chains > 65535 ||
+      (long long)in_dim * hidden + 2LL * hidden + 1 >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const Layout L = make_layout(n, in_dim, hidden, chains);
+  BnnDims S = L.s;
+  if (!set_grids(S, fwd_grid, bwd_grid)) return (int)cudaErrorInvalidValue;
+  char* ws = (char*)workspace;
+  float* th = (float*)(ws + L.th);
+  float* u = (float*)(ws + L.u);
+  float* g = (float*)(ws + L.g);
+  const GradScratch scratch = grad_scratch(ws, L.grad_ws);
+  GradMaps maps;
+  double* dots = (double*)(ws + L.dots);
+  double* pv = (double*)(ws + L.pv);
+  double* logp_cur = (double*)(ws + L.logp_cur);
+  double* logp_prop = (double*)(ws + L.logp_prop);
+  double* dk = (double*)(ws + L.dk);
+  double* sum_de2 = (double*)(ws + L.sum_de2);
+  int* draw_ctr = (int*)(ws + L.draw_ctr);
+  const uint2 key = seed_key(seed);
+  const dim3 ew_grid(S.ew_blocks, chains);
+  const float half = 0.5f * step_size;
+  const double dims = (double)S.d;
+  int err;
+
+  auto gradient = [&](cudaStream_t st) -> int {
+    return launch_gradient_dots(S, maps, y, th, g, u, scratch, logp_prop, dots, tau, st, phases);
+  };
+  // V(coef) then X(eps/2)
+  auto rotate_drift = [&](cudaStream_t st, int src, double coef, int* ctr) -> int {
+    return launch_ex(rotate_drift_kernel, ew_grid, EW, 0, st, g, u, th, dots, pv, dk, src, dims,
+                     S.dp, coef, half, ctr);
+  };
+  // one draw; with ctr (the graph) the draw is counted in and its index read from *ctr
+  auto one_draw = [&](cudaStream_t st, int src, int* ctr) -> int {
+    if ((err = rotate_drift(st, src, B1 * step_size, ctr)) != 0) return err;
+    if ((err = gradient(st)) != 0) return err;
+    if ((err = rotate_drift(st, kUnit, (1.0 - 2.0 * B1) * step_size, nullptr)) != 0) return err;
+    if ((err = gradient(st)) != 0) return err;
+    return launch_ex(rotate_refresh_kernel, ew_grid, EW, 0, st, g, u, dots, pv, dk, logp_cur,
+                     logp_prop, sum_de2, S, B1 * step_size, nu, (const int*)ctr, key, normals);
+  };
+
+  if ((err = prepare_gradient_maps(S, th, scratch, &maps, phases != nullptr)) != 0) return err;
+  // zeros everywhere first: the padding slots of the packed state stay zero
+  if ((err = queued([&] { return cudaMemsetAsync(ws, 0, L.bytes, stream); })) != 0) return err;
+  LAUNCH(pack_kernel<<<ew_grid, EW, 0, stream>>>(w1, b1, w2, b2, th, nullptr, S));
+  LAUNCH(pack_flat_kernel<<<ew_grid, EW, 0, stream>>>(u_in, u, S));
+  if ((err = stage_x(S, x, scratch, stream)) != 0) return err;
+  // gradient, logp and the dots of the given u at the initial point
+  if ((err = gradient(stream)) != 0) return err;
+  if ((err = queued([&] {
+         return cudaMemcpyAsync(logp_cur, logp_prop, sizeof(double) * chains,
+                                cudaMemcpyDeviceToDevice, stream);
+       })) != 0)
+    return err;
+
+  // the first draw, then every later one as a replay of one captured graph
+  if ((err = one_draw(stream, kGiven, nullptr)) != 0) return err;
+  if (num_samples > 1) {
+    cudaStream_t cs;
+    cudaGraph_t graph = nullptr;
+    cudaGraphExec_t exec = nullptr;
+    long long captured[kHostStats] = {};  // the graph's kernels, each queued per replay
+    if ((err = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking)) != 0) return err;
+    err = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
+    if (err == 0) {
+      const CaptureStats capture(captured);
+      err = one_draw(cs, kRefreshed, draw_ctr);
+      const int end = (int)cudaStreamEndCapture(cs, &graph);
+      if (err == 0) err = end;
+    }
+    if (err == 0) err = (int)cudaGraphInstantiate(&exec, graph, 0);
+    for (int draw = 1; err == 0 && draw < num_samples; ++draw)
+      err = queued([&] { return cudaGraphLaunch(exec, stream); }, captured[kLaunches]);
+    if (exec) cudaGraphExecDestroy(exec);  // freed once its launches are done
+    if (graph) cudaGraphDestroy(graph);
+    cudaStreamDestroy(cs);
+    if (err != 0) return err;
+  }
+
+  LAUNCH(unpack_kernel<<<ew_grid, EW, 0, stream>>>(
+      th, sum_de2, (double)num_samples * (double)S.d, w1_out, b1_out, w2_out, b2_out, var_e_out,
+      S));
+  return 0;
 }
 
 }  // extern "C"

@@ -314,13 +314,13 @@ __device__ __forceinline__ void grid_dependency_wait() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
-// Launches kernel<<<grid, block, smem, stream>>>(args...); with dependent, as
-// a programmatic dependent launch, which the card may start while the grid
-// before it on the stream finishes (the kernel must call
-// grid_dependency_wait first).  Returns the launch's cudaError_t.
+// Launches kernel<<<grid, block, smem, stream>>>(args...) as a programmatic
+// dependent launch, which the card may start while the grid before it on the
+// stream finishes (the kernel must call grid_dependency_wait first).
+// Returns the launch's cudaError_t.
 template <typename... Params, typename... Args>
 int launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
-              bool dependent, Args... args) {
+              Args... args) {
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
@@ -330,7 +330,7 @@ int launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem, cud
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = &attr;
-  cfg.numAttrs = dependent ? 1 : 0;
+  cfg.numAttrs = 1;
   return queued([&] { return cudaLaunchKernelEx(&cfg, kernel, args...); });
 }
 

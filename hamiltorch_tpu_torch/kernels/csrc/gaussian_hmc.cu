@@ -38,8 +38,7 @@
 //      thread per chain with the whole state in its registers needs no
 //      shuffle at all but measured slower at 1024 and at 65,536 chains: every
 //      float32 -> float64 conversion of the energy then issues on one thread,
-//      at the conversion unit's quarter rate.
-//      scripts/gaussian_hmc_variants_torch.py builds and times it.)
+//      at the conversion unit's quarter rate; commit 715bb33 replaced it.)
 //   2. 8 < D <= 32: 16 or 32 lanes per chain, one element each, reductions
 //      and the dense matvec by shuffles within the lane group.
 //      In 1 and 2 the noise is taken off the chain of dependent operations:
@@ -90,8 +89,7 @@
 //        chains walked by one block of 8 warps each on every SM, a grid
 //        barrier after each step's product, the operands in float32 split
 //        into tf32 parts as they are read (half the bytes of split copies;
-//        P^T, or P^T and Delta, held split instead ran no faster:
-//        scripts/gaussian_hmc_variants_torch.py times those forms),
+//        P^T, or P^T and Delta, held split instead ran no faster),
 //        64-row partials added in order.
 //      - Diagonal P, D <= 4096: the state of a chain in the registers of a
 //        team of 32-256 threads (diag_kernel).  What bounds it: issue, four
@@ -105,7 +103,7 @@
 //        registers and the mean and P, the same for every chain, in shared
 //        memory: 256 threads' registers no longer hold them all.  The
 //        former design's shared-memory form (1-8 chains a block, up to D =
-//        11,612) is kept in scripts/csrc/gaussian_hmc_variants.cu only.
+//        11,612) was replaced in commit 1bb3e2d.
 
 #include "gaussian_hmc.cuh"
 

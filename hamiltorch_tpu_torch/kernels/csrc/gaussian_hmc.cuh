@@ -706,29 +706,22 @@ __global__ void __launch_bounds__(THREADS) diag_kernel(Args a, int tpc) {
 // A-fragment order, the two Delta buffers (Dp x Cp, Cp = C rounded up to
 // BN), the five state arrays, the energy partials, the accept counts and
 // the barrier's counter.
-// Template options the package does not take (scripts/csrc/
-// gaussian_hmc_variants.cu times them): ST chunks in flight instead of
-// DT_STAGES, and PA / PB, P^T / Delta held split (their tf32 big parts, then
-// their small parts: twice the bytes), P^T once a run and Delta by whoever
-// writes it, so that the product splits nothing as it reads.
 
 constexpr int DT_ROWS = 128;
 constexpr int DT_CHUNK = 64;
 constexpr int DT_STAGES = 4;
 constexpr int DT_THREADS = 256;
 
-// bytes of dense_grid_kernel's shared memory: ST chunks of a tile's two
-// operands (PA, PB: in two parts each) and the float64 energy partials of its
-// 8 / WN rows of warps
-constexpr size_t dense_shared_bytes(int bn, int wn, int st, bool pa, bool pb) {
-  return (size_t)st * ((pa ? 2 : 1) * DT_ROWS + (pb ? 2 : 1) * bn) * DT_CHUNK * 4 +
-         (size_t)(8 / wn) * bn * 8;
+// bytes of dense_grid_kernel's shared memory: DT_STAGES chunks of a tile's
+// two operands and the float64 energy partials of its 8 / WN rows of warps
+constexpr size_t dense_shared_bytes(int bn, int wn) {
+  return (size_t)DT_STAGES * (DT_ROWS + bn) * DT_CHUNK * 4 + (size_t)(8 / wn) * bn * 8;
 }
 
 struct DenseArgs {
   Args a;
-  float* pt;     // [parts][Dp/64][Dp/16][8][32][4]: P^T, A fragments by (chunk, m16 tile, k8 slice)
-  float* delta;  // [2][parts][Dp/64][Cp/8][8][32][2]: Delta, B fragments by (chunk, n8 tile, k8 slice)
+  float* pt;     // [Dp/64][Dp/16][8][32][4]: P^T, A fragments by (chunk, m16 tile, k8 slice)
+  float* delta;  // [2][Dp/64][Cp/8][8][32][2]: Delta, B fragments by (chunk, n8 tile, k8 slice)
   float *theta, *gc, *gt;  // (C, D): the state, its gradient, the trajectory's gradient
   float *th, *p;  // the trajectory's theta and p, in accumulator order (frag_pos), Dp x Cp
   double* e0;  // [2][n_mt][Cp]: each tile row's part of h0 per chain, of even and odd draws
@@ -748,9 +741,7 @@ __device__ __forceinline__ size_t b_pos(int c, int k, int cp) {
 
 // Carves the scratch of a dense run with BN chains a tile out of `base`
 // (null: only counts); returns its bytes.  Each array starts 256-byte aligned.
-// pa, pb: P^T, Delta held in two parts.
-inline size_t dense_scratch(DenseArgs* s, char* base, int chains, int d, int bn, bool pa = false,
-                            bool pb = false) {
+inline size_t dense_scratch(DenseArgs* s, char* base, int chains, int d, int bn) {
   const int dp = (d + DT_ROWS - 1) / DT_ROWS * DT_ROWS, cp = (chains + bn - 1) / bn * bn;
   const int n_mt = dp / DT_ROWS;
   size_t off = 0;
@@ -760,8 +751,8 @@ inline size_t dense_scratch(DenseArgs* s, char* base, int chains, int d, int bn,
     return at;
   };
   const size_t cd = (size_t)chains * d * sizeof(float), tiles = (size_t)dp * cp * sizeof(float);
-  float* pt = (float*)take((pa ? 2 : 1) * (size_t)dp * dp * sizeof(float));
-  float* delta = (float*)take(2 * (pb ? 2 : 1) * tiles);
+  float* pt = (float*)take((size_t)dp * dp * sizeof(float));
+  float* delta = (float*)take(2 * tiles);
   float* state[5];
   for (int i = 0; i < 5; ++i) state[i] = (float*)take(i < 3 ? cd : tiles);
   double* e0 = (double*)take(2 * (size_t)n_mt * cp * sizeof(double));
@@ -781,34 +772,26 @@ inline size_t dense_scratch(DenseArgs* s, char* base, int chains, int d, int bn,
 // Delta of `src` for chains nt BN .. + BN - 1, in the accumulator layout of
 // warp (wm, wn)'s m16 tiles wm MI + mi and n8 tiles wn NI + ni.  Every
 // thread of the block must call it.
-template <int MI, int NI, int WN, int ST, bool PA, bool PB>
+template <int MI, int NI, int WN>
 __device__ __forceinline__ void dense_product(const DenseArgs& s, const float* src, int mt, int nt,
                                               float* stages, float (&tot)[MI][NI][4]) {
   constexpr int BN = 8 * NI * WN, A_ST = DT_ROWS * DT_CHUNK, B_ST = BN * DT_CHUNK;
-  constexpr int A_PARTS = PA ? 2 : 1, B_PARTS = PB ? 2 : 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp / WN, wn = warp % WN;
   const int nkc = s.dp / DT_CHUNK;
   float* as = stages;
-  float* bs = stages + ST * A_PARTS * A_ST;
+  float* bs = stages + DT_STAGES * A_ST;
   const float* a_src = s.pt + (size_t)mt * (DT_ROWS / 16) * 1024;
   const size_t a_step = (size_t)(s.dp / 16) * 1024;  // floats from one chunk to the next
   const float* b_src = src + (size_t)nt * (BN / 8) * 512;
   const size_t b_step = (size_t)(s.cp / 8) * 512;
-  const size_t a_part = (size_t)s.dp * s.dp, b_part = (size_t)s.dp * s.cp;
   auto load = [&](int kc) {
-#pragma unroll
-    for (int h = 0; h < A_PARTS; ++h) {
-      float* ad = as + ((kc % ST) * A_PARTS + h) * A_ST;
-      const float* ag = a_src + h * a_part + kc * a_step;
-      for (int i = threadIdx.x; i < A_ST / 4; i += DT_THREADS) cp_async16(ad + 4 * i, ag + 4 * i);
-    }
-#pragma unroll
-    for (int h = 0; h < B_PARTS; ++h) {
-      float* bd = bs + ((kc % ST) * B_PARTS + h) * B_ST;
-      const float* bg = b_src + h * b_part + kc * b_step;
-      for (int i = threadIdx.x; i < B_ST / 4; i += DT_THREADS) cp_async16(bd + 4 * i, bg + 4 * i);
-    }
+    float* ad = as + (kc % DT_STAGES) * A_ST;
+    const float* ag = a_src + kc * a_step;
+    for (int i = threadIdx.x; i < A_ST / 4; i += DT_THREADS) cp_async16(ad + 4 * i, ag + 4 * i);
+    float* bd = bs + (kc % DT_STAGES) * B_ST;
+    const float* bg = b_src + kc * b_step;
+    for (int i = threadIdx.x; i < B_ST / 4; i += DT_THREADS) cp_async16(bd + 4 * i, bg + 4 * i);
   };
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
@@ -817,17 +800,17 @@ __device__ __forceinline__ void dense_product(const DenseArgs& s, const float* s
 #pragma unroll
       for (int e = 0; e < 4; ++e) tot[mi][ni][e] = 0.f;
 #pragma unroll
-  for (int kc = 0; kc < ST - 1; ++kc) {
+  for (int kc = 0; kc < DT_STAGES - 1; ++kc) {
     if (kc < nkc) load(kc);
     cp_async_commit();
   }
   for (int kc = 0; kc < nkc; ++kc) {
-    cp_async_wait<ST - 2>();
+    cp_async_wait<DT_STAGES - 2>();
     __syncthreads();  // chunk kc is in; every warp is done with chunk kc - 1's stage
-    if (kc + ST - 1 < nkc) load(kc + ST - 1);
+    if (kc + DT_STAGES - 1 < nkc) load(kc + DT_STAGES - 1);
     cp_async_commit();
-    const float4* at = reinterpret_cast<const float4*>(as + (kc % ST) * A_PARTS * A_ST);
-    const float2* bt = reinterpret_cast<const float2*>(bs + (kc % ST) * B_PARTS * B_ST);
+    const float4* at = reinterpret_cast<const float4*>(as + (kc % DT_STAGES) * A_ST);
+    const float2* bt = reinterpret_cast<const float2*>(bs + (kc % DT_STAGES) * B_ST);
     float acc_b[MI][NI][4], acc_s[MI][NI][4];
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
@@ -842,31 +825,17 @@ __device__ __forceinline__ void dense_product(const DenseArgs& s, const float* s
       for (int mi = 0; mi < MI; ++mi) {
         const int i = ((wm * MI + mi) * 8 + ks) * 32 + lane;
         const float4 v = at[i];
-        if (PA) {
-          const float4 w = at[i + A_ST / 4];
-          a_big[mi][0] = __float_as_uint(v.x), a_small[mi][0] = __float_as_uint(w.x);
-          a_big[mi][1] = __float_as_uint(v.y), a_small[mi][1] = __float_as_uint(w.y);
-          a_big[mi][2] = __float_as_uint(v.z), a_small[mi][2] = __float_as_uint(w.z);
-          a_big[mi][3] = __float_as_uint(v.w), a_small[mi][3] = __float_as_uint(w.w);
-        } else {
-          tf32_split_alu(v.x, a_big[mi][0], a_small[mi][0]);
-          tf32_split_alu(v.y, a_big[mi][1], a_small[mi][1]);
-          tf32_split_alu(v.z, a_big[mi][2], a_small[mi][2]);
-          tf32_split_alu(v.w, a_big[mi][3], a_small[mi][3]);
-        }
+        tf32_split_alu(v.x, a_big[mi][0], a_small[mi][0]);
+        tf32_split_alu(v.y, a_big[mi][1], a_small[mi][1]);
+        tf32_split_alu(v.z, a_big[mi][2], a_small[mi][2]);
+        tf32_split_alu(v.w, a_big[mi][3], a_small[mi][3]);
       }
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         const int i = ((wn * NI + ni) * 8 + ks) * 32 + lane;
         const float2 v = bt[i];
-        if (PB) {
-          const float2 w = bt[i + B_ST / 2];
-          b_big[ni][0] = __float_as_uint(v.x), b_small[ni][0] = __float_as_uint(w.x);
-          b_big[ni][1] = __float_as_uint(v.y), b_small[ni][1] = __float_as_uint(w.y);
-        } else {
-          tf32_split_alu(v.x, b_big[ni][0], b_small[ni][0]);
-          tf32_split_alu(v.y, b_big[ni][1], b_small[ni][1]);
-        }
+        tf32_split_alu(v.x, b_big[ni][0], b_small[ni][0]);
+        tf32_split_alu(v.y, b_big[ni][1], b_small[ni][1]);
       }
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi)
@@ -889,20 +858,6 @@ __device__ __forceinline__ void dense_product(const DenseArgs& s, const float* s
 
 enum DenseMode { DENSE_INIT, DENSE_STEP, DENSE_LAST };
 
-// Delta[pos] = v in a buffer of dst; PB: its tf32 big part, and its small
-// part `part` floats on
-template <bool PB>
-__device__ __forceinline__ void put_delta(float* dst, size_t part, size_t pos, float v) {
-  if (PB) {
-    uint32_t big, small;
-    tf32_split_alu(v, big, small);
-    dst[pos] = __uint_as_float(big);
-    dst[part + pos] = __uint_as_float(small);
-  } else {
-    dst[pos] = v;
-  }
-}
-
 // Where entry (chain c, element k) of p and the trajectory's theta lies: in
 // the accumulator order of the tile that owns it (tile, warp, m16 tile mi,
 // n8 tile ni, lane, register), so that each epilogue thread reads and
@@ -924,7 +879,7 @@ __device__ __forceinline__ size_t frag_pos(const DenseArgs& s, int c, int k) {
 // shared memory).  p and theta are loaded, all of them, before any store
 // (a store may alias a later load, which would otherwise wait for it).
 // Every thread of the block must call it.
-template <int MI, int NI, int WN, bool PB>
+template <int MI, int NI, int WN>
 __device__ __forceinline__ void dense_epilogue(const DenseArgs& s, DenseMode mode, int mt, int nt,
                                                const float (&tot)[MI][NI][4], float* dst,
                                                double* red) {
@@ -980,7 +935,7 @@ __device__ __forceinline__ void dense_epilogue(const DenseArgs& s, DenseMode mod
         pv[e] = fmaf(eps, gr, pv[e]);
         if (mode == DENSE_STEP) {
           thv[e] = fmaf(eps, pv[e], thv[e]);
-          if (in) put_delta<PB>(dst, (size_t)s.dp * s.cp, b_pos(c, i, s.cp), thv[e] - mu[mi][e >> 1]);
+          if (in) dst[b_pos(c, i, s.cp)] = thv[e] - mu[mi][e >> 1];
         } else if (in) {
           const float pe = fmaf(-0.5f * eps, gr, pv[e]);
           e1[ni][e & 1] += half_energy(thv[e] - mu[mi][e >> 1], gr, pe);
@@ -1023,7 +978,7 @@ __device__ __forceinline__ void dense_epilogue(const DenseArgs& s, DenseMode mod
 // kick, the first drift, the tile row's part of h0 per chain and the first
 // Delta into dst.  Warp w takes the tile's chains w, w + 8, ..., lane l the
 // group of 4 elements mt 32 + l.
-template <int MI, int NI, int WN, bool PB>
+template <int MI, int NI, int WN>
 __device__ __forceinline__ void dense_between_draws(const DenseArgs& s, int mt, int nt, int prev,
                                                     int next, float* dst) {
   constexpr int BN = 8 * NI * WN;
@@ -1082,7 +1037,7 @@ __device__ __forceinline__ void dense_between_draws(const DenseArgs& s, int mt, 
         const size_t f = frag_pos<MI, NI, WN>(s, c, k);
         s.p[f] = pv;
         s.th[f] = thv;
-        put_delta<PB>(dst, (size_t)s.dp * s.cp, b_pos(c, k, s.cp), thv - mu);
+        dst[b_pos(c, k, s.cp)] = thv - mu;
       }
     }
     if (next < S) {
@@ -1102,19 +1057,17 @@ __device__ __forceinline__ void dense_between_draws(const DenseArgs& s, int mt, 
 // timing one draw in 4 or 8 took no less (the laps' code in the step loop
 // costs, not the clock reads it makes).
 enum DensePhase { kDenseProduct, kDenseEpilogue, kDenseBarrier, kDenseBetweenDraws, DENSE_PHASES };
-template <int MI, int NI, int WN, int ST, bool PA, bool PB, bool PHASES = false>
+template <int MI, int NI, int WN, bool PHASES = false>
 __global__ void __launch_bounds__(DT_THREADS, 1) dense_grid_kernel(DenseArgs s) {
   constexpr int BN = 8 * NI * WN;
   static_assert(MI * (8 / WN) * 16 == DT_ROWS, "the warps' rows make up a tile's");
   extern __shared__ double smem[];
   float* stages = reinterpret_cast<float*>(smem);
-  double* red = reinterpret_cast<double*>(
-      stages + ST * ((PA ? 2 : 1) * DT_ROWS + (PB ? 2 : 1) * BN) * DT_CHUNK);
+  double* red = reinterpret_cast<double*>(stages + DT_STAGES * (DT_ROWS + BN) * DT_CHUNK);
   const Args& a = s.a;
   const int d = a.d, S = a.num_samples, L = a.num_steps;
   const int n_items = s.n_mt * s.n_nt;
-  const size_t part = (size_t)s.dp * s.cp;   // floats of one part of a Delta buffer
-  const size_t buf = (PB ? 2 : 1) * part;   // floats of one Delta buffer
+  const size_t buf = (size_t)s.dp * s.cp;  // floats of one Delta buffer
   const size_t nthreads = (size_t)gridDim.x * DT_THREADS;
   const size_t tid = (size_t)blockIdx.x * DT_THREADS + threadIdx.x;
   unsigned int target = 0;
@@ -1126,23 +1079,14 @@ __global__ void __launch_bounds__(DT_THREADS, 1) dense_grid_kernel(DenseArgs s) 
     const int mi = rest % (s.dp / 16), kc = rest / (s.dp / 16);
     const int i = mi * 16 + (l >> 2) + 8 * (e & 1);
     const int k = kc * DT_CHUNK + ks * 8 + (l & 3) + 4 * (e >> 1);
-    const float v = (i < d && k < d) ? a.prec[(size_t)k * d + i] : 0.f;
-    if (PA) {
-      uint32_t big, small;
-      tf32_split_alu(v, big, small);
-      s.pt[idx] = __uint_as_float(big);
-      s.pt[(size_t)s.dp * s.dp + idx] = __uint_as_float(small);
-    } else {
-      s.pt[idx] = v;
-    }
+    s.pt[idx] = (i < d && k < d) ? a.prec[(size_t)k * d + i] : 0.f;
   }
-  for (size_t idx = tid; idx < part; idx += nthreads) {
+  for (size_t idx = tid; idx < buf; idx += nthreads) {
     const int e = idx & 1, l = (idx >> 1) & 31, ks = (idx >> 6) & 7;
     const size_t rest = idx >> 9;
     const int n8 = rest % (s.cp / 8), kc = rest / (s.cp / 8);
     const int c = n8 * 8 + (l >> 2), k = kc * DT_CHUNK + ks * 8 + (l & 3) + 4 * e;
-    put_delta<PB>(s.delta, part, idx,
-                  (c < a.chains && k < d) ? a.theta0[(size_t)c * d + k] - mean_at(a, k) : 0.f);
+    s.delta[idx] = (c < a.chains && k < d) ? a.theta0[(size_t)c * d + k] - mean_at(a, k) : 0.f;
   }
   for (size_t idx = tid; idx < buf; idx += nthreads) s.delta[buf + idx] = 0.f;
   for (size_t idx = tid; idx < (size_t)a.chains * d; idx += nthreads) s.theta[idx] = a.theta0[idx];
@@ -1152,8 +1096,8 @@ __global__ void __launch_bounds__(DT_THREADS, 1) dense_grid_kernel(DenseArgs s) 
   float tot[MI][NI][4];
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {  // the gradient at theta0
     const int mt = item % s.n_mt, nt = item / s.n_mt;
-    dense_product<MI, NI, WN, ST, PA, PB>(s, s.delta, mt, nt, stages, tot);
-    dense_epilogue<MI, NI, WN, PB>(s, DENSE_INIT, mt, nt, tot, nullptr, red);
+    dense_product<MI, NI, WN>(s, s.delta, mt, nt, stages, tot);
+    dense_epilogue<MI, NI, WN>(s, DENSE_INIT, mt, nt, tot, nullptr, red);
   }
   grid_barrier(s.bar, target);
   PhaseClock<PHASES, DENSE_PHASES> phase_clock(threadIdx.x == 0 && blockIdx.x < n_items,
@@ -1162,8 +1106,8 @@ __global__ void __launch_bounds__(DT_THREADS, 1) dense_grid_kernel(DenseArgs s) 
   int cur = 0;  // the Delta buffer the next product reads
   for (int n = 0; n < S; ++n) {
     for (int item = blockIdx.x; item < n_items; item += gridDim.x)
-      dense_between_draws<MI, NI, WN, PB>(s, item % s.n_mt, item / s.n_mt, n - 1, n,
-                                          s.delta + cur * buf);
+      dense_between_draws<MI, NI, WN>(s, item % s.n_mt, item / s.n_mt, n - 1, n,
+                                      s.delta + cur * buf);
     phase_clock.lap(kDenseBetweenDraws);
     grid_barrier(s.bar, target);
     phase_clock.lap(kDenseBarrier);
@@ -1171,9 +1115,9 @@ __global__ void __launch_bounds__(DT_THREADS, 1) dense_grid_kernel(DenseArgs s) 
       const DenseMode mode = step + 1 < L ? DENSE_STEP : DENSE_LAST;
       for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
         const int mt = item % s.n_mt, nt = item / s.n_mt;
-        dense_product<MI, NI, WN, ST, PA, PB>(s, s.delta + cur * buf, mt, nt, stages, tot);
+        dense_product<MI, NI, WN>(s, s.delta + cur * buf, mt, nt, stages, tot);
         phase_clock.lap(kDenseProduct);
-        dense_epilogue<MI, NI, WN, PB>(s, mode, mt, nt, tot, s.delta + (cur ^ 1) * buf, red);
+        dense_epilogue<MI, NI, WN>(s, mode, mt, nt, tot, s.delta + (cur ^ 1) * buf, red);
         phase_clock.lap(kDenseEpilogue);
       }
       if (mode == DENSE_STEP) cur ^= 1;
@@ -1182,7 +1126,7 @@ __global__ void __launch_bounds__(DT_THREADS, 1) dense_grid_kernel(DenseArgs s) 
     }
   }
   for (int item = blockIdx.x; item < n_items; item += gridDim.x)
-    dense_between_draws<MI, NI, WN, PB>(s, item % s.n_mt, item / s.n_mt, S - 1, S, nullptr);
+    dense_between_draws<MI, NI, WN>(s, item % s.n_mt, item / s.n_mt, S - 1, S, nullptr);
   phase_clock.lap(kDenseBetweenDraws);
   phase_clock.flush();
 }
@@ -1242,19 +1186,18 @@ int launch_diag(const Args& a, int chains_per_block, cudaStream_t stream) {
 // (its bytes: gaussian_hmc_scratch_bytes) and `shared` the stages and the
 // energy reduction.  With phases (device, DENSE_PHASES counters) the
 // kernel that counts its phases runs.
-template <int MI, int NI, int WN, int ST = DT_STAGES, bool PA = false, bool PB = false>
+template <int MI, int NI, int WN>
 int launch_dense(const Args& a, void* scratch, size_t shared, cudaStream_t stream,
                  long long* phases = nullptr) {
   constexpr int BN = 8 * NI * WN;
-  if (!scratch || shared != dense_shared_bytes(BN, WN, ST, PA, PB))
+  if (!scratch || shared != dense_shared_bytes(BN, WN))
     return (int)cudaErrorInvalidValue;
-  auto kernel = phases ? dense_grid_kernel<MI, NI, WN, ST, PA, PB, true>
-                       : dense_grid_kernel<MI, NI, WN, ST, PA, PB>;
+  auto kernel = phases ? dense_grid_kernel<MI, NI, WN, true> : dense_grid_kernel<MI, NI, WN>;
   if (const int e = allow_shared(kernel, shared)) return e;
   DenseArgs s;
   s.a = a;
   s.phases = phases;
-  dense_scratch(&s, static_cast<char*>(scratch), a.chains, a.d, BN, PA, PB);
+  dense_scratch(&s, static_cast<char*>(scratch), a.chains, a.d, BN);
   int dev = 0, sms = 0, per_sm = 0;
   if (const cudaError_t e = cudaGetDevice(&dev)) return (int)e;
   if (const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))

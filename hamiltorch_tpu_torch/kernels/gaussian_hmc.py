@@ -254,12 +254,7 @@ def _plan(d, dense, chain_tile, chains):
 def _library():
     from ._build import load
 
-    return _declare(load("gaussian_hmc"))
-
-
-def _declare(lib):
-    """The C interface of csrc/gaussian_hmc.cu on a loaded library (also
-    on copies of it that scripts build)."""
+    lib = load("gaussian_hmc")
     lib.gaussian_hmc_error_string.argtypes = [ctypes.c_int]
     lib.gaussian_hmc_error_string.restype = ctypes.c_char_p
     lib.gaussian_hmc_scratch_bytes.argtypes = [ctypes.c_int] * 5

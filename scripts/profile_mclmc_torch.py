@@ -4,9 +4,7 @@ Profiles, with ``torch.profiler``, 20 MCLMC draws (two gradients each) over
 64 chains of the flagship BNN (784 -> 128 -> 1 tanh, N = 1024) at a fixed
 (eps, L) = (2e-3, 10) on three paths of ``hamiltorch_tpu_torch``:
 
-  - ``kernel``: the fused CUDA sampler ``kernels.bnn_mclmc``, and beside it
-    ``former``, its design before the velocity algebra was fused into one
-    pass a rotation (``scripts/csrc/bnn_mclmc_variants.cu``);
+  - ``kernel``: the fused CUDA sampler ``kernels.bnn_mclmc``;
   - ``plain``: its plain PyTorch version ``bnn_mclmc_reference`` (cuBLAS
     float32, TF32 off);
   - ``run_mclmc_chains``: the unfused path on ``make_flagship_potential``
@@ -15,9 +13,9 @@ Profiles, with ``torch.profiler``, 20 MCLMC draws (two gradients each) over
 For each it prints the device time, the wall time of the profiled call,
 their ratio (the device's busy share) and the ops and kernels with the
 most device time, as ``scripts/profile_bnn_hmc_torch.py`` does for HMC;
-for the two fused designs also the velocity passes' share of the device
-time (every kernel but the gradient's forward, backward and per-chain
-kernels and the set-up: x staged, the state packed and unpacked).
+for the kernel also the velocity passes' share of the device time (every
+kernel but the gradient's forward, backward and per-chain kernels and the
+set-up: x staged, the state packed and unpacked).
 
     python3 scripts/profile_mclmc_torch.py
 """
@@ -61,8 +59,6 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from bnn_mclmc_variants_torch import run_variant
-
     device = torch.device("cuda:0")
     card = card_line()
     print(card)
@@ -70,9 +66,8 @@ def main() -> int:
     u = torch.randn(FLAGSHIP["c"], w1[0].numel() + 2 * FLAGSHIP["h"] + 1, device=device)
     kw = dict(num_samples=DRAWS, step_size=EPS, length=LENGTH, tau=10.0)
     what = f"{DRAWS} draws x {FLAGSHIP['c']} chains"
-    for name, fn in (("kernel", lambda: bnn_mclmc(0, x, y, w1, b1, w2, b2, u, **kw)),
-                     ("former", lambda: run_variant("former", 0, x, y, w1, b1, w2, b2, u, **kw))):
-        velocity_share(name, profile_path(name, fn, what), card)
+    velocity_share("kernel", profile_path(
+        "kernel", lambda: bnn_mclmc(0, x, y, w1, b1, w2, b2, u, **kw), what), card)
     profile_path("plain", lambda: bnn_mclmc_reference(0, x, y, w1, b1, w2, b2, u, **kw), what)
     log_prob_fn, theta0 = make_flagship_potential(device=device)
     config = MCLMCConfig(num_samples=DRAWS, tune_steps=0, step_size=EPS, trajectory_length=LENGTH)

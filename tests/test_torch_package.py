@@ -36,9 +36,7 @@ def test_imports_with_jax_blocked():
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
                          + ["chip_smoke.py", "scripts/profile_bnn_hmc_torch.py",
-                            "scripts/profile_mclmc_torch.py", "scripts/bnn_gemm_variants_torch.py",
-                            "scripts/gaussian_hmc_variants_torch.py",
-                            "scripts/bnn_mclmc_variants_torch.py",
+                            "scripts/profile_mclmc_torch.py", "scripts/kernel_anatomy_torch.py",
                             "scripts/gaussian_sum_order_torch.py",
                             "scripts/rmhmc_designs_torch.py", "scripts/psum_overhead_torch.py",
                             "scripts/bnn_backward_sass.py"])
