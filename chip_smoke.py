@@ -212,6 +212,13 @@ the kernels are built for sm_90a).  It
 
 There is no CPU path: without a CUDA device it exits non-zero and prints
 no result.  TF32 is off for every float32 matmul (cuBLAS and cuDNN).
+
+Two kernels of ResNet-20-FRN also run alone, each held against the formula
+in float64 and timed beside its bound, its plain version and the library
+path it replaced: ``python3 chip_smoke.py --frn-tlu`` (FRN with TLU) and
+``python3 chip_smoke.py --conv3x3`` (the same-width 3x3 convolution,
+direction by direction, beside cuDNN's float32 convolution).  The full run
+includes both phases.
 """
 
 from __future__ import annotations
@@ -408,6 +415,21 @@ PARALLEL_HMC = (10, 50, 2e-4)  # the main path's draws, steps a draw and step si
 FRN_SHAPES = ((10_000, 16, 32), (10_000, 32, 16), (10_000, 64, 8))
 FRN_RTOL = 1e-5
 FRN_REPS = 10  # calls a timed run
+# The same-width 3x3 convolution (kernels/conv3x3.py; no TPU kernel: the JAX
+# package leaves convolutions to XLA) at the resnet20_frn cell's blocks of
+# 10,000 rows, (rows, channels, side) of its three stages, and at a ragged
+# batch of each.  Kernels against the formula in float64 (cuDNN in float64)
+# on the same float32 inputs, relative to the largest entry of each output:
+# 3xTF32 products (each operand's tf32 part and remainder, the remainder
+# read to tf32 precision and the small-by-small term dropped: ~2^-21 of a
+# product) summed in float32 over 9 C taps and channels (forward, input
+# gradient) or up to 10,000 x 1,024 / 264 pixels a partial (weight
+# gradient), the partials in float64.  cuDNN's own float32 error is printed
+# beside.
+CONV_SHAPES = ((10_000, 16, 32), (10_000, 32, 16), (10_000, 64, 8))
+CONV_RAGGED = ((37, 16, 32), (29, 32, 16), (41, 64, 8))
+CONV_RTOL = 2e-5
+CONV_REPS = 5  # calls a timed run
 
 
 class SmokeError(RuntimeError):
@@ -853,6 +875,141 @@ def frn_tlu_phase(torch, device, card) -> dict:
         del x, gamma, beta, tau, dz, leaves
     out["max_rel_err"] = worst
     return out
+
+
+def conv3x3_inputs(torch, n, c, side, seed, device):
+    """x, a He-normal weight, a bias and an upstream gradient dy, float32."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    return (randn(n, c, side, side), (2.0 / (9 * c)) ** 0.5 * randn(c, c, 3, 3), 0.1 * randn(c),
+            randn(n, c, side, side))
+
+
+def conv3x3_library(torch, x, w, b, dy):
+    """{direction: fn}: cuDNN's forward, input and weight-and-bias gradients
+    of the same convolution (aten.convolution, aten.convolution_backward)."""
+    args = ([1, 1], [1, 1], [1, 1], False, [0, 0], 1)
+    bwd = torch.ops.aten.convolution_backward
+    return {"forward": lambda: torch.ops.aten.convolution(x, w, b, *args),
+            "input_grad": lambda: bwd(dy, x, w, [w.shape[0]], *args, [True, False, False])[0],
+            "weight_grad": lambda: bwd(dy, x, w, [w.shape[0]], *args, [False, True, True])[1:]}
+
+
+def conv3x3_phase(torch, device, card) -> dict:
+    """The conv3x3 kernels at the main path's shapes (``CONV_SHAPES``) and
+    ragged batches (``CONV_RAGGED``): held against the formula in float64,
+    twice the same bits, then timed in turns (median of 3 runs of
+    ``CONV_REPS`` calls) direction by direction beside the plain version
+    (``conv3x3_reference`` and ``_backward_reference``), cuDNN's float32
+    convolution with TF32 off (``library_ms``: cudnn.benchmark off, as the
+    model ran it, and on) and the bound: 2 * 9 C^2 S^2 operations an image
+    and direction at the 3xTF32 rate, or 2 C S^2 floats an image and
+    direction at the memory rate.  Returns the summary of every shape."""
+    from hamiltorch_tpu_torch.kernels import conv3x3 as cv
+    from hamiltorch_tpu_torch.utils.precision import full_float32
+
+    out, worst, failed = [], 0.0, []
+    for n, c, side in CONV_RAGGED + CONV_SHAPES:
+        x, w, b, dy = conv3x3_inputs(torch, n, c, side, 11, device)
+        before = cv.conv3x3.launches
+        got = (cv._forward_cuda(x, w, b), cv._dgrad_cuda(dy, w), *cv._wgrad_cuda(dy, x))
+        again = (cv._forward_cuda(x, w, b), cv._dgrad_cuda(dy, w), *cv._wgrad_cuda(dy, x))
+        torch.cuda.synchronize()
+        if cv.conv3x3.launches != before + 8:
+            raise SmokeError(f"conv3x3 queued {cv.conv3x3.launches - before} kernels, not 8")
+        if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+            raise SmokeError(f"conv3x3 gave other bits on the same inputs at {n}x{c}x{side}")
+        lib = conv3x3_library(torch, *(t.double() for t in (x, w, b, dy)))
+        want = (lib["forward"](), lib["input_grad"](), *lib["weight_grad"]())
+        with full_float32():
+            ref32 = conv3x3_library(torch, x, w, b, dy)
+            cudnn = (ref32["forward"](), ref32["input_grad"](), *ref32["weight_grad"]())
+
+        def errs(outs):
+            return [float((a.double() - v).abs().max() / v.abs().max()) for a, v in zip(outs, want)]
+
+        e, e_lib = errs(got), errs(cudnn)
+        del want, cudnn, again
+        worst = max(worst, max(e))
+        print(f"conv3x3 {n}x{c}x{side}x{side} float32 against float64: out, dx, dw, db within "
+              f"{', '.join(f'{v:.2e}' for v in e)} of their largest entries (cuDNN float32, "
+              f"TF32 off: {', '.join(f'{v:.2e}' for v in e_lib)})")
+        if not max(e) <= CONV_RTOL:
+            failed.append(f"{n}x{c}x{side}: {e}")
+        if n < 1000:
+            continue
+
+        def reps(fn):
+            return lambda _seed: [fn() for _ in range(CONV_REPS)]
+
+        fns = {"forward": reps(lambda: cv._forward_cuda(x, w, b)),
+               "input_grad": reps(lambda: cv._dgrad_cuda(dy, w)),
+               "weight_grad": reps(lambda: cv._wgrad_cuda(dy, x)),
+               "plain": reps(lambda: (cv.conv3x3_reference(x, w, b),
+                                      cv._backward_reference(dy, x, w)))}
+        for bench in (False, True):
+            for name, fn in conv3x3_library(torch, x, w, b, dy).items():
+                def run(_seed, fn=fn, bench=bench):
+                    torch.backends.cudnn.benchmark = bench
+                    with full_float32():
+                        for _ in range(CONV_REPS):
+                            fn()
+                fns[f"cudnn{'_benchmark' if bench else ''}_{name}"] = run
+        t = time_in_turns(torch, fns)
+        torch.backends.cudnn.benchmark = False
+        ms = {name: v[0] / CONV_REPS for name, v in t.items()}
+        flops, nbytes = 2 * 9 * c * c * side * side * n, 2 * n * c * side * side * 4
+        bound_ms, bound_by = bound(flops, nbytes, tf32_flops=flops)
+        dirs = ("forward", "input_grad", "weight_grad")
+        row = {"shape": [n, c, side, side], "ms": sum(ms[d] for d in dirs),
+               **{f"{d}_ms": ms[d] for d in dirs}, "plain_ms": ms["plain"],
+               "library_ms": sum(ms[f"cudnn_{d}"] for d in dirs),
+               "library_benchmark_ms": sum(ms[f"cudnn_benchmark_{d}"] for d in dirs),
+               **{f"library_{d}_ms": ms[f"cudnn_{d}"] for d in dirs},
+               "bound_ms": 3 * bound_ms, "bound_by": bound_by, "max_rel_err": max(e)}
+        print(f"conv3x3 {n}x{c}x{side}x{side}: forward {ms['forward']:.4f}, input gradient "
+              f"{ms['input_grad']:.4f}, weight gradient {ms['weight_grad']:.4f} ms (all three "
+              f"{row['ms']:.4f}); plain {ms['plain']:.4f} ms; cuDNN float32 "
+              + ", ".join(f"{ms[f'cudnn_{d}']:.4f}" for d in dirs)
+              + f" ({row['library_ms']:.4f}), cudnn.benchmark on "
+              + ", ".join(f"{ms[f'cudnn_benchmark_{d}']:.4f}" for d in dirs)
+              + f" ({row['library_benchmark_ms']:.4f}); bound {bound_ms:.4f} ms a direction "
+              f"({bound_by}: {flops / 1e9:.1f} GFLOP at {PEAK_TF32 / 3e12:.0f} TFLOP/s, "
+              f"{nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12:.2f} TB/s), "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}% of it [{card}]")
+        out.append(row)
+        del x, w, b, dy, fns
+    if failed:
+        raise SmokeError(f"conv3x3 disagrees with the formula at {'; '.join(failed)}")
+    return {"shapes": out, "max_rel_err": worst}
+
+
+def conv3x3_only() -> int:
+    """``python3 chip_smoke.py --conv3x3``: the card, the build of
+    ``csrc/conv3x3.cu`` and ``conv3x3_phase`` alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py runs only on a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from hamiltorch_tpu_torch.kernels import _build
+
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    for line in _build.build_all(["conv3x3"]).get("conv3x3", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"  [conv3x3] {line.strip()}")
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    summary = conv3x3_phase(torch, torch.device("cuda:0"), card)
+    print(json.dumps({"conv3x3": summary}))
+    return 0
 
 
 def frn_tlu_only() -> int:
@@ -3697,7 +3854,8 @@ def main() -> int:
     from hamiltorch_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all([name for name, *_ in KERNELS] + ["bnn_grad", "frn_tlu", PROBES])
+    logs = _build.build_all([name for name, *_ in KERNELS]
+                            + ["bnn_grad", "frn_tlu", "conv3x3", PROBES])
     logs = {Path(name).stem: log for name, log in logs.items()}
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
@@ -3790,6 +3948,7 @@ def main() -> int:
                                            fma_ns, mma_ns) for dense in (False, True)}
 
     frn = frn_tlu_phase(torch, device, card)
+    conv = conv3x3_phase(torch, device, card)
 
     # 5. the main paths, each counted from 0
     t_paths = time.perf_counter()
@@ -3846,6 +4005,9 @@ def main() -> int:
     summary.append({"name": "frn_tlu", "route": "cuda",
                     "source": "hamiltorch_tpu_torch/kernels/csrc/frn_tlu.cu", "replaces": None,
                     **frn})
+    summary.append({"name": "conv3x3", "route": "cuda",
+                    "source": "hamiltorch_tpu_torch/kernels/csrc/conv3x3.cu", "replaces": None,
+                    **conv})
     gauss["max_abs_err_variant5"] = wide_err
     for dense, t in wide_times.items():
         gauss[f"variant5_d1024_{'dense' if dense else 'diagonal'}"] = {
@@ -3862,4 +4024,6 @@ if __name__ == "__main__":
         sys.exit(evidence_spread(sys.argv[2:]))
     if sys.argv[1:2] == ["--frn-tlu"]:
         sys.exit(frn_tlu_only())
+    if sys.argv[1:2] == ["--conv3x3"]:
+        sys.exit(conv3x3_only())
     sys.exit(main())

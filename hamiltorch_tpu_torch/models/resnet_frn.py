@@ -18,7 +18,10 @@ Filter response normalisation with its thresholded linear unit (Singh and
 Krishnan, arXiv:1911.09737), per channel:
 nu2 = mean over H and W of x^2, z = max(gamma x / sqrt(nu2 + eps) + beta, tau);
 on CUDA tensors one hand-written kernel each way (``kernels/frn_tlu.py``),
-on the CPU the plain formula.  Swish is x sigmoid(x) (``nn.SiLU``).  At
+on the CPU the plain formula.  The 16 convolutions of stride 1 from C to C
+channels (``Conv3x3``) run, on CUDA tensors, on hand-written kernels
+(``kernels/conv3x3.py``); the stem, the stride-2 convolutions and the 1x1
+shortcuts are ``nn.Conv2d``.  Swish is x sigmoid(x) (``nn.SiLU``).  At
 32x32 inputs and 10 classes the network has 273,754 parameters.
 
 Departures from ``bnn_hmc``: PyTorch's NCHW layout and ``parameters()``
@@ -33,6 +36,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..kernels.conv3x3 import conv3x3
 from ..kernels.frn_tlu import frn_tlu
 
 
@@ -51,14 +55,28 @@ class FilterResponseNorm(nn.Module):
         return frn_tlu(x, self.gamma, self.beta, self.tau, self.eps)
 
 
+class Conv3x3(nn.Conv2d):
+    """``nn.Conv2d(channels, channels, 3, padding=1)``: its parameters, their
+    names and its initialisation, computed by ``kernels/conv3x3.py``."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        if self.stride != (1, 1) or self.padding != (1, 1) or self.dilation != (1, 1):
+            raise ValueError("Conv3x3 is a convolution of stride 1, padding 1 and dilation 1")
+        return conv3x3(x, self.weight, self.bias)
+
+
 class _Block(nn.Module):
     """x <- swish(shortcut(x) + FRN(conv(swish(FRN(conv(x))))))."""
 
     def __init__(self, cin: int, cout: int, stride: int, eps: float):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+        self.conv1 = (Conv3x3(cout) if stride == 1 and cin == cout
+                      else nn.Conv2d(cin, cout, 3, stride=stride, padding=1))
         self.norm1 = FilterResponseNorm(cout, eps)
-        self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
+        self.conv2 = Conv3x3(cout)
         self.norm2 = FilterResponseNorm(cout, eps)
         self.shortcut = nn.Conv2d(cin, cout, 1, stride=stride) if stride != 1 else None
         self.act = nn.SiLU()

@@ -11,10 +11,11 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "hamiltorch_tpu_torch"
 # modules of the port with no JAX counterpart
 PORT_ONLY = {"utils/convert.py", "kernels/_build.py", "kernels/bnn_grad.py", "utils/precision.py",
-             "models/resnet_frn.py", "kernels/frn_tlu.py"}
+             "models/resnet_frn.py", "kernels/frn_tlu.py", "kernels/conv3x3.py"}
 # CUDA sources with no Pallas counterpart: the gradient alone, for tests and
-# timing; FRN with TLU, for the port's ResNet-20-FRN (the JAX package has no FRN)
-CSRC_ONLY = {"bnn_grad.cu", "frn_tlu.cu"}
+# timing; FRN with TLU and the same-width 3x3 convolution, for the port's
+# ResNet-20-FRN (the JAX package has no FRN and leaves convolutions to XLA)
+CSRC_ONLY = {"bnn_grad.cu", "frn_tlu.cu", "conv3x3.cu"}
 
 
 def test_imports_with_jax_blocked():
@@ -37,6 +38,7 @@ def test_imports_with_jax_blocked():
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
                          + ["chip_smoke.py", "scripts/profile_bnn_hmc_torch.py",
                             "scripts/profile_mclmc_torch.py", "scripts/kernel_anatomy_torch.py",
+                            "scripts/resnet20_conv_split_torch.py",
                             "scripts/gaussian_sum_order_torch.py",
                             "scripts/rmhmc_designs_torch.py", "scripts/psum_overhead_torch.py",
                             "scripts/bnn_backward_sass.py"])
