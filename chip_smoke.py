@@ -102,7 +102,11 @@ the kernels are built for sm_90a).  It
      covariance entrywise;
    then the paths without a kernel of their own, each printing the kernels'
    launch counts (0): the ``bnn_model`` phase (the flagship as an
-   ``nn.Module`` through ``sample_model`` / ``predict_model``), the ``nuts``
+   ``nn.Module`` through ``sample_model`` / ``predict_model``), the
+   ``cnn_lstm`` phase (``cnn_lstm_path``: the IMDB CNN-LSTM's blocked
+   potential gradient at the published widths, float32 against float64 on
+   the card, the whole potential refused, one gradient of 25,000 reviews
+   timed with its peak memory), the ``nuts``
    phase (``nuts_path``: ``run_nuts_chains`` on the flagship in float64,
    card against CPU on the same injected noise, identical trees and
    positions within 1e-8 of max |theta|; 16 float32 chains with step-size
@@ -218,7 +222,8 @@ in float64 and timed beside its bound, its plain version and the library
 path it replaced: ``python3 chip_smoke.py --frn-tlu`` (FRN with TLU) and
 ``python3 chip_smoke.py --conv3x3`` (the same-width 3x3 convolution,
 direction by direction, beside cuDNN's float32 convolution).  The full run
-includes both phases.
+includes both phases.  ``python3 chip_smoke.py --cnn-lstm`` runs the
+``cnn_lstm`` phase alone.
 """
 
 from __future__ import annotations
@@ -430,6 +435,20 @@ CONV_SHAPES = ((10_000, 16, 32), (10_000, 32, 16), (10_000, 64, 8))
 CONV_RAGGED = ((37, 16, 32), (29, 32, 16), (41, 64, 8))
 CONV_RTOL = 2e-5
 CONV_REPS = 5  # calls a timed run
+# The IMDB CNN-LSTM (models/cnn_lstm.py; no kernel of its own: cuDNN's
+# convolution and fused LSTM, which runs in training mode with dropout 0
+# inside the potential) at its published widths: the blocked potential's
+# gradient on CNN_LSTM_ROWS reviews of seeded ids (a quarter of them padded
+# at the front) in float32 against the same module in float64 on the card,
+# each parameter leaf's largest gap relative to its largest entry: cuDNN's
+# float32 sums of 480,000 products an entry of the convolution's weight
+# gradient (5,000 reviews x 96 positions) read 6.8e-4 on the H100, the
+# embedding's 1.5e-4, every other leaf under 1e-5; so 5e-3 a leaf, where a
+# wrong gate, offset or layout reads O(1); then one gradient of the
+# benchmark cell's 25,000 reviews in one block, timed.
+CNN_LSTM_ROWS = 5_000
+CNN_LSTM_RTOL = 5e-3
+CNN_LSTM_CELL_ROWS = 25_000
 
 
 class SmokeError(RuntimeError):
@@ -986,6 +1005,81 @@ def conv3x3_phase(torch, device, card) -> dict:
     if failed:
         raise SmokeError(f"conv3x3 disagrees with the formula at {'; '.join(failed)}")
     return {"shapes": out, "max_rel_err": worst}
+
+
+def cnn_lstm_path(torch, device, card):
+    """The IMDB CNN-LSTM's potential gradient through ``define_model_log_prob``
+    with ``block_rows`` at the published widths: float32 against float64 on
+    the card (``CNN_LSTM_RTOL``), then timed at the benchmark cell's size
+    with its peak memory; the whole potential (no ``block_rows``) is refused
+    on the card."""
+    import copy
+
+    from hamiltorch_tpu_torch.models import cnn_lstm_imdb
+    from hamiltorch_tpu_torch.models.bnn import define_model_log_prob
+
+    torch.manual_seed(43)
+    net = cnn_lstm_imdb()
+    gen = torch.Generator(device=device).manual_seed(43)
+    theta = torch.cat([torch.randn(p.numel(), generator=gen, device=device)
+                       * (math.sqrt(2.0 / p[0].numel() + 0.01) if p.dim() >= 2 else 0.1)
+                       for p in net.parameters()])
+
+    def data(n):
+        ids = torch.randint(3, 20_000, (n, 100), generator=gen, device=device)
+        ids[: n // 4, :60] = 0
+        ids[: n // 4, 60] = 1
+        return ids, torch.randint(0, 2, (n,), generator=gen, device=device)
+
+    def gradient(module, x, y, rows):
+        lp, _, _ = define_model_log_prob(module, "multi_class_linear_output", x, y, tau_list=5.0,
+                                         device=device, block_rows=rows)
+        return torch.func.grad_and_value(lp)
+
+    x, y = data(CNN_LSTM_ROWS)
+    vg32 = gradient(net, x, y, CNN_LSTM_ROWS)
+    vg64 = gradient(copy.deepcopy(net).double(), x, y, CNN_LSTM_ROWS)
+    (g32, v32), (g64, v64) = vg32(theta), vg64(theta.double())
+    sizes = [p.numel() for p in net.parameters()]
+    errs = {name: float((a.double() - b).abs().max() / b.abs().max()) for name, a, b in zip(
+        [n for n, _ in net.named_parameters()], g32.split(sizes), g64.split(sizes))}
+    verr = abs(float(v32) - float(v64)) / abs(float(v64))
+    print(f"cnn_lstm gradient at {CNN_LSTM_ROWS} reviews, float32 against float64 on the card, "
+          f"each leaf's largest gap over its largest entry: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f"; value {verr:.3e} relative")
+    if not (max(errs.values()) <= CNN_LSTM_RTOL and verr <= 1e-6):
+        raise SmokeError(f"cnn_lstm gradient differs from float64: {errs}, value {verr:.3e}")
+    try:
+        define_model_log_prob(net, "multi_class_linear_output", x, y, device=device)
+    except ValueError as e:
+        print(f"cnn_lstm whole potential refused on the card: {e}")
+    else:
+        raise SmokeError("the whole potential of a recurrent module was not refused on the card")
+    del vg32, vg64, g64
+    x, y = data(CNN_LSTM_CELL_ROWS)
+    vg = gradient(net, x, y, CNN_LSTM_CELL_ROWS)
+    vg(theta)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = statistics.median(cuda_ms(torch, lambda: vg(theta)) for _ in range(3))
+    print(f"cnn_lstm gradient of {CNN_LSTM_CELL_ROWS} reviews x 100 tokens in one block: "
+          f"{ms:.2f} ms (median of 3), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"[{card}]")
+
+
+def cnn_lstm_only() -> int:
+    """``python3 chip_smoke.py --cnn-lstm``: the card and ``cnn_lstm_path`` alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py runs only on a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    cnn_lstm_path(torch, torch.device("cuda:0"), card)
+    return 0
 
 
 def conv3x3_only() -> int:
@@ -3979,7 +4073,8 @@ def main() -> int:
     # tree-doubling NUTS, checkpoint/resume, RMHMC, split HMC, ChEES,
     # SG-MCMC, parallel tempering, TI, SMC, Barker, the stretch move,
     # elliptical slice and optim: no kernel of the port on them
-    for phase, fn in (("nuts", nuts_path), ("checkpoint", checkpoint_path),
+    for phase, fn in (("cnn_lstm", cnn_lstm_path), ("nuts", nuts_path),
+                      ("checkpoint", checkpoint_path),
                       ("rmhmc", rmhmc_path), ("split", split_path), ("chees", chees_path),
                       ("sgmcmc", sgmcmc_path), ("tempering", tempering_path),
                       ("evidence", evidence_path), ("gradient_free", gradient_free_path),
@@ -4026,4 +4121,6 @@ if __name__ == "__main__":
         sys.exit(frn_tlu_only())
     if sys.argv[1:2] == ["--conv3x3"]:
         sys.exit(conv3x3_only())
+    if sys.argv[1:2] == ["--cnn-lstm"]:
+        sys.exit(cnn_lstm_only())
     sys.exit(main())

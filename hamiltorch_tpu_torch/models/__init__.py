@@ -10,6 +10,7 @@ from .bnn import (
     sample_model,
     sample_split_model,
 )
+from .cnn_lstm import cnn_lstm_imdb
 from .resnet_frn import FilterResponseNorm, resnet20_frn_swish
 
 # the JAX package's list, in its order, then the port's own models
@@ -26,4 +27,5 @@ __all__ = [
     "sample_split_model",
     "FilterResponseNorm",
     "resnet20_frn_swish",
+    "cnn_lstm_imdb",
 ]

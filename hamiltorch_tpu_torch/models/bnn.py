@@ -20,8 +20,10 @@ Models come in two forms:
   layout;
 * a plain callable ``apply_fn(params, x)`` with a ``params_template``.
 
-A module runs as a deep copy in ``eval()`` mode (dropout is the identity)
-whose BatchNorm layers always normalise with the batch's moments and never
+A module runs as a deep copy in ``eval()`` mode (dropout is the identity;
+recurrent layers run in training mode with their dropout at 0, the same
+function, so that cuDNN's fused RNN gives a backward pass) whose BatchNorm
+layers always normalise with the batch's moments and never
 update running statistics (``torch.func.replace_all_batch_norm_modules_``
 on the copy), the reference's batch-norm patch (hamiltorch/util.py:370-376)
 and the JAX bridge's rule; the caller's module is never changed.
@@ -61,12 +63,27 @@ from ..utils.rng import next_key
 # model normalisation
 
 
-def _module_apply(module: torch.nn.Module, device):
-    """(apply_fn(params, x), template) of a module: a private copy on
-    ``device`` in ``eval()`` mode with batch-statistics BatchNorm, called
-    through ``functional_call`` with its buffers passed through."""
+def _private_copy(module: torch.nn.Module, device) -> torch.nn.Module:
+    """A copy of ``module`` on ``device`` that computes what the module
+    computes in ``eval()`` mode: every submodule in eval mode but the
+    recurrent ones (``nn.RNNBase``: RNN, LSTM, GRU), which are in training
+    mode with their dropout at 0, the same function, since cuDNN's fused
+    RNN gives no backward pass for a forward taken in eval mode; BatchNorm
+    on batch statistics."""
     module = copy.deepcopy(module).to(device).eval()
+    for sub in module.modules():
+        if isinstance(sub, torch.nn.RNNBase):
+            sub.train()
+            sub.dropout = 0.0
     torch.func.replace_all_batch_norm_modules_(module)
+    return module
+
+
+def _module_apply(module: torch.nn.Module, device):
+    """(apply_fn(params, x), template) of a module: its private copy
+    (``_private_copy``) called through ``functional_call`` with its buffers
+    passed through."""
+    module = _private_copy(module, device)
     names = [name for name, _ in module.named_parameters()]
     buffers = dict(module.named_buffers())
     template = [p.detach().clone() for p in module.parameters()]
@@ -213,10 +230,18 @@ class _BlockedLikelihood(torch.autograd.Function):
 
 def _normal_log_prob(w: torch.Tensor, tau) -> torch.Tensor:
     """Sum of N(0, tau^-1) log-pdfs, constants included (the reference
-    keeps them through torch.distributions.Normal, samplers.py:1141-1156)."""
-    tau = torch.as_tensor(tau, dtype=w.dtype, device=w.device)
+    keeps them through torch.distributions.Normal, samplers.py:1141-1156).
+    A number ``tau`` stays a host scalar: a tensor made of it on the card
+    would be a blocking copy, which stalls the host until the card has run
+    everything queued before it."""
     n = w.numel()
-    return 0.5 * n * torch.log(tau) - 0.5 * n * math.log(2 * math.pi) - 0.5 * tau * torch.sum(w * w)
+    if isinstance(tau, torch.Tensor):
+        tau = tau.to(dtype=w.dtype, device=w.device)
+        log_tau = torch.log(tau)
+    else:
+        tau = float(tau)
+        log_tau = math.log(tau)
+    return 0.5 * n * log_tau - 0.5 * n * math.log(2 * math.pi) - 0.5 * tau * torch.sum(w * w)
 
 
 def _resolve_taus(num_leaves: int, tau_list) -> list:
@@ -376,10 +401,23 @@ def define_model_log_prob(
     (``utils.precision.full_float32``), its backward pass too: float32 data
     are computed in float32.
 
+    A module with a recurrent layer (``nn.RNN``, ``nn.LSTM``, ``nn.GRU``)
+    takes ``block_rows`` on a CUDA device: there it runs cuDNN's fused RNN,
+    which ``torch.func`` cannot differentiate, and the blocked potential
+    takes its gradient with plain autograd (``block_rows=len(x)`` is one
+    block of every row).
+
     The JAX package's function carries ``_raw_fn`` / ``_data`` attributes
     so that its jitted samplers take the data as an operand; eager PyTorch
     needs no such protocol and the port's samplers read none.
     """
+    if (block_rows is None and not predict and isinstance(model, torch.nn.Module)
+            and resolve_device(device).type == "cuda"
+            and any(isinstance(m, torch.nn.RNNBase) for m in model.modules())):
+        raise ValueError("a module with a recurrent layer takes block_rows on a CUDA device: "
+                         "torch.func cannot differentiate cuDNN's fused RNN, and the blocked "
+                         "potential differentiates it with autograd (block_rows=len(x) is one "
+                         "block of every row)")
     raw_fn, template, device = _potential(model, model_loss, tau_list, tau_out, predict,
                                           prior_scale, params_template, remat, device, True,
                                           block_rows)

@@ -610,6 +610,74 @@ def test_bnn_module_hmc_on_card_matches_cpu(cuda_device, batch_norm):
     assert offloaded.device.type == "cpu" and torch.equal(offloaded, drawn.cpu())
 
 
+class _SwitchProbe(torch.autograd.Function):
+    """Identity that notes cuBLAS's and cuDNN's TF32 switches in its forward
+    and its backward."""
+
+    generate_vmap_rule = True
+    seen = []
+
+    @staticmethod
+    def forward(a):
+        _SwitchProbe.seen.append((torch.backends.cuda.matmul.allow_tf32,
+                                  torch.backends.cudnn.allow_tf32))
+        return a.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        _SwitchProbe.seen.append((torch.backends.cuda.matmul.allow_tf32,
+                                  torch.backends.cudnn.allow_tf32))
+        return g
+
+
+class _LSTMNet(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.emb = torch.nn.Embedding(30, 8)
+        self.lstm = torch.nn.LSTM(8, 6, batch_first=True)
+        self.head = torch.nn.Linear(6, 3)
+
+    def forward(self, x):
+        return self.head(_SwitchProbe.apply(self.lstm(self.emb(x))[0][:, -1]))
+
+
+@pytest.mark.gpu
+def test_lstm_module_gradient_on_card_matches_float64(cuda_device):
+    """cuDNN's fused LSTM gives the blocked potential a gradient on the card
+    (its forward runs in training mode with dropout 0) that matches float64
+    on the CPU, for 3 chains under vmap, with the TF32 switches read as off
+    inside the potential, forward and backward, while they are on outside;
+    the whole potential is refused on the card."""
+    from hamiltorch_tpu_torch.models.bnn import define_model_log_prob
+
+    torch.manual_seed(0)
+    net = _LSTMNet()
+    x, y = torch.randint(0, 30, (40, 9)), torch.randint(0, 3, (40,))
+    flat = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+    theta = flat + 0.1 * torch.randn(3, flat.numel())
+    lp64, _, _ = define_model_log_prob(net.double(), "multi_class_linear_output", x, y,
+                                       tau_list=5.0, device="cpu")
+    g64, v64 = torch.func.vmap(torch.func.grad_and_value(lp64))(theta.double())
+    net.float()
+    lp, _, _ = define_model_log_prob(net, "multi_class_linear_output", x, y, tau_list=5.0,
+                                     device=cuda_device, block_rows=16)
+    _SwitchProbe.seen.clear()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        g, v = torch.func.vmap(torch.func.grad_and_value(lp))(theta.to(cuda_device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    assert _SwitchProbe.seen == [(False, False)] * (2 * 3 * 3)  # 3 blocks of 16 rows, 3 chains
+    torch.testing.assert_close(g.cpu().double(), g64, rtol=0, atol=1e-5 * float(g64.abs().max()))
+    torch.testing.assert_close(v.cpu().double(), v64, rtol=1e-6, atol=0)
+    with pytest.raises(ValueError, match="block_rows"):
+        define_model_log_prob(net, "multi_class_linear_output", x, y, device=cuda_device)
+
+
 @pytest.mark.gpu
 def test_batchnorm_under_vmap_on_card_matches_cpu(cuda_device):
     """BatchNorm on batch statistics under torch.func.vmap over chains:

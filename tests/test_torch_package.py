@@ -11,7 +11,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "hamiltorch_tpu_torch"
 # modules of the port with no JAX counterpart
 PORT_ONLY = {"utils/convert.py", "kernels/_build.py", "kernels/bnn_grad.py", "utils/precision.py",
-             "models/resnet_frn.py", "kernels/frn_tlu.py", "kernels/conv3x3.py"}
+             "models/resnet_frn.py", "kernels/frn_tlu.py", "kernels/conv3x3.py",
+             "models/cnn_lstm.py"}
 # CUDA sources with no Pallas counterpart: the gradient alone, for tests and
 # timing; FRN with TLU and the same-width 3x3 convolution, for the port's
 # ResNet-20-FRN (the JAX package has no FRN and leaves convolutions to XLA)
